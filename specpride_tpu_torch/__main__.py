@@ -1,0 +1,5 @@
+"""``python -m specpride_tpu_torch`` entry point."""
+from specpride_tpu_torch.cli import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

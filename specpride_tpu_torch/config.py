@@ -1,0 +1,67 @@
+"""Configuration of the binned-mean consensus.
+
+The port's own copy of ``BinMeanConfig`` and the ppm grid formula.  The
+field names match the JAX package's, so a config converts with
+``BinMeanConfig(**dataclasses.asdict(other))``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+import numpy as np
+
+
+def ppm_bin_index(mz, min_mz: float, ppm: float):
+    """The mass-proportional grid formula
+    ``floor(ln(mz / min_mz) / ln(1 + ppm*1e-6))`` in float64, for a
+    scalar or an array.  One home for ``BinMeanConfig.n_bins`` (the
+    bound) and ``ops.quantize.bin_mean_bins`` (peak quantization), so the
+    grid and its bound cannot drift apart."""
+    width = np.log1p(ppm * 1e-6)
+    mzf = np.maximum(np.asarray(mz, dtype=np.float64), 1e-300)
+    return np.floor(np.log(mzf / min_mz) / width).astype(np.int64)
+
+
+@dataclasses.dataclass(frozen=True)
+class BinMeanConfig:
+    """Binned-mean consensus (ref src/binning.py:170 combine_bin_mean).
+
+    ``min_mz``/``max_mz``/``bin_size`` reproduce the reference's call
+    (100, 2000, 0.02); quorum = int(n_members * quorum_fraction) + 1.
+    ``tolerance_mode="ppm"`` swaps the fixed-width grid for
+    mass-proportional bins of ``ppm`` parts per million."""
+
+    min_mz: float = 100.0
+    max_mz: float = 2000.0
+    bin_size: float = 0.02
+    apply_peak_quorum: bool = True
+    quorum_fraction: float = 0.25
+    tolerance_mode: Literal["da", "ppm"] = "da"
+    ppm: float = 20.0
+
+    def __post_init__(self):
+        if self.tolerance_mode == "ppm":
+            if not self.ppm > 0:
+                raise ValueError(
+                    f"tolerance_mode='ppm' needs ppm > 0, got {self.ppm}"
+                )
+            if not self.min_mz > 0:
+                raise ValueError(
+                    "tolerance_mode='ppm' needs min_mz > 0 (the grid is "
+                    f"logarithmic in mz/min_mz), got {self.min_mz}"
+                )
+        elif not self.bin_size > 0:
+            raise ValueError(f"bin_size must be > 0, got {self.bin_size}")
+        if not self.max_mz > self.min_mz:
+            raise ValueError(
+                f"max_mz ({self.max_mz}) must exceed min_mz ({self.min_mz})"
+            )
+
+    @property
+    def n_bins(self) -> int:
+        if self.tolerance_mode == "ppm":
+            return int(ppm_bin_index(self.max_mz, self.min_mz, self.ppm)) + 1
+        # ref src/binning.py:172: int((max-min)/binsize) + 1
+        return int((self.max_mz - self.min_mz) / self.bin_size) + 1

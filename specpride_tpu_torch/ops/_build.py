@@ -1,0 +1,116 @@
+"""Build and load the port's CUDA kernels.
+
+``nvcc`` compiles every ``ops/csrc/*.cu`` into one shared library with a
+plain C interface, ``build/torch_kernels/libspecpride_torch.so`` beside
+the package, at first use; it is rebuilt when the sources' hash changes.
+The library is loaded with ``ctypes``.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_PKG_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)
+)))
+BUILD_DIR = os.path.join(_PKG_ROOT, "build", "torch_kernels")
+LIB_NAME = "libspecpride_torch.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+# seconds and compiler output of this process's build (None: loaded as is)
+build_info: dict | None = None
+
+
+def _sources(pattern: str = "*.cu") -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, pattern)))
+
+
+def _digest(nvcc: str) -> str:
+    """Hash of the compiler, its flags and every source and header."""
+    h = hashlib.sha256(" ".join((nvcc,) + NVCC_FLAGS).encode())
+    for path in _sources("*.cu") + _sources("*.cuh"):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()
+
+
+def _find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        nvcc = os.path.join(home, "bin", "nvcc")
+    if not os.access(nvcc, os.X_OK):
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+            "the CUDA toolkit is needed to build the port's kernels"
+        )
+    return nvcc
+
+
+def _build(nvcc: str, digest: str) -> str:
+    """Compile into a temporary name, then rename: a reader never sees a
+    half-written library."""
+    global build_info
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    lib_path = os.path.join(BUILD_DIR, LIB_NAME)
+    stamp = lib_path + ".sha256"
+    tmp = f"{lib_path}.tmp{os.getpid()}"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, lib_path)
+    with open(stamp, "w") as fh:
+        fh.write(digest)
+    build_info = {
+        "seconds": time.perf_counter() - t0,
+        "log": proc.stdout + proc.stderr,
+    }
+    return lib_path
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built first if its sources changed."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        nvcc = _find_nvcc()
+        digest = _digest(nvcc)
+        lib_path = os.path.join(BUILD_DIR, LIB_NAME)
+        try:
+            with open(lib_path + ".sha256") as fh:
+                fresh = fh.read() == digest and os.path.exists(lib_path)
+        except FileNotFoundError:
+            fresh = False
+        if not fresh:
+            lib_path = _build(nvcc, digest)
+        lib = ctypes.CDLL(lib_path)
+        vp = ctypes.c_void_p
+        lib.seg_mean_tile_size.argtypes = []
+        lib.seg_mean_tile_size.restype = ctypes.c_int
+        lib.seg_mean_f32.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
+            vp, vp, vp,
+        ]
+        lib.seg_mean_f32.restype = ctypes.c_int
+        _lib = lib
+        return lib

@@ -1,0 +1,111 @@
+"""The port's seg_mean against the JAX package's seg_mean_pallas.
+
+On the CPU the wrapper runs its plain PyTorch version; the Pallas kernel
+runs in interpret mode, as the JAX package's own tests run it.  Counts
+are sums of 0/1 weights and must match exactly; means within rtol 1e-5
+(float32 sums in another order than the float64 plain prefixes)."""
+
+import numpy as np
+import pytest
+import torch
+
+from specpride_tpu.ops import pallas_kernels as pk
+from specpride_tpu_torch.ops import kernels
+
+
+def _runs(rng, n, lo, hi):
+    lens = []
+    while sum(lens) < n:
+        lens.append(int(rng.integers(lo, hi)))
+    return np.repeat(np.arange(len(lens)), lens)[:n].astype(np.int32)
+
+
+def _case(name, rng):
+    """(keys, w) for one named layout; values are drawn by the caller."""
+    if name == "straddle":  # random runs, many across the block edge
+        n = 2 * pk.BLK
+        keys = _runs(rng, n, 1, pk.BLK // 3)
+        w = np.ones(n, np.float32)
+    elif name == "masked":  # path-like runs of 1-20 with masked slots
+        n = 2 * pk.BLK
+        keys = _runs(rng, n, 1, 21)
+        w = (rng.uniform(0, 1, n) < 0.8).astype(np.float32)
+    elif name == "masked_run":  # one run masked from its start
+        n = 2 * pk.BLK
+        keys = _runs(rng, n, 1, 21)
+        w = np.ones(n, np.float32)
+        w[keys == keys[pk.BLK]] = 0.0
+    elif name == "long_run":  # one run across four blocks, then a tail
+        n = 5 * pk.BLK
+        keys = np.zeros(n, np.int32)
+        keys[4 * pk.BLK + 7:] = 1
+        w = np.ones(n, np.float32)
+    elif name == "pad_tail":  # non-negative keys, then a -1 padding tail
+        n = 2 * pk.BLK
+        keys = _runs(rng, n, 1, 21)
+        keys[n - pk.BLK // 2 - 3:] = -1
+        w = (keys >= 0).astype(np.float32)
+    else:
+        raise ValueError(name)
+    return keys, w
+
+
+CASES = ["straddle", "masked", "masked_run", "long_run", "pad_tail"]
+
+
+@pytest.mark.parametrize("nv", [1, 2])
+@pytest.mark.parametrize("case", CASES)
+def test_seg_mean_plain_matches_pallas(case, nv):
+    rng = np.random.default_rng(CASES.index(case) * 10 + nv)
+    keys, w = _case(case, rng)
+    n = keys.size
+    values = [rng.uniform(10.0, 1e4, n).astype(np.float32) for _ in range(nv)]
+    before = kernels.launches["seg_mean"]
+
+    want = [np.asarray(o) for o in
+            pk.seg_mean_pallas(keys, w, *values, interpret=True)]
+    got = [o.numpy() for o in kernels.seg_mean(
+        *(torch.from_numpy(a) for a in (keys, w, *values))
+    )]
+
+    assert kernels.launches["seg_mean"] == before  # CPU: no launch
+    assert len(got) == 1 + nv
+    np.testing.assert_array_equal(got[0], want[0])
+    for g, e in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g, e, rtol=1e-5, atol=0)
+    if case == "masked_run":
+        masked = keys == keys[pk.BLK]
+        assert (got[0][masked] == 0).all() and (got[1][masked] == 0).all()
+    if case == "long_run":
+        assert got[0][4 * pk.BLK + 6] == 4 * pk.BLK + 7
+        assert got[0][-1] == pk.BLK - 7
+
+
+def test_seg_mean_plain_reads_masked_slot_inside_run():
+    """A zero-weight slot inside a run reads the count of the valid slots
+    before it (the Pallas body's prefix), not 0."""
+    keys = torch.tensor([3, 3, 3, 4], dtype=torch.int32)
+    w = torch.tensor([1.0, 0.0, 1.0, 1.0])
+    x = torch.tensor([2.0, 100.0, 4.0, 8.0])
+    cnt, mean = kernels.seg_mean(keys, w, x)
+    assert cnt.tolist() == [1.0, 1.0, 2.0, 1.0]
+    assert mean.tolist() == [2.0, 2.0, 3.0, 8.0]
+
+
+@pytest.mark.parametrize(
+    "bad",
+    ["keys_dtype", "w_dtype", "length", "channels", "two_dim"],
+)
+def test_seg_mean_rejects_bad_arguments(bad):
+    keys = torch.zeros(8, dtype=torch.int32)
+    w = torch.ones(8)
+    x = torch.ones(8)
+    args = {
+        "keys_dtype": (keys.long(), w, x),
+        "w_dtype": (keys, w.double(), x),
+        "length": (keys, w, torch.ones(7)),
+        "channels": (keys, w, x, x, x),
+        "two_dim": (keys.view(2, 4), w.view(2, 4), x.view(2, 4)),
+    }[bad]
+    with pytest.raises((TypeError, ValueError)):
+        kernels.seg_mean(*args)
