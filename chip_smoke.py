@@ -5,18 +5,27 @@ NVIDIA GPU:
     python3 chip_smoke.py
 
 1. prints the card and its power limit, builds the CUDA kernels from
-   ``specpride_tpu_torch/ops/csrc`` with nvcc (sm_90a);
+   ``specpride_tpu_torch/ops/csrc`` with nvcc (sm_90a, one nvcc per
+   source, side by side);
 2. kernel phase: ``seg_mean`` against ``seg_mean_plain`` on the card
    (nv = 1 and 2, N = 16,777,216 and a ragged N, runs of 1-20, one run
    across many tiles, masked slots, a -1 tail), and times the kernel, the
-   plain version and ``torch.segment_reduce`` with CUDA events;
-3. slice phase: ``TorchBackend(device="cuda").run_bin_mean`` on 20,000
-   synthetic clusters (seed 42, about 27M peaks, two or more chunks),
-   counting kernel launches, against the same run on the CPU;
-4. CLI phase: ``python -m specpride_tpu_torch consensus`` on a
-   2,000-cluster MGF, against a CPU run;
+   plain version and ``torch.segment_reduce`` with CUDA events; then
+   ``seg_scan`` against ``seg_scan_plain`` (head flags with nc = 1 and 2,
+   sorted keys with nc = 3, at the same N), timed beside ``torch.cumsum``
+   as a same-bytes reference;
+3. slice phase: ``TorchBackend(device="cuda").run_bin_mean_with_cosines``
+   (consensus and QC cosine) on 20,000 synthetic clusters (seed 42, about
+   27M peaks, two or more consensus and cosine chunks), counting kernel
+   launches, against the same run on the CPU; then ``seg_scan`` against
+   its plain version and timed at the path's largest scans;
+4. CLI phase: ``python -m specpride_tpu_torch consensus --qc-report`` on
+   a 2,000-cluster MGF, against a CPU run;
 5. prints a ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": {...}}`` line.
+
+Every comparison of a kernel with its plain version prints its largest
+relative error beside the tolerance.
 
 Any failed phase exits non-zero.  It exits non-zero, printing no result,
 where CUDA is unavailable or the package is not beside it.  Full
@@ -34,8 +43,11 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 TOL = dict(rtol=1e-5, atol=0.0)  # f32 tile sums vs f64 plain prefixes
+# cosines: f32 sums in another order on the card than on the CPU
+COS_TOL = dict(rtol=1e-5, atol=1e-6)
 KERNEL_N = 16 * 1024 * 1024  # the main path's chunk cap
 RAGGED_N = 10_000_019
 SLICE_CLUSTERS = 20_000
@@ -88,8 +100,17 @@ def kernel_inputs(n: int, nv: int, seed: int):
     return keys.astype(np.int32), w, values
 
 
-def time_ms(fn, reps: int = 25, warm: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings after ``warm`` calls."""
+SPIN_CYCLES = 2_000_000  # ~1 ms of the card's clock: outlasts any enqueue
+
+
+def time_ms(fn, reps: int = 25, warm: int = 3, lead_in: bool = True) -> float:
+    """Median of ``reps`` CUDA-event timings of one call after ``warm``
+    calls.  With ``lead_in`` (the kernels' ``ms``) a ~1 ms spin kernel
+    runs first, so the host has enqueued the whole call before the start
+    event fires: the number is the card's time for the call, unless ``fn``
+    itself waits for the card.  Without it (``call_ms``) the card is idle
+    at the start event and the number also holds the host's time to reach
+    the first launch: the latency one call shows its caller."""
     import torch
 
     for _ in range(warm):
@@ -99,6 +120,8 @@ def time_ms(fn, reps: int = 25, warm: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if lead_in:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -107,31 +130,81 @@ def time_ms(fn, reps: int = 25, warm: int = 3) -> float:
     return float(np.median(times))
 
 
-def compare(got, want, what: str) -> float:
-    """Counts equal, means within TOL; returns the means' max abs error."""
+def device_split(fn, calls: int = 20) -> tuple[dict | None, float]:
+    """Where one call of ``fn`` spends its time: the device time of each
+    CUDA kernel it launches, in µs per call (``torch.profiler`` over
+    ``calls`` calls; None where the profiler saw no device time), and the
+    host's time to enqueue one call, in µs (host clock, no synchronize
+    inside the loop)."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(ev, "device_time_total", 0.0) / calls
+        m = re.search(r"(seg_\w+)", ev.key)
+        name = m.group(1) if m else ev.key[:60]
+        split[name] = split.get(name, 0.0) + us
+    return (split or None), host_us
+
+
+def max_rel_err(got, want) -> float:
+    """Largest |got - want| / |want| over the elements where want != 0
+    (there, an rtol check with atol 0 needs got == want exactly)."""
     import torch
 
-    if not torch.equal(got[0], want[0]):
+    nz = want != 0
+    if not bool(nz.any()):
+        return 0.0
+    return float(((got - want).abs()[nz] / want.abs()[nz]).max())
+
+
+def compare(got, want, what: str, exact_first: bool) -> tuple[float, float]:
+    """Channels within TOL (the first, seg_mean's count, exactly equal when
+    ``exact_first``); returns the max abs and max relative error of the
+    channels held to TOL, printing the latter beside the tolerance."""
+    import torch
+
+    if exact_first and not torch.equal(got[0], want[0]):
         bad = int((got[0] != want[0]).sum())
         raise AssertionError(f"{what}: {bad} counts differ")
-    err = 0.0
-    for c, (g, e) in enumerate(zip(got[1:], want[1:])):
+    err = rel = 0.0
+    start = 1 if exact_first else 0
+    for c, (g, e) in enumerate(zip(got[start:], want[start:])):
         bad = ~torch.isclose(g, e, **TOL)
         if bad.any():
             i = int(torch.nonzero(bad)[0])
             raise AssertionError(
-                f"{what}: {int(bad.sum())} of channel {c}'s means outside "
-                f"{TOL}; first at {i}: {float(g[i])!r} vs {float(e[i])!r} "
-                f"(count {float(got[0][i])})"
+                f"{what}: {int(bad.sum())} of channel {c}'s values outside "
+                f"{TOL}; first at {i}: {float(g[i])!r} vs {float(e[i])!r}"
             )
         err = max(err, float((g - e).abs().max()))
-    return err
+        rel = max(rel, max_rel_err(g, e))
+    print(f"compare {what}: max_rel_err {rel!r} (rtol {TOL['rtol']}, "
+          f"atol {TOL['atol']})", flush=True)
+    return err, rel
 
 
-def kernel_phase(kernels) -> dict:
+def seg_mean_phase(kernels) -> dict:
     import torch
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEV)
     res = {"cases": []}
     for n in (KERNEL_N, RAGGED_N):
         for nv in (1, 2):
@@ -140,8 +213,9 @@ def kernel_phase(kernels) -> dict:
             got = kernels.seg_mean(*args)
             torch.cuda.synchronize()
             want = kernels.seg_mean_plain(*args)
-            case = {"n": n, "nv": nv,
-                    "max_abs_err": compare(got, want, f"n={n} nv={nv}")}
+            err, rel = compare(got, want, f"seg_mean n={n} nv={nv}", True)
+            case = {"n": n, "nv": nv, "max_abs_err": err,
+                    "max_rel_err": rel}
             if n == KERNEL_N:
                 head = torch.ones(n, dtype=torch.bool, device=dev)
                 head[1:] = args[0][1:] != args[0][:-1]
@@ -152,6 +226,8 @@ def kernel_phase(kernels) -> dict:
                     [args[1]] + [v * args[1] for v in args[2:]], dim=1
                 )
                 case["ms"] = time_ms(lambda: kernels.seg_mean(*args))
+                case["call_ms"] = time_ms(lambda: kernels.seg_mean(*args),
+                                          lead_in=False)
                 case["plain_ms"] = time_ms(
                     lambda: kernels.seg_mean_plain(*args)
                 )
@@ -161,10 +237,71 @@ def kernel_phase(kernels) -> dict:
                     stacked, "sum", lengths=lengths, axis=0, unsafe=True
                 ))
                 case["library"] = "torch.segment_reduce, run totals only"
+                case["device_us"], case["host_us_per_call"] = device_split(
+                    lambda: kernels.seg_mean(*args)
+                )
                 case["bound_ms"] = n * (12 + 8 * nv) / HBM_BYTES_PER_S * 1e3
             res["cases"].append(case)
             print(f"kernel seg_mean {json.dumps(case)}", flush=True)
     return res
+
+
+SCAN_CASES = (("flags", 1), ("flags", 2), ("keys", 3))
+
+
+def scan_case(kernels, n: int, kind: str, nc: int, timed: bool) -> dict:
+    """``seg_scan`` on ``kernel_inputs``' runs, given as head flags or as
+    the sorted keys themselves, against ``seg_scan_plain``; with ``timed``
+    also the kernel, the plain version and ``torch.cumsum`` over the same
+    channels, which moves the same value bytes but computes another
+    function (no single PyTorch call computes a segmented scan)."""
+    import torch
+
+    keys, _, values = kernel_inputs(n, nc, seed=n % 89 + nc)
+    runs = keys
+    if kind == "flags":
+        runs = np.ones(n, dtype=bool)
+        runs[1:] = keys[1:] != keys[:-1]
+    args = [torch.from_numpy(a).to(DEV) for a in (runs, *values)]
+    got = kernels.seg_scan(*args)
+    torch.cuda.synchronize()
+    want = kernels.seg_scan_plain(*args)
+    err, rel = compare(got, want, f"seg_scan {kind} n={n} nc={nc}", False)
+    case = {"n": n, "runs": kind, "nc": nc, "max_abs_err": err,
+            "max_rel_err": rel}
+    if timed:
+        case["ms"] = time_ms(lambda: kernels.seg_scan(*args))
+        case["call_ms"] = time_ms(lambda: kernels.seg_scan(*args),
+                                  lead_in=False)
+        case["plain_ms"] = time_ms(lambda: kernels.seg_scan_plain(*args))
+        case["cumsum_ms"] = time_ms(
+            lambda: [torch.cumsum(v, 0) for v in args[1:]]
+        )
+        case["cumsum"] = "torch.cumsum per channel: same bytes, not a yardstick"
+        case["device_us"], case["host_us_per_call"] = device_split(
+            lambda: kernels.seg_scan(*args)
+        )
+        head_bytes = 4 if kind == "keys" else 1
+        case["bound_ms"] = n * (head_bytes + 8 * nc) / HBM_BYTES_PER_S * 1e3
+    print(f"kernel seg_scan {json.dumps(case)}", flush=True)
+    return case
+
+
+def seg_scan_phase(kernels) -> dict:
+    return {"cases": [
+        scan_case(kernels, n, kind, nc, timed=n == KERNEL_N)
+        for n in (KERNEL_N, RAGGED_N) for kind, nc in SCAN_CASES
+    ]}
+
+
+def path_scan_phase(kernels, shapes: list) -> dict:
+    """``seg_scan`` at the slice's largest one- and two-channel scans (the
+    member side of its largest cosine chunk)."""
+    cases = []
+    for nc in (1, 2):
+        n = max(m for m, c in shapes if c == nc)
+        cases.append(scan_case(kernels, n, "flags", nc, timed=True))
+    return {"cases": cases}
 
 
 def check_same(got, want, what: str) -> None:
@@ -182,7 +319,54 @@ def check_same(got, want, what: str) -> None:
                                    err_msg=what)
 
 
+def check_cosines(got, want, what: str) -> dict:
+    """Card vs CPU cosines: finite, of one shape, within COS_TOL."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{what}: cosines not finite or misshapen")
+    np.testing.assert_allclose(got, want, **COS_TOL, err_msg=what)
+    nz = want != 0
+    rel = float((np.abs(got - want)[nz] / np.abs(want[nz])).max(initial=0))
+    err = {"max_abs_err": float(np.abs(got - want).max(initial=0)),
+           "max_rel_err": rel}
+    print(f"compare {what} cosines: max_abs_err {err['max_abs_err']!r} "
+          f"max_rel_err {rel!r} (rtol {COS_TOL['rtol']}, atol "
+          f"{COS_TOL['atol']})", flush=True)
+    return err
+
+
+def host_split(backend, clusters, reps) -> dict:
+    """Host seconds of the pack stages on the slice's data, one call each
+    after the main run (host clock, one sample): the consensus pack
+    (``pack_flat_bin_mean``, its table included; the per-chunk host run
+    pass is the rest of the ``pack`` phase), and the QC cosine's member
+    prep, rep prep and per-chunk arrays (together the ``qc_pack`` phase)."""
+    from specpride_tpu_torch.config import BinMeanConfig, CosineConfig
+    from specpride_tpu_torch.data.packed import pack_flat_bin_mean
+
+    cfg = CosineConfig()
+    split = {}
+    t0 = time.perf_counter()
+    pack_flat_bin_mean(clusters, BinMeanConfig(),
+                       max_elements=backend.max_grid_elements // 4)
+    split["consensus_pack_flat"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mprep = backend._prep_cosine_members(clusters, cfg)
+    split["qc_members"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prep = backend._prep_cosine_reps(reps, mprep, cfg)
+    split["qc_reps"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for lo, hi in backend._cosine_chunks(prep):
+        backend._cosine_chunk_arrays(prep, lo, hi)
+    split["qc_chunk_arrays"] = time.perf_counter() - t0
+    print(f"host split {json.dumps(split)}", flush=True)
+    return split
+
+
 def slice_phase(kernels) -> dict:
+    """The main path, consensus and QC, with every launch count zeroed just
+    before it; the shapes of its seg_scan calls are recorded on the way."""
     import torch
 
     from specpride_tpu_torch.backends.torch_backend import TorchBackend
@@ -191,32 +375,59 @@ def slice_phase(kernels) -> dict:
     clusters = make_workload(SLICE_CLUSTERS, seed=42)
     n_peaks = sum(c.total_peaks for c in clusters)
     gen_s = time.perf_counter() - t0
-    TorchBackend(device="cuda").run_bin_mean(clusters[:200])  # warm-up
+    TorchBackend(device=DEV).run_bin_mean_with_cosines(clusters[:200])
 
-    backend = TorchBackend(device="cuda")
+    backend = TorchBackend(device=DEV)
+    shapes = []
+    scan = kernels.seg_scan
+
+    def recording_scan(runs, *values):
+        shapes.append((runs.numel(), len(values)))
+        return scan(runs, *values)
+
     torch.cuda.reset_peak_memory_stats()
-    kernels.launches["seg_mean"] = 0
+    kernels.seg_scan = recording_scan
+    for name in kernels.launches:
+        kernels.launches[name] = 0
     t0 = time.perf_counter()
-    reps = backend.run_bin_mean(clusters)
-    torch.cuda.synchronize()
+    try:
+        reps, cosines = backend.run_bin_mean_with_cosines(clusters)
+        torch.cuda.synchronize()
+    finally:
+        kernels.seg_scan = scan
     wall = time.perf_counter() - t0
-    launches = kernels.launches["seg_mean"]
-    if backend.chunks < 2 or launches != backend.chunks:
+    launches = dict(kernels.launches)
+    if backend.chunks < 2 or launches["seg_mean"] != backend.chunks:
         raise AssertionError(
-            f"slice ran {backend.chunks} chunks, {launches} launches"
+            f"slice ran {backend.chunks} consensus chunks, "
+            f"{launches['seg_mean']} seg_mean launches"
         )
-    ref = TorchBackend(device="cpu").run_bin_mean(clusters)
-    check_same(reps, ref, "slice")
+    if backend.cos_chunks < 2 or launches["seg_scan"] != 5 * backend.cos_chunks:
+        raise AssertionError(
+            f"slice ran {backend.cos_chunks} cosine chunks, "
+            f"{launches['seg_scan']} seg_scan launches"
+        )
+    ref_reps, ref_cos = TorchBackend(device="cpu").run_bin_mean_with_cosines(
+        clusters
+    )
+    check_same(reps, ref_reps, "slice")
+    cos_err = check_cosines(cosines, ref_cos, "slice")
+    split = host_split(backend, clusters, reps)
     res = {
         "clusters": len(clusters), "peaks": n_peaks,
         "spectra": sum(c.n_members for c in clusters),
-        "chunks": backend.chunks, "launches": launches,
+        "chunks": backend.chunks, "cos_chunks": backend.cos_chunks,
+        "launches": launches,
         "wall_s": wall, "clusters_per_s": len(clusters) / wall,
         "phase_s": backend.phase_seconds,
+        "mean_cosine": float(np.mean(cosines)),
+        "cosine_err": cos_err,
+        "host_split_s": split,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
         "workload_gen_s": gen_s,
     }
     print(f"slice {json.dumps(res)}", flush=True)
+    res["scan_shapes"] = shapes
     return res
 
 
@@ -228,24 +439,36 @@ def cli_phase() -> dict:
     work = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
     src, dst = os.path.join(work, "in.mgf"), os.path.join(work, "out.mgf")
+    qc = os.path.join(work, "qc.json")
     clusters = make_workload(CLI_CLUSTERS, seed=42)
     write_mgf([s for c in clusters for s in c.members], src)
-    if os.path.exists(dst):
-        os.remove(dst)
+    for path in (dst, qc):
+        if os.path.exists(path):
+            os.remove(path)
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "specpride_tpu_torch", "consensus", src, dst],
+        [sys.executable, "-m", "specpride_tpu_torch", "consensus", src, dst,
+         "--qc-report", qc],
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
         capture_output=True, text=True, timeout=600,
     )
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"CLI exited {proc.returncode}:\n{proc.stderr}")
-    ref = TorchBackend(device="cpu").run_bin_mean(
-        group_into_clusters(read_mgf(src))
+    parsed = group_into_clusters(read_mgf(src))
+    ref_reps, ref_cos = TorchBackend(device="cpu").run_bin_mean_with_cosines(
+        parsed
     )
-    check_same(read_mgf(dst), ref, "cli")
-    res = {"clusters": len(clusters), "wall_s": wall}
+    check_same(read_mgf(dst), ref_reps, "cli")
+    with open(qc) as fh:
+        report = json.load(fh)
+    rows = report["clusters"]
+    if [r["cluster_id"] for r in rows] != [c.cluster_id for c in parsed]:
+        raise AssertionError("cli: QC report rows differ from the clusters")
+    if report["summary"]["n_clusters"] != len(parsed):
+        raise AssertionError("cli: QC report summary miscounts clusters")
+    cos_err = check_cosines([r["avg_cosine"] for r in rows], ref_cos, "cli")
+    res = {"clusters": len(clusters), "wall_s": wall, "cosine_err": cos_err}
     print(f"cli {json.dumps(res)}", flush=True)
     return res
 
@@ -275,34 +498,54 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     info = _build.build_info or {}
-    print(f"build {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {info.get('seconds', 0.0):.2f} s)", flush=True)
+    print(f"build {time.perf_counter() - t0:.2f} s (nvcc "
+          f"{info.get('seconds', 0.0):.2f} s, compile "
+          f"{info.get('compile_seconds', 0.0):.2f} s)", flush=True)
     print(info.get("log", "").strip(), flush=True)
 
-    kres = kernel_phase(kernels)
+    mres = seg_mean_phase(kernels)
+    kres = seg_scan_phase(kernels)
     sres = slice_phase(kernels)
+    pres = path_scan_phase(kernels, sres.pop("scan_shapes"))
     cres = cli_phase()
 
-    main_case = kres["cases"][0]
-    entry = {
+    main_case = mres["cases"][0]
+    path_case = pres["cases"][0]
+    entries = [{
         "name": "seg_mean",
         "route": "cuda",
         "source": "specpride_tpu_torch/ops/csrc/seg_mean.cu",
         "replaces": "specpride_tpu/ops/pallas_kernels.py:187",
-        "launches": sres["launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in kres["cases"]),
+        "launches": sres["launches"]["seg_mean"],
+        "max_abs_err": max(c["max_abs_err"] for c in mres["cases"]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": "bytes",
         "library_ms": main_case["library_ms"],
-    }
+    }, {
+        "name": "seg_scan",
+        "route": "cuda",
+        "source": "specpride_tpu_torch/ops/csrc/seg_scan.cu",
+        "replaces": "specpride_tpu/ops/pallas_kernels.py:148",
+        "launches": sres["launches"]["seg_scan"],
+        "max_abs_err": max(
+            c["max_abs_err"] for c in kres["cases"] + pres["cases"]
+        ),
+        "ms": path_case["ms"],
+        "plain_ms": path_case["plain_ms"],
+        "bound_ms": path_case["bound_ms"],
+        "bound_by": "bytes",
+        # no single PyTorch call computes a segmented scan
+        "library_ms": None,
+    }]
     out = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "chip_smoke.json"), "w") as fh:
-        json.dump({"card": smi, "kernel": kres, "slice": sres, "cli": cres,
+        json.dump({"card": smi, "seg_mean": mres, "seg_scan": kres,
+                   "slice": sres, "path_scan": pres, "cli": cres,
                    "build": info.get("seconds")}, fh, indent=1)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}), flush=True)

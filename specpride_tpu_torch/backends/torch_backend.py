@@ -1,4 +1,5 @@
-"""The port's device backend: binned-mean consensus on the flat layout.
+"""The port's device backend: binned-mean consensus and its QC cosine on
+the flat layout.
 
 ``TorchBackend.run_bin_mean`` packs every kept peak flat on the host
 (``data.packed.pack_flat_bin_mean``), computes per chunk on the host what
@@ -6,6 +7,12 @@ its sorted pass gives exactly (run counts, the integer quorum, the m/z
 means), sends intensities and composite keys to the card, runs
 ``ops.binning.bin_mean_flat_intensity`` there and assembles the spectra
 from the host m/z means and the card's intensity means.
+
+``TorchBackend.average_cosines`` lays member and representative peaks
+each along one flat axis sorted by (row, spectrum, bin) on the host,
+gates intensities by each pair's grid cutoff, looks up each member peak's
+rep bin, and runs ``ops.similarity.cosine_flat`` on the card per chunk.
+``run_bin_mean_with_cosines`` is the two in a row.
 """
 
 from __future__ import annotations
@@ -15,12 +22,24 @@ import time
 import numpy as np
 import torch
 
-from specpride_tpu_torch.config import BinMeanConfig
-from specpride_tpu_torch.data.packed import _as_table, pack_flat_bin_mean
+from specpride_tpu_torch.config import BinMeanConfig, CosineConfig
+from specpride_tpu_torch.data.packed import (
+    SENTINEL,
+    _as_table,
+    _grouped_arange,
+    pack_flat_bin_mean,
+)
 from specpride_tpu_torch.data.peaks import Cluster, Spectrum
-from specpride_tpu_torch.ops import binning
+from specpride_tpu_torch.ops import binning, quantize, similarity
+from specpride_tpu_torch.ops.segsort import (
+    searchsorted_right_i32,
+    seg_argsort,
+)
 
-PHASES = ("pack", "h2d", "kernel", "d2h", "finalize")
+PHASES = (
+    "pack", "h2d", "kernel", "d2h", "finalize",
+    "qc_pack", "qc_h2d", "qc_kernel", "qc_d2h",
+)
 
 
 def check_no_empty(clusters: list[Cluster]) -> None:
@@ -44,8 +63,9 @@ class TorchBackend:
     "cpu").  ``max_grid_elements // 4`` bounds the peaks of one chunk.
 
     ``phase_seconds`` accumulates wall seconds per phase over calls (the
-    kernel phase from CUDA events on the card); ``chunks`` counts the
-    chunks run."""
+    kernel phases from CUDA events on the card); the ``qc_*`` phases are
+    the QC cosine's.  ``chunks`` counts the consensus chunks run and
+    ``cos_chunks`` the cosine chunks."""
 
     def __init__(
         self, device: str | torch.device = "cuda",
@@ -62,6 +82,7 @@ class TorchBackend:
         self.max_grid_elements = int(max_grid_elements)
         self.phase_seconds = dict.fromkeys(PHASES, 0.0)
         self.chunks = 0
+        self.cos_chunks = 0
 
     def run_bin_mean(
         self, clusters: list[Cluster], config: BinMeanConfig = BinMeanConfig()
@@ -83,6 +104,28 @@ class TorchBackend:
             t0 = time.perf_counter()
             self._emit_bin_mean_rows(batch, fused, aux, clusters, out)
             self.phase_seconds["finalize"] += time.perf_counter() - t0
+        return out
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _timed(self, phase: str, fn):
+        """``fn()``, its time added to ``phase``: CUDA events around it on
+        the card (the caller has synchronized, so only ``fn``'s work is
+        timed), the host clock on the CPU."""
+        if self.device.type != "cuda":
+            t0 = time.perf_counter()
+            out = fn()
+            self.phase_seconds[phase] += time.perf_counter() - t0
+            return out
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        self.phase_seconds[phase] += start.elapsed_time(end) / 1e3
         return out
 
     def _host_run_pass(self, batch, config: BinMeanConfig) -> dict:
@@ -136,24 +179,12 @@ class TorchBackend:
             torch.from_numpy(a).to(self.device)
             for a in (batch.intensity, batch.gbin, aux["keep"])
         ]
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
+        self._sync()
         ph["h2d"] += time.perf_counter() - t0
 
-        t0 = time.perf_counter()
-        if self.device.type == "cuda":
-            start.record()
-        fused = binning.bin_mean_flat_intensity(
+        fused = self._timed("kernel", lambda: binning.bin_mean_flat_intensity(
             *args, total_cap=total_cap, rcap=batch.n_distinct_total
-        )
-        if self.device.type == "cuda":
-            end.record()
-            end.synchronize()
-            ph["kernel"] += start.elapsed_time(end) / 1e3
-        else:
-            ph["kernel"] += time.perf_counter() - t0
+        ))
 
         t0 = time.perf_counter()
         fused = fused.cpu().numpy()
@@ -181,3 +212,233 @@ class TorchBackend:
                 precursor_charge=members[0].precursor_charge,
                 title=batch.cluster_ids[ci],
             )
+
+    # -- QC cosine -------------------------------------------------------
+
+    def run_bin_mean_with_cosines(
+        self,
+        clusters: list[Cluster],
+        bin_config: BinMeanConfig = BinMeanConfig(),
+        cos_config: CosineConfig = CosineConfig(),
+    ) -> tuple[list[Spectrum], np.ndarray]:
+        """Consensus and QC: the bin-mean representatives and each one's
+        mean binned cosine to its cluster's members, run one after the
+        other."""
+        reps = self.run_bin_mean(clusters, bin_config)
+        return reps, self.average_cosines(reps, clusters, cos_config)
+
+    def average_cosines(
+        self,
+        representatives: list[Spectrum],
+        clusters: list[Cluster],
+        config: CosineConfig = CosineConfig(),
+    ) -> np.ndarray:
+        """(C,) float64 mean binned cosine of each representative to its
+        cluster's members (ref src/benchmark.py:31-38)."""
+        if len(representatives) != len(clusters):
+            raise ValueError("representatives and clusters must align")
+        check_no_empty(clusters)
+        t0 = time.perf_counter()
+        mprep = self._prep_cosine_members(clusters, config)
+        prep = self._prep_cosine_reps(representatives, mprep, config)
+        self.phase_seconds["qc_pack"] += time.perf_counter() - t0
+        return self._dispatch_cosine_flat(prep)
+
+    def _prep_cosine_members(self, clusters, config: CosineConfig) -> dict:
+        """Representative-independent half of the cosine prep: member peaks
+        along one flat axis sorted by (row, member, bin), with float64
+        grid bins, normalized f32 intensities and each spectrum's edge
+        count."""
+        table = _as_table(clusters)
+        idx = table.cluster_order()
+        space = config.mz_space
+
+        order = idx.order  # spectrum ids grouped by cluster code
+        sorted_code = table.cluster_code[order]
+        cnt = table.peak_counts[order]
+        src = np.repeat(table.peak_offsets[order], cnt) + _grouped_arange(cnt)
+        inten = quantize.cosine_normalize(
+            table.intensity[src], config
+        ).astype(np.float32)
+        cbin = np.maximum(
+            np.floor((table.mz[src] + space / 2.0) / space).astype(np.int64),
+            0,
+        )
+        # per-spectrum edge count off the LAST peak in file order, not the
+        # max (ref src/benchmark.py:20 assumes sorted spectra)
+        last_mz = np.full(order.size, -np.inf)
+        has = cnt > 0
+        last_mz[has] = table.mz[table.peak_offsets[order][has] + cnt[has] - 1]
+        spec_edges = quantize.cosine_edge_count(last_mz, space)
+
+        # spectra are (row, member)-grouped already: sort each one's peaks
+        # by bin; the cumsum doubles as the per-spectrum extent table
+        spec_start = np.zeros(order.size + 1, dtype=np.int64)
+        np.cumsum(cnt, out=spec_start[1:])
+        perm = seg_argsort(cbin, spec_start)
+        return dict(
+            idx=idx, c=table.n_clusters, sorted_code=sorted_code,
+            cbin=cbin[perm], inten=inten[perm], spec_start=spec_start,
+            spec_edges=spec_edges, row_elem=np.repeat(sorted_code, cnt),
+            spec_elem=np.repeat(np.arange(order.size, dtype=np.int64), cnt),
+        )
+
+    def _prep_cosine_reps(
+        self, representatives, mprep: dict, config: CosineConfig
+    ) -> dict:
+        """Representative-dependent half: rep peaks sorted by (row, bin),
+        the edge gating of member intensities and the composite-key
+        budget."""
+        c = mprep["c"]
+        cbin = mprep["cbin"]
+        space = config.mz_space
+
+        reps = representatives
+        rep_counts = np.array([r.n_peaks for r in reps], dtype=np.int64)
+        if rep_counts.sum():
+            rep_mz = np.concatenate([np.asarray(r.mz, np.float64)
+                                     for r in reps])
+            rep_in = quantize.cosine_normalize(
+                np.concatenate([np.asarray(r.intensity, np.float64)
+                                for r in reps]),
+                config,
+            ).astype(np.float32)
+        else:
+            rep_mz = np.zeros(0, np.float64)
+            rep_in = np.zeros(0, np.float32)
+        rep_row = np.repeat(np.arange(c, dtype=np.int64), rep_counts)
+        rbin = np.maximum(
+            np.floor((rep_mz + space / 2.0) / space).astype(np.int64), 0
+        )
+        rep_last = np.array(
+            [r.mz[-1] if r.n_peaks else -np.inf for r in reps],
+            dtype=np.float64,
+        )
+        rep_edges = quantize.cosine_edge_count(rep_last, space)
+        rperm = np.lexsort((rbin, rep_row))
+        rep_offsets = np.zeros(c + 1, dtype=np.int64)
+        np.cumsum(rep_counts, out=rep_offsets[1:])
+        row_peak_offsets = np.zeros(c + 1, dtype=np.int64)
+        np.cumsum(mprep["idx"].total_peaks, out=row_peak_offsets[1:])
+
+        # composite key row * shift + bin: shift the least power of two
+        # (at least 2^16) above every bin and cutoff + 1, and few enough
+        # rows per chunk (a power of two) that the key fits int32
+        max_bin = int(max(
+            cbin.max(initial=0), rbin.max(initial=0),
+            int(np.max(mprep["spec_edges"], initial=0)),
+            int(np.max(rep_edges, initial=0)),
+        ))
+        shift = max(1 << 16, 1 << (max_bin + 1).bit_length())
+        max_rows_cap = max((2**31 - 2) // shift, 1)
+        max_rows = 1 << (max_rows_cap.bit_length() - 1)
+
+        # the pair cutoff (max of rep and member edge counts - 2, ref
+        # src/benchmark.py:20-22) zeroes failing member peaks on the host
+        cut_spec = (
+            np.maximum(rep_edges[mprep["sorted_code"]], mprep["spec_edges"])
+            - 2
+        )
+        cut_at = cut_spec[mprep["spec_elem"]]
+        inten_gated = np.where(
+            cbin <= cut_at, mprep["inten"], 0.0
+        ).astype(np.float32)
+        return dict(
+            mprep, inten_gated=inten_gated, rep_row=rep_row[rperm],
+            rbin=rbin[rperm], rep_in=rep_in[rperm], rep_offsets=rep_offsets,
+            row_peak_offsets=row_peak_offsets, cut_spec=cut_spec,
+            shift=shift, max_rows=max_rows,
+        )
+
+    def _cosine_chunk_arrays(self, prep: dict, lo: int, hi: int) -> list:
+        """The twelve host arrays of ``similarity.cosine_flat`` for rows
+        [lo, hi).  Each peak axis ends in one sentinel slot, so no gather
+        runs on an empty axis (a chunk whose reps or members have no
+        peaks); the member slot belongs to no spectrum's extent."""
+        shift = prep["shift"]
+        sorted_code = prep["sorted_code"]
+        p0 = int(prep["row_peak_offsets"][lo])
+        p1 = int(prep["row_peak_offsets"][hi])
+        n = p1 - p0
+        # this chunk's spectra: sorted_code is non-decreasing over them
+        s0 = int(np.searchsorted(sorted_code, lo, side="left"))
+        s1 = int(np.searchsorted(sorted_code, hi, side="left"))
+        spec_offsets = (prep["spec_start"][s0 : s1 + 1] - p0).astype(np.int32)
+        spec_row = (sorted_code[s0:s1] - lo).astype(np.int32)
+        row_spec_offsets = (
+            np.searchsorted(sorted_code, np.arange(lo, hi + 1)) - s0
+        ).astype(np.int32)
+        r0 = int(prep["rep_offsets"][lo])
+        r1 = int(prep["rep_offsets"][hi])
+        rkey = np.full(r1 - r0 + 1, SENTINEL, dtype=np.int32)
+        rkey[:-1] = (
+            (prep["rep_row"][r0:r1] - lo) * np.int64(shift)
+            + prep["rbin"][r0:r1]
+        ).astype(np.int32)
+        rint = np.zeros(r1 - r0 + 1, dtype=np.float32)
+        rint[:-1] = prep["rep_in"][r0:r1]
+        rep_offsets = (prep["rep_offsets"][lo : hi + 1] - r0).astype(np.int32)
+        mkey = np.full(n + 1, SENTINEL, dtype=np.int32)
+        mkey[:-1] = (
+            (prep["row_elem"][p0:p1] - lo) * np.int64(shift)
+            + prep["cbin"][p0:p1]
+        ).astype(np.int32)
+        mint = np.zeros(n + 1, dtype=np.float32)
+        mint[:-1] = prep["inten_gated"][p0:p1]
+        spec_elem = np.full(n + 1, s1 - s0, dtype=np.int32)
+        spec_elem[:-1] = prep["spec_elem"][p0:p1] - s0
+        # rep lookup: the last element of the matching rep run
+        pos = (searchsorted_right_i32(rkey, mkey) - 1).astype(np.int32)
+        # rep-norm cutoff position per spectrum
+        npos = np.searchsorted(
+            rkey,
+            (sorted_code[s0:s1] - lo) * np.int64(shift)
+            + prep["cut_spec"][s0:s1] + 1,
+        ).astype(np.int32)
+        nm = prep["idx"].n_members[lo:hi].astype(np.int32)
+        return [
+            rkey, rint, mkey, mint, spec_elem, pos, spec_offsets, spec_row,
+            npos, rep_offsets, row_spec_offsets, nm,
+        ]
+
+    def _cosine_chunks(self, prep: dict):
+        """Row ranges [lo, hi) of the cosine chunks: under the
+        composite-key row cap and the ``max_grid_elements // 4``
+        member-peak budget, at least one row each."""
+        c = prep["c"]
+        row_peak_offsets = prep["row_peak_offsets"]
+        budget = self.max_grid_elements // 4
+        lo = 0
+        while lo < c:
+            hi = min(lo + prep["max_rows"], c)
+            if row_peak_offsets[hi] - row_peak_offsets[lo] > budget:
+                hi = lo + max(int(np.searchsorted(
+                    row_peak_offsets[lo + 1 : hi + 1],
+                    row_peak_offsets[lo] + budget, side="right",
+                )), 1)
+            yield lo, hi
+            lo = hi
+
+    def _dispatch_cosine_flat(self, prep: dict) -> np.ndarray:
+        """One ``cosine_flat`` per chunk."""
+        ph = self.phase_seconds
+        out = np.zeros(prep["c"], dtype=np.float64)
+        for lo, hi in self._cosine_chunks(prep):
+            t0 = time.perf_counter()
+            arrays = self._cosine_chunk_arrays(prep, lo, hi)
+            ph["qc_pack"] += time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            args = [torch.from_numpy(a).to(self.device) for a in arrays]
+            self._sync()
+            ph["qc_h2d"] += time.perf_counter() - t0
+
+            mean = self._timed("qc_kernel", lambda: similarity.cosine_flat(
+                *args, shift=prep["shift"]
+            ))
+
+            t0 = time.perf_counter()
+            out[lo:hi] = mean.cpu().numpy()
+            ph["qc_d2h"] += time.perf_counter() - t0
+            self.cos_chunks += 1
+        return out

@@ -1,14 +1,19 @@
 """Command line of the port: ``python -m specpride_tpu_torch consensus IN
-OUT --method bin-mean``.  Reads the clustered MGF, groups it into
-clusters, runs the binned-mean consensus on the card (``--device cpu``
-for the CPU) and writes one consensus spectrum per cluster."""
+OUT --method bin-mean [--qc-report QC.json]``.  Reads the clustered MGF,
+groups it into clusters, runs the binned-mean consensus on the card
+(``--device cpu`` for the CPU) and writes one consensus spectrum per
+cluster; with ``--qc-report`` it also scores each consensus by its mean
+binned cosine to the cluster's members and writes the per-cluster QC
+report."""
 
 from __future__ import annotations
 
 import argparse
+import json
+import statistics
 
 from specpride_tpu_torch.backends.torch_backend import TorchBackend
-from specpride_tpu_torch.config import BinMeanConfig
+from specpride_tpu_torch.config import BinMeanConfig, CosineConfig
 from specpride_tpu_torch.data.peaks import group_into_clusters
 from specpride_tpu_torch.io.mgf import read_mgf, write_mgf
 
@@ -36,9 +41,46 @@ def build_parser() -> argparse.ArgumentParser:
     )
     pc.add_argument("--ppm", type=float, default=20.0,
                     help="bin width in ppm for --tolerance-mode ppm")
+    pc.add_argument(
+        "--qc-normalization", choices=["none", "sqrt", "log"],
+        default="none",
+        help="intensity transform for the QC cosine (sqrt tempers "
+        "dominant peaks; log flattens dynamic range)",
+    )
+    pc.add_argument(
+        "--qc-report", metavar="FILE",
+        help="also compute each consensus spectrum's mean member cosine "
+        "and write the per-cluster QC report here",
+    )
     pc.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the consensus runs (default: the GPU)")
     return ap
+
+
+def write_qc_report(path: str, clusters, cosines) -> None:
+    """The per-cluster QC report, in the JAX package's keys and layout: a
+    summary and one row per cluster in input order.  Every cluster gets a
+    row here, so no method or QC failure is ever listed."""
+    rows = [
+        {"cluster_id": c.cluster_id, "n_members": c.n_members,
+         "avg_cosine": float(v)}
+        for c, v in zip(clusters, cosines)
+    ]
+    values = [row["avg_cosine"] for row in rows]
+    report = {
+        "summary": {
+            "n_clusters": len(rows),
+            "mean_cosine": statistics.fmean(values) if values else None,
+            "median_cosine": statistics.median(values) if values else None,
+            "n_input_clusters": len(clusters),
+            "n_method_failed": 0,
+            "n_qc_failed": 0,
+        },
+        "clusters": rows,
+    }
+    with open(path, "w") as fh:
+        json.dump(report, fh, indent=1)
+        fh.write("\n")
 
 
 def cmd_consensus(args, backend: TorchBackend) -> int:
@@ -52,7 +94,14 @@ def cmd_consensus(args, backend: TorchBackend) -> int:
         ppm=args.ppm,
     )
     clusters = group_into_clusters(read_mgf(args.input))
-    write_mgf(backend.run_bin_mean(clusters, config), args.output)
+    if args.qc_report is None:
+        write_mgf(backend.run_bin_mean(clusters, config), args.output)
+        return 0
+    reps, cosines = backend.run_bin_mean_with_cosines(
+        clusters, config, CosineConfig(normalization=args.qc_normalization)
+    )
+    write_mgf(reps, args.output)
+    write_qc_report(args.qc_report, clusters, cosines)
     return 0
 
 

@@ -1,8 +1,8 @@
-"""Configuration of the binned-mean consensus.
+"""Configuration of the binned-mean consensus and the QC cosine.
 
-The port's own copy of ``BinMeanConfig`` and the ppm grid formula.  The
-field names match the JAX package's, so a config converts with
-``BinMeanConfig(**dataclasses.asdict(other))``.
+The port's own copies of ``BinMeanConfig``, ``CosineConfig`` and the ppm
+grid formula.  The field names match the JAX package's, so a config
+converts with ``BinMeanConfig(**dataclasses.asdict(other))``.
 """
 
 from __future__ import annotations
@@ -65,3 +65,21 @@ class BinMeanConfig:
             return int(ppm_bin_index(self.max_mz, self.min_mz, self.ppm)) + 1
         # ref src/binning.py:172: int((max-min)/binsize) + 1
         return int((self.max_mz - self.min_mz) / self.bin_size) + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class CosineConfig:
+    """Binned-cosine quality metric (ref src/benchmark.py:8-29).
+
+    ``mz_unit``/``mz_space`` reproduce ref src/benchmark.py:8-9: bins of
+    ~0.005 Da on a grid starting at -mz_space/2.  ``normalization`` is the
+    intensity transform before binning: identity, ``sqrt`` (tempers
+    dominant peaks) or ``log`` (log1p, flattens dynamic range)."""
+
+    mz_unit: float = 1.000508
+    mz_space_factor: float = 0.005
+    normalization: Literal["none", "sqrt", "log"] = "none"
+
+    @property
+    def mz_space(self) -> float:
+        return self.mz_unit * self.mz_space_factor

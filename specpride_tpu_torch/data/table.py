@@ -108,6 +108,7 @@ class ClusterIndex:
 
     order: np.ndarray  # (S,) spectrum indices, cluster-grouped
     n_members: np.ndarray  # (C,) members per cluster
+    total_peaks: np.ndarray  # (C,) peaks per cluster
 
     @classmethod
     def build(cls, table: SpectraTable) -> "ClusterIndex":
@@ -115,5 +116,9 @@ class ClusterIndex:
             order=np.argsort(table.cluster_code, kind="stable"),
             n_members=np.bincount(
                 table.cluster_code, minlength=table.n_clusters
+            ).astype(np.int64),
+            total_peaks=np.bincount(
+                table.cluster_code, weights=table.peak_counts,
+                minlength=table.n_clusters,
             ).astype(np.int64),
         )

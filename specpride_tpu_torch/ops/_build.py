@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``ops/csrc/*.cu`` into one shared library with a
-plain C interface, ``build/torch_kernels/libspecpride_torch.so`` beside
-the package, at first use; it is rebuilt when the sources' hash changes.
-The library is loaded with ``ctypes``.  Nothing here runs at import time.
+``nvcc`` compiles every ``ops/csrc/*.cu`` (one process per source, all
+started together) and links them into one shared library with a plain C
+interface, ``build/torch_kernels/libspecpride_torch.so`` beside the
+package, at first use; it is rebuilt when the sources' hash changes.  The
+library is loaded with ``ctypes``.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -23,9 +24,9 @@ _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 )))
 BUILD_DIR = os.path.join(_PKG_ROOT, "build", "torch_kernels")
 LIB_NAME = "libspecpride_torch.so"
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -61,28 +62,52 @@ def _find_nvcc() -> str:
     return nvcc
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; their joined output, or raise with
+    the output of the first that failed."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for cmd in cmds
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{log}"
+            )
+    return "".join(logs)
+
+
 def _build(nvcc: str, digest: str) -> str:
-    """Compile into a temporary name, then rename: a reader never sees a
-    half-written library."""
+    """Compile each source to an object in parallel, link, and rename the
+    library into place: a reader never sees a half-written one."""
     global build_info
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(BUILD_DIR, LIB_NAME)
     stamp = lib_path + ".sha256"
     tmp = f"{lib_path}.tmp{os.getpid()}"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
+    obj_dir = os.path.join(BUILD_DIR, f"obj{os.getpid()}")
+    os.makedirs(obj_dir, exist_ok=True)
+    objs = [
+        os.path.join(obj_dir, os.path.basename(src) + ".o")
+        for src in _sources()
+    ]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+    log = _run_all([
+        [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        for src, obj in zip(_sources(), objs)
+    ])
+    compile_s = time.perf_counter() - t0
+    log += _run_all([[nvcc, *GENCODE, "-shared", "-o", tmp, *objs]])
+    shutil.rmtree(obj_dir, ignore_errors=True)
     os.replace(tmp, lib_path)
     with open(stamp, "w") as fh:
         fh.write(digest)
     build_info = {
         "seconds": time.perf_counter() - t0,
-        "log": proc.stdout + proc.stderr,
+        "compile_seconds": compile_s,
+        "log": log,
     }
     return lib_path
 
@@ -112,5 +137,13 @@ def load() -> ctypes.CDLL:
             vp, vp, vp,
         ]
         lib.seg_mean_f32.restype = ctypes.c_int
+        vpp = ctypes.POINTER(ctypes.c_void_p)
+        lib.seg_scan_tile_size.argtypes = []
+        lib.seg_scan_tile_size.restype = ctypes.c_int
+        for fn in (lib.seg_scan_flags_f32, lib.seg_scan_keys_f32):
+            fn.argtypes = [
+                vp, vpp, vpp, ctypes.c_longlong, ctypes.c_int, vp, vp, vp,
+            ]
+            fn.restype = ctypes.c_int
         _lib = lib
         return lib

@@ -11,264 +11,71 @@
 //
 // Bound: memory.  The function must read key, w and nv values and write
 // 1 + nv outputs: 20 B/element for nv = 1, 28 B for nv = 2, against a few
-// flops per element.  The TPU kernel walks its grid in order and carries
-// the open run's sums in SMEM; Hopper runs blocks in parallel and in no
-// order, so this port takes three launches:
-//   1. seg_tile_scan: per tile of TILE elements, a segmented inclusive
-//      scan of (w, v_c * w) in shared memory and warp shuffles, written
-//      un-divided to the outputs, plus each tile's aggregate: the position
-//      of its first run head and the sums of its trailing run;
-//   2. seg_tile_carry: one block scans the aggregates into each tile's
-//      carry-in; a tile with no head passes its carry through;
-//   3. seg_fixup: adds the carry to each tile's leading run, then divides.
-// That moves about 32 B/element for nv = 1 (reads 12 + writes 8 in pass 1,
-// reads 8 + writes 4 and the leading runs' counts in pass 3): simple and
-// exact for any run length; a single-pass decoupled look-back is the
-// known way to reach the 20 B minimum.
+// flops per element.  The three launches of seg_scan_core.cuh scan the
+// channels (w, v_c * w); this file's fix-up adds the carry to each tile's
+// leading run and divides every element.  That moves about 32 B/element for
+// nv = 1 (reads 12 + writes 8 in pass 1, reads 8 + writes 4 and the leading
+// runs' counts in pass 3): simple and exact for any run length; a
+// single-pass decoupled look-back is the known way to reach the 20 B
+// minimum.
 
-#include <cuda_runtime.h>
+#include "seg_scan_core.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItems = 4;
-constexpr int kTile = kThreads * kItems;
-constexpr int kCarryThreads = 1024;
-constexpr unsigned kFull = 0xffffffffu;
-
-// One segmented-scan element: a head flag and NC running sums.
+// Channels (w, v0 * w[, v1 * w]); a head where the key changes.
 template <int NC>
-struct Seg {
-  int f;
-  float v[NC];
+struct MeanLoad {
+  const int* keys;
+  const float* w;
+  const float* v0;
+  const float* v1;
+
+  __device__ __forceinline__ int operator()(long long i, float (&v)[NC]) const {
+    const float ww = __ldg(w + i);
+    v[0] = ww;
+    v[1] = __ldg(v0 + i) * ww;
+    if (NC == 3) v[NC - 1] = __ldg(v1 + i) * ww;
+    return (i == 0) || (__ldg(keys + i) != __ldg(keys + i - 1));
+  }
 };
 
 template <int NC>
-__device__ __forceinline__ Seg<NC> seg_identity() {
-  Seg<NC> s;
-  s.f = 0;
-#pragma unroll
-  for (int c = 0; c < NC; ++c) s.v[c] = 0.f;
-  return s;
-}
-
-// later := earlier (+) later, the segmented-sum operator (associative).
-template <int NC>
-__device__ __forceinline__ void seg_absorb(Seg<NC>& later,
-                                           const Seg<NC>& earlier) {
-  if (!later.f) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) later.v[c] += earlier.v[c];
-  }
-  later.f |= earlier.f;
-}
-
-template <int NC>
-__device__ __forceinline__ Seg<NC> warp_inclusive(Seg<NC> x) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    Seg<NC> o;
-    o.f = __shfl_up_sync(kFull, x.f, d);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) o.v[c] = __shfl_up_sync(kFull, x.v[c], d);
-    if (lane >= d) seg_absorb(x, o);
-  }
-  return x;
-}
-
-// Block-wide inclusive segmented scan; s_warp holds THREADS / 32 entries.
-// Ends with a barrier, so s_warp may be reused right after.
-template <int NC, int THREADS>
-__device__ Seg<NC> block_inclusive(Seg<NC> x, Seg<NC>* s_warp) {
-  constexpr int kWarps = THREADS / 32;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  x = warp_inclusive(x);
-  if (lane == 31) s_warp[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    Seg<NC> y = lane < kWarps ? s_warp[lane] : seg_identity<NC>();
-    y = warp_inclusive(y);
-    if (lane < kWarps) s_warp[lane] = y;
-  }
-  __syncthreads();
-  if (warp > 0) seg_absorb(x, s_warp[warp - 1]);
-  __syncthreads();
-  return x;
-}
-
-template <int NC>
 __global__ void __launch_bounds__(kThreads)
-seg_tile_scan(const int* __restrict__ keys, const float* __restrict__ w,
-              const float* __restrict__ v0, const float* __restrict__ v1,
-              float* __restrict__ o0, float* __restrict__ o1,
-              float* __restrict__ o2, long long n,
-              int* __restrict__ tile_first, float* __restrict__ tile_sum) {
-  __shared__ float s_val[NC][kTile];
-  __shared__ unsigned char s_head[kTile];
-  __shared__ Seg<NC> s_warp[kThreads / 32];
-  __shared__ Seg<NC> s_thr[kThreads];
-  __shared__ int s_first;
-
-  const int tid = threadIdx.x;
-  const long long base = (long long)blockIdx.x * kTile;
-  if (tid == 0) s_first = kTile;
-  __syncthreads();
-
-  // coalesced (striped) load into shared memory; slots past n weigh 0
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int j = k * kThreads + tid;
-    const long long i = base + j;
-    float ww = 0.f, a = 0.f, b = 0.f;
-    int head = 0;
-    if (i < n) {
-      ww = w[i];
-      a = v0[i] * ww;
-      if (NC == 3) b = v1[i] * ww;
-      head = (i == 0) || (keys[i] != keys[i - 1]);
-    }
-    s_val[0][j] = ww;
-    s_val[1][j] = a;
-    if (NC == 3) s_val[NC - 1][j] = b;
-    s_head[j] = (unsigned char)head;
-    if (head) atomicMin(&s_first, j);
-  }
-  __syncthreads();
-
-  // each thread owns kItems consecutive elements: local aggregate first
-  Seg<NC> agg = seg_identity<NC>();
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int j = tid * kItems + k;
-    if (s_head[j]) {
-      agg.f = 1;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) agg.v[c] = s_val[c][j];
-    } else {
-#pragma unroll
-      for (int c = 0; c < NC; ++c) agg.v[c] += s_val[c][j];
-    }
-  }
-  const Seg<NC> incl = block_inclusive<NC, kThreads>(agg, s_warp);
-  s_thr[tid] = incl;
-  __syncthreads();
-  const Seg<NC> excl = tid > 0 ? s_thr[tid - 1] : seg_identity<NC>();
-
-  // rescan the owned elements from the thread's exclusive prefix
-  float run[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) run[c] = excl.v[c];
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int j = tid * kItems + k;
-    const bool head = s_head[j];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      run[c] = head ? s_val[c][j] : run[c] + s_val[c][j];
-      s_val[c][j] = run[c];
-    }
-  }
-  __syncthreads();
-
-  // coalesced store of the un-divided prefixes
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int j = k * kThreads + tid;
-    const long long i = base + j;
-    if (i < n) {
-      o0[i] = s_val[0][j];
-      o1[i] = s_val[1][j];
-      if (NC == 3) o2[i] = s_val[NC - 1][j];
-    }
-  }
-  if (tid == kThreads - 1) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      tile_sum[(long long)blockIdx.x * NC + c] = incl.v[c];
-  }
-  if (tid == 0) tile_first[blockIdx.x] = s_first;
-}
-
-// One block: tile_sum (trailing-run sums) is turned in place into each
-// tile's carry-in, the open run's sums entering the tile.
-template <int NC>
-__global__ void __launch_bounds__(kCarryThreads)
-seg_tile_carry(const int* __restrict__ tile_first, float* tile_sum,
-               int n_tiles) {
-  __shared__ Seg<NC> s_warp[kCarryThreads / 32];
-  __shared__ Seg<NC> s_thr[kCarryThreads];
-  const int tid = threadIdx.x;
-  float carry[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) carry[c] = 0.f;
-
-  for (int start = 0; start < n_tiles; start += kCarryThreads) {
-    const int t = start + tid;
-    Seg<NC> x = seg_identity<NC>();
-    if (t < n_tiles) {
-      x.f = tile_first[t] < kTile;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) x.v[c] = tile_sum[(long long)t * NC + c];
-    }
-    const Seg<NC> incl = block_inclusive<NC, kCarryThreads>(x, s_warp);
-    s_thr[tid] = incl;
-    __syncthreads();
-    const Seg<NC> excl = tid > 0 ? s_thr[tid - 1] : seg_identity<NC>();
-    if (t < n_tiles) {
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-        tile_sum[(long long)t * NC + c] = excl.f ? excl.v[c] : carry[c] + excl.v[c];
-    }
-    const Seg<NC> last = s_thr[kCarryThreads - 1];
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      carry[c] = last.f ? last.v[c] : carry[c] + last.v[c];
-    __syncthreads();
-  }
-}
-
-template <int NC>
-__global__ void __launch_bounds__(kThreads)
-seg_fixup(float* __restrict__ o0, float* __restrict__ o1,
-          float* __restrict__ o2, long long n,
-          const int* __restrict__ tile_first,
-          const float* __restrict__ carry) {
+seg_mean_fixup(Outs<NC> out, long long n, const int* __restrict__ tile_first,
+               const float* __restrict__ carry) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const long long t = i / kTile;
   const bool lead = (int)(i - t * kTile) < tile_first[t];
-  float cnt = o0[i];
-  float s1 = o1[i];
-  float s2 = NC == 3 ? o2[i] : 0.f;
+  float s[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) s[c] = out.p[c][i];
   if (lead) {
-    cnt += carry[t * NC];
-    s1 += carry[t * NC + 1];
-    if (NC == 3) s2 += carry[t * NC + NC - 1];
-    o0[i] = cnt;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) s[c] += carry[t * NC + c];
+    out.p[0][i] = s[0];
   }
-  const float safe = fmaxf(cnt, 1.f);
-  o1[i] = s1 / safe;
-  if (NC == 3) o2[i] = s2 / safe;
+  const float safe = fmaxf(s[0], 1.f);
+#pragma unroll
+  for (int c = 1; c < NC; ++c) out.p[c][i] = s[c] / safe;
 }
 
 template <int NC>
 int launch(const int* keys, const float* w, const float* v0, const float* v1,
            float* o0, float* o1, float* o2, long long n, int* tile_first,
            float* tile_sum, cudaStream_t stream) {
-  const long long n_tiles = (n + kTile - 1) / kTile;
-  seg_tile_scan<NC><<<(unsigned)n_tiles, kThreads, 0, stream>>>(
-      keys, w, v0, v1, o0, o1, o2, n, tile_first, tile_sum);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  seg_tile_carry<NC><<<1, kCarryThreads, 0, stream>>>(tile_first, tile_sum,
-                                                      (int)n_tiles);
-  err = cudaGetLastError();
+  const MeanLoad<NC> load{keys, w, v0, v1};
+  Outs<NC> out;
+  out.p[0] = o0;
+  out.p[1] = o1;
+  if (NC == 3) out.p[NC - 1] = o2;
+  cudaError_t err =
+      launch_tile_scan<NC>(load, out, n, tile_first, tile_sum, stream);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (n + kThreads - 1) / kThreads;
-  seg_fixup<NC><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      o0, o1, o2, n, tile_first, tile_sum);
+  seg_mean_fixup<NC><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      out, n, tile_first, tile_sum);
   return (int)cudaGetLastError();
 }
 

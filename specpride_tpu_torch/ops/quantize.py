@@ -1,4 +1,5 @@
-"""Host-side float64 m/z quantization to grid bins.
+"""Host-side float64 m/z quantization to grid bins, and the QC cosine's
+intensity transform and grid edge count.
 
 The reference quantizes m/z on a float64 grid
 (``((mz - min)/binsize).astype(int)``, ref src/binning.py:195); doing it
@@ -10,7 +11,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from specpride_tpu_torch.config import BinMeanConfig, ppm_bin_index
+from specpride_tpu_torch.config import (
+    BinMeanConfig,
+    CosineConfig,
+    ppm_bin_index,
+)
 
 
 def bin_mean_bins(
@@ -31,3 +36,21 @@ def bin_mean_bins(
     else:
         bins = ((mzf - config.min_mz) / config.bin_size).astype(np.int64)
     return bins, in_range
+
+
+def cosine_normalize(intensity: np.ndarray, config: CosineConfig) -> np.ndarray:
+    """Intensity transform before cosine binning: identity, sqrt, or
+    log1p, in float64 for the two transforms."""
+    if config.normalization == "sqrt":
+        return np.sqrt(np.asarray(intensity, dtype=np.float64))
+    if config.normalization == "log":
+        return np.log1p(np.asarray(intensity, dtype=np.float64))
+    return intensity
+
+
+def cosine_edge_count(last_mz, space):
+    """Edge count of the metric grid ``arange(-space/2, last_mz, space)``
+    (numpy arange length = ceil((stop - start)/step)), float64; 0 for a
+    non-finite ``last_mz`` (an empty spectrum's -inf)."""
+    n = np.ceil((np.asarray(last_mz, dtype=np.float64) + space / 2.0) / space)
+    return np.where(np.isfinite(n), np.maximum(n, 0), 0).astype(np.int32)

@@ -1,4 +1,5 @@
-"""Segmented stable argsort over flat numpy arrays."""
+"""Segmented stable argsort and int32 searchsorted over flat numpy
+arrays."""
 
 from __future__ import annotations
 
@@ -14,3 +15,11 @@ def seg_argsort(keys: np.ndarray, offsets: np.ndarray) -> np.ndarray:
         np.arange(offsets.size - 1, dtype=np.int64), np.diff(offsets)
     )
     return np.lexsort((keys, seg_of_elem))
+
+
+def searchsorted_right_i32(keys: np.ndarray, queries: np.ndarray) -> np.ndarray:
+    """``np.searchsorted(keys, queries, side='right')`` over int32 arrays
+    (keys ascending)."""
+    keys = np.ascontiguousarray(keys, dtype=np.int32)
+    queries = np.ascontiguousarray(queries, dtype=np.int32)
+    return np.searchsorted(keys, queries, side="right")

@@ -7,13 +7,16 @@ atol 1e-3: the oracle sums m/z in another float32 order); intensity
 within rtol 1e-4 / atol 1e-3."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
 
+from specpride_tpu import cli as jcli
 from specpride_tpu.backends.tpu_backend import TpuBackend
 from specpride_tpu.data.peaks import group_into_clusters as jax_group
 from specpride_tpu.io import mgf as jmgf
@@ -62,6 +65,57 @@ def test_cli_reproduces_golden_bin_mean(tmp_path):
         )
 
 
+def test_cli_qc_report_matches_jax_flat(tmp_path):
+    """``--qc-report``: the same spectra as without it, and a report with
+    the JAX package's keys, ids and member counts whose cosines match its
+    flat run within rtol 1e-5 / atol 1e-6; the singleton scores 1."""
+    src = os.path.join(DATA, "golden_clustered.mgf")
+    out, plain_out = tmp_path / "out.mgf", tmp_path / "plain.mgf"
+    qc = tmp_path / "qc.json"
+    proc = _run("-m", "specpride_tpu_torch", "consensus", src, str(out),
+                "--device", "cpu", "--qc-report", str(qc))
+    assert proc.returncode == 0, proc.stderr
+    proc = _run("-m", "specpride_tpu_torch", "consensus", src,
+                str(plain_out), "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr
+    assert out.read_bytes() == plain_out.read_bytes()
+
+    clusters = jax_group(jmgf.read_mgf(src, use_native=False))
+    _, cosines = TpuBackend(layout="flat").run_bin_mean_with_cosines(
+        clusters
+    )
+    rows = []
+    jcli._append_qc_rows(rows, clusters, cosines)
+    jax_qc = tmp_path / "jax_qc.json"
+    jcli._write_qc_report(
+        types.SimpleNamespace(qc_report=str(jax_qc), output=str(out)),
+        None, clusters, rows, None, set(),
+    )
+    got = json.loads(qc.read_text())
+    want = json.loads(jax_qc.read_text())
+    assert list(got) == list(want)
+    assert list(got["summary"]) == list(want["summary"])
+    for key in ("n_clusters", "n_input_clusters", "n_method_failed",
+                "n_qc_failed"):
+        assert got["summary"][key] == want["summary"][key]
+    for key in ("mean_cosine", "median_cosine"):
+        np.testing.assert_allclose(got["summary"][key],
+                                   want["summary"][key], rtol=1e-5, atol=1e-6)
+    assert [(r["cluster_id"], r["n_members"]) for r in got["clusters"]] == [
+        (r["cluster_id"], r["n_members"]) for r in want["clusters"]
+    ]
+    assert [list(r) for r in got["clusters"]] == [
+        list(r) for r in want["clusters"]
+    ]
+    np.testing.assert_allclose(
+        [r["avg_cosine"] for r in got["clusters"]],
+        [r["avg_cosine"] for r in want["clusters"]], rtol=1e-5, atol=1e-6,
+    )
+    singles = [r for r in got["clusters"] if r["n_members"] == 1]
+    assert singles and all(r["avg_cosine"] == pytest.approx(1.0, rel=1e-6)
+                           for r in singles)
+
+
 @pytest.mark.parametrize("name", [
     "golden_clustered.mgf", "golden_bin_mean.mgf", "golden_gap_average.mgf",
 ])
@@ -87,6 +141,7 @@ def test_import_and_help_load_no_jax():
     code = (
         "import sys, specpride_tpu_torch\n"
         "import specpride_tpu_torch.backends.torch_backend\n"
+        "import specpride_tpu_torch.ops.similarity\n"
         "from specpride_tpu_torch.cli import main\n"
         "try:\n"
         "    main(['consensus', '--help'])\n"
@@ -99,7 +154,7 @@ def test_import_and_help_load_no_jax():
     )
     proc = _run("-c", code)
     assert proc.returncode == 0, proc.stderr
-    assert "--device" in proc.stdout
+    assert "--device" in proc.stdout and "--qc-report" in proc.stdout
     assert "LOADED []" in proc.stdout
 
 

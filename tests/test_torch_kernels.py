@@ -1,16 +1,19 @@
-"""The port's seg_mean against the JAX package's seg_mean_pallas.
+"""The port's seg_mean and seg_scan against the JAX package's
+seg_mean_pallas, seg_scan_pallas and segments.seg_scan.
 
-On the CPU the wrapper runs its plain PyTorch version; the Pallas kernel
-runs in interpret mode, as the JAX package's own tests run it.  Counts
-are sums of 0/1 weights and must match exactly; means within rtol 1e-5
-(float32 sums in another order than the float64 plain prefixes)."""
+On the CPU the wrappers run their plain PyTorch versions; the Pallas
+kernels run in interpret mode, as the JAX package's own tests run them.
+Counts are sums of 0/1 weights and must match exactly; means and prefix
+sums of positive values within rtol 1e-5 (float32 sums in another order
+than the float64 plain prefixes)."""
 
 import numpy as np
 import pytest
 import torch
 
 from specpride_tpu.ops import pallas_kernels as pk
-from specpride_tpu_torch.ops import kernels
+from specpride_tpu.ops import segments as jsegments
+from specpride_tpu_torch.ops import _build, kernels
 
 
 def _runs(rng, n, lo, hi):
@@ -109,3 +112,105 @@ def test_seg_mean_rejects_bad_arguments(bad):
     }[bad]
     with pytest.raises((TypeError, ValueError)):
         kernels.seg_mean(*args)
+
+
+@pytest.mark.parametrize("case", ["straddle", "long_run", "pad_tail"])
+def test_seg_scan_plain_matches_pallas(case):
+    """The keys entry against seg_scan_pallas: random runs across the
+    block edge, one run across four blocks, and a -1 padding tail."""
+    rng = np.random.default_rng(100 + CASES.index(case))
+    keys, _ = _case(case, rng)
+    n = keys.size
+    values = [rng.uniform(10.0, 1e4, n).astype(np.float32) for _ in range(3)]
+    before = kernels.launches["seg_scan"]
+
+    want = pk.seg_scan_pallas(keys, *values, interpret=True)
+    got = kernels.seg_scan(*(torch.from_numpy(a) for a in (keys, *values)))
+
+    assert kernels.launches["seg_scan"] == before  # CPU: no launch
+    assert len(got) == 3
+    for g, e in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), rtol=1e-5,
+                                   atol=0)
+    if case == "long_run":
+        np.testing.assert_allclose(
+            got[0][4 * pk.BLK + 6].item(),
+            values[0][: 4 * pk.BLK + 7].astype(np.float64).sum(), rtol=1e-6,
+        )
+
+
+@pytest.mark.parametrize("flags", ["bool", "uint8", "no_first_head"])
+@pytest.mark.parametrize("nc", [1, 2, 3])
+def test_seg_scan_flags_matches_xla_scan(nc, flags):
+    """The flags entry against segments.seg_scan with lcap >= the longest
+    run; element 0 begins a run whether or not its flag is set."""
+    rng = np.random.default_rng(10 * nc + len(flags))
+    n = 5000
+    starts = rng.uniform(0, 1, n) < 0.15
+    starts[1000:1700] = False  # one run of 700
+    if flags == "no_first_head":
+        starts[0] = False
+    bounds = np.flatnonzero(np.concatenate([[True], starts[1:], [True]]))
+    lcap = 1 << int(np.diff(bounds).max() - 1).bit_length()
+    values = [rng.uniform(0.1, 1e4, n).astype(np.float32) for _ in range(nc)]
+
+    want = jsegments.seg_scan(starts, tuple(values), lcap)
+    runs = torch.from_numpy(starts)
+    if flags == "uint8":
+        runs = runs.to(torch.uint8)
+    got = kernels.seg_scan(runs, *(torch.from_numpy(v) for v in values))
+
+    assert len(got) == nc
+    for g, e in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), rtol=1e-5,
+                                   atol=0)
+
+
+@pytest.mark.parametrize(
+    "bad",
+    ["keys_dtype", "value_dtype", "length", "no_channels", "four_channels",
+     "two_dim"],
+)
+def test_seg_scan_rejects_bad_arguments(bad):
+    keys = torch.zeros(8, dtype=torch.int32)
+    x = torch.ones(8)
+    args = {
+        "keys_dtype": (keys.long(), x),
+        "value_dtype": (keys, x.double()),
+        "length": (keys, torch.ones(7)),
+        "no_channels": (keys,),
+        "four_channels": (keys, x, x, x, x),
+        "two_dim": (keys.view(2, 4), x.view(2, 4)),
+    }[bad]
+    with pytest.raises((TypeError, ValueError)):
+        kernels.seg_scan(*args)
+
+
+class _CudaLooking(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: what a wrapper sees when
+    it is handed card tensors on a host with no kernel library."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("wrapper", ["seg_mean", "seg_scan"])
+def test_cuda_tensors_without_kernel_library_raise(wrapper, monkeypatch):
+    """On CUDA tensors a wrapper launches its kernel or raises: with no
+    kernel library it raises, and never falls back to the plain version."""
+
+    def no_library():
+        raise RuntimeError("no kernel library")
+
+    def plain(*args):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(_build, "load", no_library)
+    monkeypatch.setattr(kernels, f"{wrapper}_plain", plain)
+    keys = torch.zeros(8, dtype=torch.int32).as_subclass(_CudaLooking)
+    x = torch.ones(8).as_subclass(_CudaLooking)
+    before = dict(kernels.launches)
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        getattr(kernels, wrapper)(keys, x, x)
+    assert kernels.launches == before

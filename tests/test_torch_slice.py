@@ -68,8 +68,10 @@ def test_run_bin_mean_matches_jax_and_oracle(cfg, max_grid):
     assert kernels.launches["seg_mean"] == before
     assert backend.chunks >= (3 if max_grid == 4096 else 1)
     assert set(backend.phase_seconds) == {
-        "pack", "h2d", "kernel", "d2h", "finalize"
+        "pack", "h2d", "kernel", "d2h", "finalize",
+        "qc_pack", "qc_h2d", "qc_kernel", "qc_d2h",
     }
+    assert backend.cos_chunks == 0
     assert len(got) == len(want) == len(oracle) == len(clusters)
     for g, w, o in zip(got, want, oracle):
         assert g.title == w.title == o.title
