@@ -13,7 +13,14 @@ NVIDIA GPU:
    plain version and ``torch.segment_reduce`` with CUDA events; then
    ``seg_scan`` against ``seg_scan_plain`` (head flags with nc = 1 and 2,
    sorted keys with nc = 3, at the same N), timed beside ``torch.cumsum``
-   as a same-bytes reference;
+   as a same-bytes reference.  Each timed case is profiled and must show
+   one CUDA kernel per call, and beside its bound it is given the time of
+   a plain device copy of the same traffic (``copy_ms``);
+   stress phase: 200 calls of both kernels back to back on one stream, N
+   cycling through the path's shape, 16M, a ragged N, 1, one tile and one
+   tile + 1, each against its plain version; extremes: 16M elements as
+   one run and as 16M runs; streams: both kernels on two streams at once,
+   each with its own workspace;
 3. slice phase: ``TorchBackend(device="cuda").run_bin_mean_with_cosines``
    (consensus and QC cosine) on 20,000 synthetic clusters (seed 42, about
    27M peaks, two or more consensus and cosine chunks), counting kernel
@@ -52,6 +59,9 @@ KERNEL_N = 16 * 1024 * 1024  # the main path's chunk cap
 RAGGED_N = 10_000_019
 SLICE_CLUSTERS = 20_000
 CLI_CLUSTERS = 2_000
+PATH_N = 2_841_563  # slice-20k's largest cosine chunk, member side
+STRESS_CALLS = 200
+STREAM_ROUNDS = 10
 
 
 def make_workload(n_clusters: int, seed: int = 42):
@@ -100,6 +110,7 @@ def kernel_inputs(n: int, nv: int, seed: int):
     return keys.astype(np.int32), w, values
 
 
+PROFILE_TRIES = 3
 SPIN_CYCLES = 2_000_000  # ~1 ms of the card's clock: outlasts any enqueue
 
 
@@ -130,16 +141,20 @@ def time_ms(fn, reps: int = 25, warm: int = 3, lead_in: bool = True) -> float:
     return float(np.median(times))
 
 
-def device_split(fn, calls: int = 20) -> tuple[dict | None, float]:
+PROFILE_CALLS = 20
+
+
+def device_split(fn, calls: int = PROFILE_CALLS):
     """Where one call of ``fn`` spends its time: the device time of each
     CUDA kernel it launches, in µs per call (``torch.profiler`` over
-    ``calls`` calls; None where the profiler saw no device time), and the
-    host's time to enqueue one call, in µs (host clock, no synchronize
-    inside the loop)."""
+    ``calls`` calls, from the last try; None where the profiler saw no
+    device time), the host's time to enqueue one call, in µs (host clock,
+    no synchronize inside the loop), the kernel names seen in any try, and
+    the CUDA kernels each try saw."""
     import re
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
@@ -148,20 +163,65 @@ def device_split(fn, calls: int = 20) -> tuple[dict | None, float]:
         fn()
     host_us = (time.perf_counter() - t0) / calls * 1e6
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    split = {}
-    for ev in prof.key_averages():
-        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            continue
-        us = getattr(ev, "device_time_total", 0.0) / calls
-        m = re.search(r"(seg_\w+)", ev.key)
-        name = m.group(1) if m else ev.key[:60]
-        split[name] = split.get(name, 0.0) + us
-    return (split or None), host_us
+    # The profiler has returned none or only some of a step's device events
+    # on the H100: a warm-up step of the same calls comes first, and a try
+    # that saw fewer kernels than calls is taken again.  A lost event can
+    # only lower the count, so one over it ends the tries.
+    names, counts = set(), []
+    for _ in range(PROFILE_TRIES):
+        split = {}
+        kernels = 0
+        events = []  # the active step's, read before the profiler clears them
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: events.extend(
+                         p.key_averages())) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        for ev in events:
+            if (not str(getattr(ev, "device_type", "")).endswith("CUDA")
+                    or ev.key.startswith("ProfilerStep")):
+                continue
+            us = getattr(ev, "device_time_total", 0.0) / calls
+            m = re.search(r"(seg_\w+)", ev.key)
+            name = m.group(1) if m else ev.key[:60]
+            split[name] = split.get(name, 0.0) + us
+            kernels += ev.count
+        names |= set(split)
+        counts.append(kernels)
+        if kernels >= calls:
+            break
+    return (split or None), host_us, names, counts
+
+
+def one_kernel(case: dict, fn, what: str) -> None:
+    """Profile ``fn`` into ``case`` (``device_us``, ``host_us_per_call``,
+    ``kernels_per_call``, ``profiled_kernels`` of each try) and fail unless
+    every try saw one kernel name and no more kernels than calls, and the
+    last saw exactly one per call."""
+    split, host_us, names, counts = device_split(fn)
+    case["device_us"], case["host_us_per_call"] = split, host_us
+    case["kernels_per_call"] = counts[-1] / PROFILE_CALLS
+    case["profiled_kernels"] = counts
+    if (len(names) != 1 or max(counts) > PROFILE_CALLS
+            or counts[-1] != PROFILE_CALLS):
+        raise AssertionError(f"{what}: kernels {sorted(names)}, {counts} "
+                             f"in tries of {PROFILE_CALLS} calls")
+
+
+def copy_ms(moved: int) -> float:
+    """The card's time to copy ``moved / 2`` bytes on the device: the same
+    traffic (each byte read once and written once) as a kernel that must
+    move ``moved`` bytes, at the rate a plain copy reaches."""
+    import torch
+
+    src = torch.ones(moved // 2, dtype=torch.uint8, device=DEV)
+    dst = torch.empty_like(src)
+    return time_ms(lambda: dst.copy_(src))
 
 
 def max_rel_err(got, want) -> float:
@@ -175,10 +235,12 @@ def max_rel_err(got, want) -> float:
     return float(((got - want).abs()[nz] / want.abs()[nz]).max())
 
 
-def compare(got, want, what: str, exact_first: bool) -> tuple[float, float]:
+def compare(got, want, what: str, exact_first: bool,
+            quiet: bool = False) -> tuple[float, float]:
     """Channels within TOL (the first, seg_mean's count, exactly equal when
     ``exact_first``); returns the max abs and max relative error of the
-    channels held to TOL, printing the latter beside the tolerance."""
+    channels held to TOL, printing the latter beside the tolerance unless
+    ``quiet``."""
     import torch
 
     if exact_first and not torch.equal(got[0], want[0]):
@@ -196,8 +258,9 @@ def compare(got, want, what: str, exact_first: bool) -> tuple[float, float]:
             )
         err = max(err, float((g - e).abs().max()))
         rel = max(rel, max_rel_err(g, e))
-    print(f"compare {what}: max_rel_err {rel!r} (rtol {TOL['rtol']}, "
-          f"atol {TOL['atol']})", flush=True)
+    if not quiet:
+        print(f"compare {what}: max_rel_err {rel!r} (rtol {TOL['rtol']}, "
+              f"atol {TOL['atol']})", flush=True)
     return err, rel
 
 
@@ -237,10 +300,11 @@ def seg_mean_phase(kernels) -> dict:
                     stacked, "sum", lengths=lengths, axis=0, unsafe=True
                 ))
                 case["library"] = "torch.segment_reduce, run totals only"
-                case["device_us"], case["host_us_per_call"] = device_split(
-                    lambda: kernels.seg_mean(*args)
-                )
-                case["bound_ms"] = n * (12 + 8 * nv) / HBM_BYTES_PER_S * 1e3
+                one_kernel(case, lambda: kernels.seg_mean(*args),
+                           f"seg_mean n={n} nv={nv}")
+                moved = n * (12 + 8 * nv)
+                case["bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
+                case["copy_ms"] = copy_ms(moved)
             res["cases"].append(case)
             print(f"kernel seg_mean {json.dumps(case)}", flush=True)
     return res
@@ -278,11 +342,12 @@ def scan_case(kernels, n: int, kind: str, nc: int, timed: bool) -> dict:
             lambda: [torch.cumsum(v, 0) for v in args[1:]]
         )
         case["cumsum"] = "torch.cumsum per channel: same bytes, not a yardstick"
-        case["device_us"], case["host_us_per_call"] = device_split(
-            lambda: kernels.seg_scan(*args)
-        )
+        one_kernel(case, lambda: kernels.seg_scan(*args),
+                   f"seg_scan {kind} n={n} nc={nc}")
         head_bytes = 4 if kind == "keys" else 1
-        case["bound_ms"] = n * (head_bytes + 8 * nc) / HBM_BYTES_PER_S * 1e3
+        moved = n * (head_bytes + 8 * nc)
+        case["bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
+        case["copy_ms"] = copy_ms(moved)
     print(f"kernel seg_scan {json.dumps(case)}", flush=True)
     return case
 
@@ -302,6 +367,168 @@ def path_scan_phase(kernels, shapes: list) -> dict:
         n = max(m for m, c in shapes if c == nc)
         cases.append(scan_case(kernels, n, "flags", nc, timed=True))
     return {"cases": cases}
+
+
+def device_inputs(op: str, n: int, nch: int, gen):
+    """Inputs made on the card from ``gen``: keys in runs of 1-20 (sorted,
+    int32), then head flags from them for ``flags``, 3 % masked weights for
+    ``mean``, and ``nch`` channels uniform in [10, 1e4)."""
+    import torch
+
+    lens = torch.randint(1, 21, (n // 5 + 1,), device=DEV, generator=gen)
+    keys = torch.repeat_interleave(
+        torch.arange(lens.numel(), device=DEV, dtype=torch.int32), lens
+    )[:n].contiguous()
+    values = [torch.rand(n, device=DEV, generator=gen) * (1e4 - 10) + 10
+              for _ in range(nch)]
+    if op == "mean":
+        w = (torch.rand(n, device=DEV, generator=gen) > 0.03).float()
+        return [keys, w, *values]
+    if op == "flags":
+        head = torch.ones(n, dtype=torch.bool, device=DEV)
+        head[1:] = keys[1:] != keys[:-1]
+        return [head, *values]
+    return [keys, *values]
+
+
+STRESS_OPS = (("flags", 1), ("keys", 3), ("mean", 1), ("flags", 2),
+              ("mean", 2), ("keys", 1))
+
+
+def stress_phase(kernels, lib) -> dict:
+    """200 ``seg_scan`` and ``seg_mean`` calls back to back on one stream,
+    no synchronize between them, N cycling through the path's shape, 16M,
+    a ragged N, 1, one tile and one tile + 1, channel counts varying, on a
+    workspace registry emptied first (so it is grown, then reused); then
+    every result against its plain version."""
+    import torch
+
+    sizes = (PATH_N, KERNEL_N, RAGGED_N, 1, lib.tile, lib.tile + 1)
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    inputs, want = {}, {}
+    plan = [(sizes[i % len(sizes)], STRESS_OPS[(i // len(sizes))
+                                                % len(STRESS_OPS)])
+            for i in range(STRESS_CALLS)]
+    for n, (op, nch) in plan:
+        if (n, op, nch) not in inputs:
+            args = device_inputs(op, n, nch, gen)
+            inputs[n, op, nch] = args
+            want[n, op, nch] = (kernels.seg_mean_plain(*args) if op == "mean"
+                                else kernels.seg_scan_plain(*args))
+    torch.cuda.synchronize()
+    kernels.workspaces.clear()
+    before = dict(kernels.launches)
+    t0 = time.perf_counter()
+    got = [(kernels.seg_mean if op == "mean" else kernels.seg_scan)(
+        *inputs[n, op, nch]) for n, (op, nch) in plan]
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launched = sum(kernels.launches[k] - before[k] for k in before)
+    if launched != STRESS_CALLS:
+        raise AssertionError(f"stress: {launched} launches for "
+                             f"{STRESS_CALLS} calls")
+    err = rel = 0.0
+    for (n, (op, nch)), out in zip(plan, got):
+        e, r = compare(out, want[n, op, nch], f"stress {op} n={n} nc={nch}",
+                       op == "mean", quiet=True)
+        err, rel = max(err, e), max(rel, r)
+    (ws,) = kernels.workspaces.values()
+    res = {"calls": STRESS_CALLS, "sizes": sizes, "ops": STRESS_OPS,
+           "max_abs_err": err, "max_rel_err": rel, "enqueue_s": enqueue_s,
+           "wall_s": wall_s, "workspace_tiles": ws.tiles,
+           "workspace_base": ws.base}
+    print(f"compare stress ({STRESS_CALLS} calls): max_rel_err {rel!r} "
+          f"(rtol {TOL['rtol']}, atol {TOL['atol']})", flush=True)
+    print(f"stress {json.dumps(res)}", flush=True)
+    return res
+
+
+def extremes_phase(kernels) -> dict:
+    """16M elements as one run (the longest look-back chain: no tile but
+    the first holds a head) and as 16M runs of one.  The one-run values
+    are 0 or 1, so every f32 prefix up to 2^24 is exact and the comparison
+    sees the look-back's composition, not f32 rounding of a 16M-term sum."""
+    import torch
+
+    n = KERNEL_N
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    bits = [(torch.rand(n, device=DEV, generator=gen) < 0.5).float()
+            for _ in range(3)]
+    values = [torch.rand(n, device=DEV, generator=gen) * (1e4 - 10) + 10
+              for _ in range(3)]
+    one_key = torch.zeros(n, dtype=torch.int32, device=DEV)
+    no_head = torch.zeros(n, dtype=torch.bool, device=DEV)
+    all_keys = torch.arange(n, dtype=torch.int32, device=DEV)
+    all_heads = torch.ones(n, dtype=torch.bool, device=DEV)
+    cases = {
+        "one run flags nc=1": ("scan", [no_head, bits[0]]),
+        "one run keys nc=3": ("scan", [one_key, *bits]),
+        "one run mean nv=2": ("mean", [one_key, bits[0], bits[1], bits[2]]),
+        "all heads flags nc=2": ("scan", [all_heads, *values[:2]]),
+        "all heads keys nc=3": ("scan", [all_keys, *values]),
+        "all heads mean nv=1": ("mean", [all_keys, bits[0], values[0]]),
+    }
+    res = {}
+    for what, (op, args) in cases.items():
+        fn, plain = ((kernels.seg_mean, kernels.seg_mean_plain) if op == "mean"
+                     else (kernels.seg_scan, kernels.seg_scan_plain))
+        got = fn(*args)
+        torch.cuda.synchronize()
+        err, rel = compare(got, plain(*args), what, op == "mean")
+        res[what] = {"max_abs_err": err, "max_rel_err": rel}
+        if what.startswith("one run"):
+            res[what]["ms"] = time_ms(lambda: fn(*args))
+    print(f"extremes {json.dumps(res)}", flush=True)
+    return res
+
+
+def streams_phase(kernels, lib) -> dict:
+    """``seg_scan`` and ``seg_mean`` on two streams at once, their calls
+    interleaved with no synchronize: each stream must get its own
+    workspace, whose ticket base counts exactly that stream's tiles."""
+    import torch
+
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    jobs = (("flags", PATH_N, 1), ("mean", KERNEL_N, 1))
+    inputs = [device_inputs(op, n, nch, gen) for op, n, nch in jobs]
+    want = [kernels.seg_mean_plain(*a) if op == "mean"
+            else kernels.seg_scan_plain(*a)
+            for (op, _, _), a in zip(jobs, inputs)]
+    dev = torch.device(DEV).index or 0
+    for stream in streams:
+        kernels.workspaces.pop((dev, stream.cuda_stream), None)
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(STREAM_ROUNDS):
+        for k, ((op, _, _), stream) in enumerate(zip(jobs, streams)):
+            with torch.cuda.stream(stream):
+                fn = kernels.seg_mean if op == "mean" else kernels.seg_scan
+                got[k].append(fn(*inputs[k]))
+    torch.cuda.synchronize()
+    err = rel = 0.0
+    for k, (op, n, nch) in enumerate(jobs):
+        for out in got[k]:
+            e, r = compare(out, want[k], f"streams {op} n={n}",
+                           op == "mean", quiet=True)
+            err, rel = max(err, e), max(rel, r)
+    ws = [kernels.workspaces[dev, s.cuda_stream] for s in streams]
+    if ws[0].buf.data_ptr() == ws[1].buf.data_ptr():
+        raise AssertionError("streams: both streams share one workspace")
+    for w, (_, n, _) in zip(ws, jobs):
+        tiles = -(-n // lib.tile)
+        if w.base != STREAM_ROUNDS * tiles:
+            raise AssertionError(
+                f"streams: base {w.base} after {STREAM_ROUNDS} calls of "
+                f"{tiles} tiles")
+    res = {"rounds": STREAM_ROUNDS, "max_abs_err": err, "max_rel_err": rel,
+           "workspace_ptrs": [w.buf.data_ptr() for w in ws],
+           "workspace_bases": [w.base for w in ws]}
+    print(f"compare streams ({2 * STREAM_ROUNDS} calls): max_rel_err "
+          f"{rel!r} (rtol {TOL['rtol']}, atol {TOL['atol']})", flush=True)
+    print(f"streams {json.dumps(res)}", flush=True)
+    return res
 
 
 def check_same(got, want, what: str) -> None:
@@ -496,7 +723,7 @@ def main() -> int:
     print(f"device {name}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    _build.load()
+    lib = _build.load()
     info = _build.build_info or {}
     print(f"build {time.perf_counter() - t0:.2f} s (nvcc "
           f"{info.get('seconds', 0.0):.2f} s, compile "
@@ -505,6 +732,9 @@ def main() -> int:
 
     mres = seg_mean_phase(kernels)
     kres = seg_scan_phase(kernels)
+    stres = stress_phase(kernels, lib)
+    xres = extremes_phase(kernels)
+    twores = streams_phase(kernels, lib)
     sres = slice_phase(kernels)
     pres = path_scan_phase(kernels, sres.pop("scan_shapes"))
     cres = cli_phase()
@@ -543,6 +773,7 @@ def main() -> int:
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "chip_smoke.json"), "w") as fh:
         json.dump({"card": smi, "seg_mean": mres, "seg_scan": kres,
+                   "stress": stres, "extremes": xres, "streams": twores,
                    "slice": sres, "path_scan": pres, "cli": cres,
                    "build": info.get("seconds")}, fh, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)

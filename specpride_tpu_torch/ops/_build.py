@@ -112,9 +112,32 @@ def _build(nvcc: str, digest: str) -> str:
     return lib_path
 
 
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Argument types of the entry points, set once; ``lib.tile`` and
+    ``lib.record_bytes`` are the scan's tile size and workspace record."""
+    vp = ctypes.c_void_p
+    for fn in (lib.seg_tile_size, lib.seg_record_bytes):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+    # (runs, in0, in1, in2, out0, out1, out2, n, channels, workspace,
+    #  base, device, stream)
+    for fn in (lib.seg_mean_f32, lib.seg_scan_flags_f32,
+               lib.seg_scan_keys_f32):
+        fn.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
+            vp, ctypes.c_ulonglong, ctypes.c_int, vp,
+        ]
+        fn.restype = ctypes.c_int
+    lib.tile = lib.seg_tile_size()
+    lib.record_bytes = lib.seg_record_bytes()
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built first if its sources changed."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -128,22 +151,5 @@ def load() -> ctypes.CDLL:
             fresh = False
         if not fresh:
             lib_path = _build(nvcc, digest)
-        lib = ctypes.CDLL(lib_path)
-        vp = ctypes.c_void_p
-        lib.seg_mean_tile_size.argtypes = []
-        lib.seg_mean_tile_size.restype = ctypes.c_int
-        lib.seg_mean_f32.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
-            vp, vp, vp,
-        ]
-        lib.seg_mean_f32.restype = ctypes.c_int
-        vpp = ctypes.POINTER(ctypes.c_void_p)
-        lib.seg_scan_tile_size.argtypes = []
-        lib.seg_scan_tile_size.restype = ctypes.c_int
-        for fn in (lib.seg_scan_flags_f32, lib.seg_scan_keys_f32):
-            fn.argtypes = [
-                vp, vpp, vpp, ctypes.c_longlong, ctypes.c_int, vp, vp, vp,
-            ]
-            fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
+        _lib = _declare(ctypes.CDLL(lib_path))
+        return _lib

@@ -17,11 +17,10 @@
 // Bound: memory.  The function reads the run form and nc channels and
 // writes nc outputs: (1 + 8 nc) B/element with flags, (4 + 8 nc) with keys,
 // 28 B for seg_scan_pallas's three channels; a handful of adds per element.
-// The three launches of seg_scan_core.cuh: pass 1 writes every element's
-// tile-local prefix, which is final except in each tile's leading run, so
-// the fix-up touches only those leading runs.  The traffic is the bound's
-// plus the tile aggregates and the leading runs; the two extra launches are
-// what costs at the cosine's ~3M elements.
+// One launch of seg_scan_core.cuh's single-pass scan: each input is read
+// once with 16-byte loads and each output written once, so the traffic is
+// the bound's plus a 32-byte record per tile; at the cosine's ~3M elements
+// the rest of a call's time is the launch itself.
 
 #include "seg_scan_core.cuh"
 
@@ -32,10 +31,16 @@ struct FlagLoad {
   const unsigned char* head;
   const float* v[NC];
 
-  __device__ __forceinline__ int operator()(long long i, float (&x)[NC]) const {
+  __device__ __forceinline__ unsigned operator()(
+      long long i0, long long n, bool vec, float (&x)[NC][kItems],
+      uint4* stage) const {
+    unsigned w[NC][kItems];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) x[c] = __ldg(v[c] + i);
-    return (i == 0) || (__ldg(head + i) != 0);
+    for (int c = 0; c < NC; ++c) fetch_words(v[c], i0, n, vec, w[c]);
+    const unsigned heads = flag_heads(head, i0, n, vec);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) as_floats(w[c], vec, stage, x[c]);
+    return heads;
   }
 };
 
@@ -44,52 +49,61 @@ struct KeyLoad {
   const int* keys;
   const float* v[NC];
 
-  __device__ __forceinline__ int operator()(long long i, float (&x)[NC]) const {
+  __device__ __forceinline__ unsigned operator()(
+      long long i0, long long n, bool vec, float (&x)[NC][kItems],
+      uint4* stage) const {
+    unsigned key[kItems], w[NC][kItems];
+    fetch_words(keys, i0, n, vec, key);
+    const unsigned before = key_before(keys, i0, n);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) x[c] = __ldg(v[c] + i);
-    return (i == 0) || (__ldg(keys + i) != __ldg(keys + i - 1));
+    for (int c = 0; c < NC; ++c) fetch_words(v[c], i0, n, vec, w[c]);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) as_floats(w[c], vec, stage, x[c]);
+    return key_heads(key, before, i0, n, vec, stage);
   }
 };
 
-template <int NC, class Load>
-int launch(Load load, void* const* outs, long long n, int* tile_first,
-           float* tile_sum, cudaStream_t stream) {
-  Outs<NC> out;
-  for (int c = 0; c < NC; ++c) out.p[c] = static_cast<float*>(outs[c]);
-  cudaError_t err =
-      launch_tile_scan<NC>(load, out, n, tile_first, tile_sum, stream);
-  if (err != cudaSuccess) return (int)err;
-  const long long n_tiles = (n + kTile - 1) / kTile;
-  seg_fixup_add<NC><<<(unsigned)n_tiles, kThreads, 0, stream>>>(
-      out, n, tile_first, tile_sum);
-  return (int)cudaGetLastError();
+template <int NC>
+struct ScanStore {
+  float* o[NC];
+
+  __device__ __forceinline__ void operator()(
+      long long i0, long long n, bool vec, const float (&s)[NC][kItems],
+      uint4* stage) const {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) store_floats(o[c], i0, n, vec, s[c], stage);
+  }
+};
+
+template <int NC, template <int> class L, class R>
+int launch(const R* runs, const void* const* in, void* const* out,
+           long long n, void* ws, unsigned long long base, int device,
+           void* stream) {
+  L<NC> load{runs, {}};
+  ScanStore<NC> store{};
+  bool aligned = aligned16(runs);
+  for (int c = 0; c < NC; ++c) {
+    load.v[c] = static_cast<const float*>(in[c]);
+    store.o[c] = static_cast<float*>(out[c]);
+    aligned = aligned && aligned16(in[c]) && aligned16(out[c]);
+  }
+  return launch_onepass<NC>(load, store, n, aligned, ws, base, device,
+                            stream);
 }
 
-template <template <int> class L, class H>
-int dispatch(const H* runs, void* const* values, void* const* outs,
-             long long n, int nc, void* tile_first, void* tile_sum,
-             void* stream) {
-  if (n <= 0) return 0;
-  if ((n + kTile - 1) / kTile > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  auto* s = static_cast<cudaStream_t>(stream);
-  auto* tf = static_cast<int*>(tile_first);
-  auto* ts = static_cast<float*>(tile_sum);
+template <template <int> class L, class R>
+int dispatch(const R* runs, const void* v0, const void* v1, const void* v2,
+             void* o0, void* o1, void* o2, long long n, int nc, void* ws,
+             unsigned long long base, int device, void* stream) {
+  const void* in[kMaxNC] = {v0, v1, v2};
+  void* out[kMaxNC] = {o0, o1, o2};
   switch (nc) {
-    case 1: {
-      L<1> load{runs, {static_cast<const float*>(values[0])}};
-      return launch<1>(load, outs, n, tf, ts, s);
-    }
-    case 2: {
-      L<2> load{runs, {static_cast<const float*>(values[0]),
-                       static_cast<const float*>(values[1])}};
-      return launch<2>(load, outs, n, tf, ts, s);
-    }
-    case 3: {
-      L<3> load{runs, {static_cast<const float*>(values[0]),
-                       static_cast<const float*>(values[1]),
-                       static_cast<const float*>(values[2])}};
-      return launch<3>(load, outs, n, tf, ts, s);
-    }
+    case 1:
+      return launch<1, L>(runs, in, out, n, ws, base, device, stream);
+    case 2:
+      return launch<2, L>(runs, in, out, n, ws, base, device, stream);
+    case 3:
+      return launch<3, L>(runs, in, out, n, ws, base, device, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -99,25 +113,29 @@ int dispatch(const H* runs, void* const* values, void* const* outs,
 
 extern "C" {
 
-// Elements per tile: the caller allocates ceil(n / tile) ints and
-// ceil(n / tile) * nc floats of scratch.
-int seg_scan_tile_size() { return kTile; }
+// Elements per tile, and bytes of workspace per tile: a call over n
+// elements needs (1 + ceil(n / tile)) records, zeroed before first use.
+int seg_tile_size() { return kTile; }
+int seg_record_bytes() { return (int)sizeof(TileRec); }
 
-// values and outs are host arrays of nc device pointers (nc = 1..3).
-// Returns 0 or the cudaError_t of the first launch that failed;
-// synchronizes nothing.
-int seg_scan_flags_f32(const void* head, void* const* values,
-                       void* const* outs, long long n, int nc,
-                       void* tile_first, void* tile_sum, void* stream) {
-  return dispatch<FlagLoad>(static_cast<const unsigned char*>(head), values,
-                            outs, n, nc, tile_first, tile_sum, stream);
+// nc = 1..3 channels; the v and o pointers past nc are unused.  ws is the
+// stream's workspace and base its ticket counter's value before this
+// launch, which adds ceil(n / tile) to it.  Returns 0 or the cudaError_t of
+// the launch; synchronizes nothing.
+int seg_scan_flags_f32(const void* head, const void* v0, const void* v1,
+                       const void* v2, void* o0, void* o1, void* o2,
+                       long long n, int nc, void* ws, unsigned long long base,
+                       int device, void* stream) {
+  return dispatch<FlagLoad>(static_cast<const unsigned char*>(head), v0, v1,
+                            v2, o0, o1, o2, n, nc, ws, base, device, stream);
 }
 
-int seg_scan_keys_f32(const void* keys, void* const* values,
-                      void* const* outs, long long n, int nc,
-                      void* tile_first, void* tile_sum, void* stream) {
-  return dispatch<KeyLoad>(static_cast<const int*>(keys), values, outs, n,
-                           nc, tile_first, tile_sum, stream);
+int seg_scan_keys_f32(const void* keys, const void* v0, const void* v1,
+                      const void* v2, void* o0, void* o1, void* o2,
+                      long long n, int nc, void* ws, unsigned long long base,
+                      int device, void* stream) {
+  return dispatch<KeyLoad>(static_cast<const int*>(keys), v0, v1, v2, o0, o1,
+                           o2, n, nc, ws, base, device, stream);
 }
 
 }  // extern "C"

@@ -4,17 +4,91 @@ counterpart of the JAX package's ``ops/pallas_kernels.py``.
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  ``launches`` counts kernel
 launches per wrapper name, so a run can show that it went through them.
+
+Both kernels are one launch of the single-pass scan in
+``ops/csrc/seg_scan_core.cuh``.  Its scratch, the workspace, is allocated
+here once per (device, stream) and kept: a wrapper call allocates only its
+outputs.
 """
 
 from __future__ import annotations
 
-import ctypes
+import threading
 
 import torch
 
 from specpride_tpu_torch.ops import segments
 
 launches = {"seg_mean": 0, "seg_scan": 0}
+
+# A status word keeps a tile's ticket + 1 in 62 bits (seg_scan_core.cuh).
+STAMP_LIMIT = 1 << 62
+
+
+class Workspace:
+    """Scratch of the single-pass scans on one (device, stream), kept
+    between calls: the ticket counter and one record per tile
+    (``ops/csrc/seg_scan_core.cuh``), zeroed once.  ``base`` is the
+    counter's value before the next launch, and each launch adds its tile
+    count, so no call clears anything.  Calls on one stream run in order
+    and share it; another stream gets its own.  ``_launch`` holds
+    ``workspace_lock`` from reading ``base`` to advancing it, so host
+    threads that launch on one stream never share a range of tickets."""
+
+    __slots__ = ("buf", "tiles", "base")
+
+    def __init__(self, device, tiles: int, record_bytes: int):
+        self.buf = torch.zeros((tiles + 1) * record_bytes, dtype=torch.uint8,
+                               device=device)
+        self.tiles = tiles
+        self.base = 0
+
+
+workspaces: dict[tuple, Workspace] = {}
+# held across a launch's workspace lookup, its enqueue and its base bump
+workspace_lock = threading.Lock()
+
+
+def workspace(device, stream: int, tiles: int,
+              record_bytes: int) -> Workspace:
+    """The workspace of ``stream`` on ``device`` for a launch of ``tiles``
+    tiles.  It grows (doubling, zeroed, counter at 0) when it is too small,
+    and is zeroed with its counter back at 0 before a stamp would pass
+    ``STAMP_LIMIT``.  The old buffer goes back to PyTorch's caching
+    allocator, which reuses it only for work ordered after this stream's."""
+    key = (device.index, stream)
+    ws = workspaces.get(key)
+    if ws is None or ws.tiles < tiles:
+        grown = max(tiles, 2 * ws.tiles) if ws else tiles
+        ws = workspaces[key] = Workspace(device, grown, record_bytes)
+    elif ws.base + tiles >= STAMP_LIMIT:
+        ws.buf.zero_()
+        ws.base = 0
+    return ws
+
+
+def _launch(name, entry, lib, runs, ins, outs, count: int) -> None:
+    """One launch of a kernel entry point on the current stream of the
+    inputs' device, with that stream's workspace; raises if it failed.
+    Not inside a CUDA graph: a replay would launch with the ``base`` of the
+    capture."""
+    dev = runs.device
+    n = runs.numel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{name} cannot be captured in a CUDA graph: "
+                           "each launch needs the workspace's next base")
+    tiles = -(-n // lib.tile)
+    ins = [t.data_ptr() for t in ins] + [None] * (3 - len(ins))
+    outs = [t.data_ptr() for t in outs] + [None] * (3 - len(outs))
+    with workspace_lock:
+        ws = workspace(dev, stream, tiles, lib.record_bytes)
+        rc = entry(runs.data_ptr(), *ins, *outs, n, count,
+                   ws.buf.data_ptr(), ws.base, dev.index, stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+        ws.base += tiles
+        launches[name] += 1
 
 
 def _check_args(name, runs, run_dtypes, channels, counts) -> None:
@@ -117,31 +191,10 @@ def seg_mean(
     from specpride_tpu_torch.ops import _build
 
     lib = _build.load()
-    nv = len(values)
-    n = keys.numel()
-    dev = keys.device
-    outs = [torch.empty(n, dtype=torch.float32, device=dev)
-            for _ in range(1 + nv)]
-    if n == 0:
-        return tuple(outs)
-    tile = lib.seg_mean_tile_size()
-    n_tiles = -(-n // tile)
-    tile_first = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    tile_sum = torch.empty(n_tiles * (1 + nv), dtype=torch.float32,
-                           device=dev)
-    v1 = values[1] if nv == 2 else values[0]
-    o2 = outs[2] if nv == 2 else outs[1]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.seg_mean_f32(
-            keys.data_ptr(), w.data_ptr(), values[0].data_ptr(),
-            v1.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
-            o2.data_ptr(), ctypes.c_longlong(n), nv, tile_first.data_ptr(),
-            tile_sum.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"seg_mean kernel launch failed: cudaError {rc}")
-    launches["seg_mean"] += 1
+    outs = [torch.empty_like(w) for _ in range(1 + len(values))]
+    if keys.numel():
+        _launch("seg_mean", lib.seg_mean_f32, lib, keys, (w, *values), outs,
+                len(values))
     return tuple(outs)
 
 
@@ -185,27 +238,9 @@ def seg_scan(
     from specpride_tpu_torch.ops import _build
 
     lib = _build.load()
-    nc = len(values)
-    n = runs.numel()
-    dev = runs.device
-    outs = [torch.empty(n, dtype=torch.float32, device=dev)
-            for _ in range(nc)]
-    if n == 0:
-        return tuple(outs)
-    n_tiles = -(-n // lib.seg_scan_tile_size())
-    tile_first = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    tile_sum = torch.empty(n_tiles * nc, dtype=torch.float32, device=dev)
-    ptrs = ctypes.c_void_p * nc
-    entry = (lib.seg_scan_keys_f32 if runs.dtype == torch.int32
-             else lib.seg_scan_flags_f32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = entry(
-            runs.data_ptr(), ptrs(*(v.data_ptr() for v in values)),
-            ptrs(*(o.data_ptr() for o in outs)), ctypes.c_longlong(n), nc,
-            tile_first.data_ptr(), tile_sum.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"seg_scan kernel launch failed: cudaError {rc}")
-    launches["seg_scan"] += 1
+    outs = [torch.empty_like(v) for v in values]
+    if runs.numel():
+        entry = (lib.seg_scan_keys_f32 if runs.dtype == torch.int32
+                 else lib.seg_scan_flags_f32)
+        _launch("seg_scan", entry, lib, runs, values, outs, len(values))
     return tuple(outs)
