@@ -16,6 +16,9 @@ NVIDIA GPU:
    as a same-bytes reference.  Each timed case is profiled and must show
    one CUDA kernel per call, and beside its bound it is given the time of
    a plain device copy of the same traffic (``copy_ms``);
+   then ``seg_mean_heads`` against ``seg_mean_heads_plain`` (head flags;
+   one bf16 or int8 channel, f32/f32 and f32/int8 channel pairs at 16M, a
+   ragged N, and pointers one element off alignment), timed the same way;
    stress phase: 200 calls of both kernels back to back on one stream, N
    cycling through the path's shape, 16M, a ragged N, 1, one tile and one
    tile + 1, each against its plain version; extremes: 16M elements as
@@ -24,10 +27,17 @@ NVIDIA GPU:
 3. slice phase: ``TorchBackend(device="cuda").run_bin_mean_with_cosines``
    (consensus and QC cosine) on 20,000 synthetic clusters (seed 42, about
    27M peaks, two or more consensus and cosine chunks), counting kernel
-   launches, against the same run on the CPU; then ``seg_scan`` against
-   its plain version and timed at the path's largest scans;
-4. CLI phase: ``python -m specpride_tpu_torch consensus --qc-report`` on
-   a 2,000-cluster MGF, against a CPU run;
+   launches, against the same run on the CPU; precision phase: the same
+   consensus at ``precision="bf16"`` and ``"int8"``, each
+   representative's cosine to the f32 one held to the precision
+   tolerance, H2D bytes per peak beside f32's; gap phase:
+   ``run_gap_average`` on the same clusters at f32 and int8 against CPU
+   runs; every run with the launch counts zeroed just before it; then
+   ``seg_scan`` against its plain version and timed at the path's largest
+   scans;
+4. CLI phase: ``python -m specpride_tpu_torch consensus`` with
+   ``--qc-report``, with ``--method gap-average --qc-report`` and with
+   ``--precision int8`` on a 2,000-cluster MGF, each against a CPU run;
 5. prints a ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
@@ -369,6 +379,89 @@ def path_scan_phase(kernels, shapes: list) -> dict:
     return {"cases": cases}
 
 
+# seg_mean_heads at the paths' shapes: the binned mean's bf16 or int8 codes
+# (nv = 1) and the gap average's m/z and intensity (nv = 2), a ragged N,
+# and every pointer one element off its 16-byte alignment (the scalar path)
+HEAD_CASES = (
+    ("bf16 nv=1", KERNEL_N, ("bfloat16",), 0),
+    ("int8 nv=1", KERNEL_N, ("int8",), 0),
+    ("f32/f32 nv=2", KERNEL_N, ("float32", "float32"), 0),
+    ("f32/int8 nv=2", KERNEL_N, ("float32", "int8"), 0),
+    ("bf16/bf16 nv=2 ragged", RAGGED_N, ("bfloat16", "bfloat16"), 0),
+    ("f32/int8 nv=2 offset", KERNEL_N, ("float32", "int8"), 1),
+)
+HEAD_MAIN = "f32/f32 nv=2"  # the gap average at f32: the kernels line's case
+
+
+def head_inputs(n: int, dtypes, seed: int):
+    """Head flags in runs of 1-20 with one run of 5,000 (``kernel_inputs``'
+    runs), and one channel per dtype: m/z-like f32 or bf16, or int8 codes
+    of 0-127, made on the host from ``seed``."""
+    import torch
+
+    keys, _, _ = kernel_inputs(n, 0, seed)
+    rng = np.random.default_rng(seed + 1)
+    head = np.ones(n, np.uint8)
+    head[1:] = keys[1:] != keys[:-1]
+    values = []
+    for dt in dtypes:
+        if dt == "int8":
+            values.append(torch.from_numpy(
+                rng.integers(0, 128, n).astype(np.int8)))
+        else:
+            v = torch.from_numpy(rng.uniform(120.0, 1900.0, n)
+                                 .astype(np.float32))
+            values.append(v.to(getattr(torch, dt)))
+    return [torch.from_numpy(head), *values]
+
+
+def seg_mean_heads_phase(kernels) -> dict:
+    """``seg_mean_heads`` against ``seg_mean_heads_plain`` for each of
+    ``HEAD_CASES``, each timed beside its plain version, its bound and a
+    device copy of its traffic, and profiled for one kernel per call; the
+    f32 case also beside ``torch.segment_reduce`` of its run totals."""
+    import torch
+
+    res = {"cases": []}
+    for what, n, dtypes, offset in HEAD_CASES:
+        host = head_inputs(n + offset, dtypes, seed=n % 83 + len(what))
+        args = [t.to(DEV)[offset:] for t in host]
+        got = kernels.seg_mean_heads(*args)
+        torch.cuda.synchronize()
+        want = kernels.seg_mean_heads_plain(*args)
+        err, rel = compare(got, want, f"seg_mean_heads {what} n={n}", True)
+        case = {"case": what, "n": n, "dtypes": dtypes, "offset": offset,
+                "aligned": all(t.data_ptr() % 16 == 0 for t in args),
+                "max_abs_err": err, "max_rel_err": rel}
+        if case["aligned"] == bool(offset):
+            raise AssertionError(f"seg_mean_heads {what}: pointers "
+                                 f"{'' if offset else 'not '}aligned")
+        case["ms"] = time_ms(lambda: kernels.seg_mean_heads(*args))
+        case["call_ms"] = time_ms(lambda: kernels.seg_mean_heads(*args),
+                                  lead_in=False)
+        case["plain_ms"] = time_ms(
+            lambda: kernels.seg_mean_heads_plain(*args))
+        if what == HEAD_MAIN:
+            bounds = torch.nonzero(args[0]).squeeze(1)
+            lengths = torch.diff(bounds, append=torch.tensor([n],
+                                                             device=DEV))
+            stacked = torch.stack(
+                [torch.ones(n, device=DEV)] + [v.float() for v in args[1:]],
+                dim=1)
+            case["library_ms"] = time_ms(lambda: torch.segment_reduce(
+                stacked, "sum", lengths=lengths, axis=0, unsafe=True))
+            case["library"] = "torch.segment_reduce, run totals only"
+        one_kernel(case, lambda: kernels.seg_mean_heads(*args),
+                   f"seg_mean_heads {what}")
+        moved = n * (1 + sum(t.element_size() for t in args[1:])
+                     + 4 * len(args))
+        case["bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
+        case["copy_ms"] = copy_ms(moved)
+        res["cases"].append(case)
+        print(f"kernel seg_mean_heads {json.dumps(case)}", flush=True)
+    return res
+
+
 def device_inputs(op: str, n: int, nch: int, gen):
     """Inputs made on the card from ``gen``: keys in runs of 1-20 (sorted,
     int32), then head flags from them for ``flags``, 3 % masked weights for
@@ -591,17 +684,28 @@ def host_split(backend, clusters, reps) -> dict:
     return split
 
 
-def slice_phase(kernels) -> dict:
+def zero_launches(kernels) -> None:
+    for name in kernels.launches:
+        kernels.launches[name] = 0
+
+
+def check_launches(launches: dict, kernel: str, want: int, what: str):
+    """``want`` launches of ``kernel`` (at least 2: the run took several
+    chunks) and none of any other kernel."""
+    others = {k: v for k, v in launches.items() if k != kernel and v}
+    if want < 2 or launches[kernel] != want or others:
+        raise AssertionError(f"{what}: launches {launches}, expected "
+                             f"{want} of {kernel} and no other")
+
+
+def slice_phase(kernels, clusters, gen_s: float) -> dict:
     """The main path, consensus and QC, with every launch count zeroed just
     before it; the shapes of its seg_scan calls are recorded on the way."""
     import torch
 
     from specpride_tpu_torch.backends.torch_backend import TorchBackend
 
-    t0 = time.perf_counter()
-    clusters = make_workload(SLICE_CLUSTERS, seed=42)
     n_peaks = sum(c.total_peaks for c in clusters)
-    gen_s = time.perf_counter() - t0
     TorchBackend(device=DEV).run_bin_mean_with_cosines(clusters[:200])
 
     backend = TorchBackend(device=DEV)
@@ -614,8 +718,7 @@ def slice_phase(kernels) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     kernels.seg_scan = recording_scan
-    for name in kernels.launches:
-        kernels.launches[name] = 0
+    zero_launches(kernels)
     t0 = time.perf_counter()
     try:
         reps, cosines = backend.run_bin_mean_with_cosines(clusters)
@@ -624,6 +727,8 @@ def slice_phase(kernels) -> dict:
         kernels.seg_scan = scan
     wall = time.perf_counter() - t0
     launches = dict(kernels.launches)
+    if launches["seg_mean_heads"]:
+        raise AssertionError(f"slice: launches {launches}")
     if backend.chunks < 2 or launches["seg_mean"] != backend.chunks:
         raise AssertionError(
             f"slice ran {backend.chunks} consensus chunks, "
@@ -652,9 +757,127 @@ def slice_phase(kernels) -> dict:
         "host_split_s": split,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
         "workload_gen_s": gen_s,
+        "h2d_bytes": backend.h2d_bytes,
+        "h2d_bytes_per_peak": backend.h2d_bytes["h2d"] / n_peaks,
     }
     print(f"slice {json.dumps(res)}", flush=True)
     res["scan_shapes"] = shapes
+    res["reps"] = reps
+    return res
+
+
+def rep_cosines(reps, ref_reps, what: str) -> np.ndarray:
+    """Binned cosine of each representative to the reference one, on the
+    card by the port's own QC cosine (``average_cosines`` with the
+    reference as the only member).  A pair empty on both sides is skipped;
+    empty on one side fails."""
+    from specpride_tpu_torch.backends.torch_backend import TorchBackend
+    from specpride_tpu_torch.data.peaks import Cluster
+
+    pairs = [(r, e) for r, e in zip(reps, ref_reps) if r.n_peaks or e.n_peaks]
+    if any(not (r.n_peaks and e.n_peaks) for r, e in pairs):
+        raise AssertionError(f"{what}: a representative is empty on one "
+                             "side only")
+    return TorchBackend(device=DEV).average_cosines(
+        [r for r, _ in pairs], [Cluster(e.title, [e]) for _, e in pairs])
+
+
+def precision_phase(kernels, clusters, f32_reps, f32_h2d: int) -> dict:
+    """slice-20k's consensus at bf16 and at int8, no QC, launch counts
+    zeroed just before each run: one ``seg_mean_heads`` launch per chunk;
+    every representative's binned cosine to the card's f32 one at or
+    above ``precision_tolerance``; H2D bytes per input peak beside f32's."""
+    import torch
+
+    from specpride_tpu_torch.backends.torch_backend import TorchBackend
+    from specpride_tpu_torch.ops.quantize import precision_tolerance
+
+    n_peaks = sum(c.total_peaks for c in clusters)
+    res = {"f32_h2d_bytes_per_peak": f32_h2d / n_peaks}
+    for precision in ("bf16", "int8"):
+        backend = TorchBackend(device=DEV, precision=precision)
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        reps = backend.run_bin_mean(clusters)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        check_launches(launches, "seg_mean_heads", backend.chunks,
+                       f"precision {precision}")
+        cos = rep_cosines(reps, f32_reps, f"precision {precision}")
+        tol = precision_tolerance("bin-mean", precision)
+        per_peak = backend.h2d_bytes["h2d"] / n_peaks
+        run = {"chunks": backend.chunks, "launches": launches,
+               "wall_s": wall, "clusters_per_s": len(clusters) / wall,
+               "phase_s": backend.phase_seconds,
+               "h2d_bytes": backend.h2d_bytes["h2d"],
+               "h2d_bytes_per_peak": per_peak,
+               "compared": int(cos.size), "min_cosine": float(cos.min()),
+               "mean_cosine": float(cos.mean()), "tolerance": tol}
+        print(f"precision {precision} {json.dumps(run)}", flush=True)
+        if not run["min_cosine"] >= tol:
+            raise AssertionError(f"precision {precision}: min cosine "
+                                 f"{run['min_cosine']!r} below {tol}")
+        if not per_peak < res["f32_h2d_bytes_per_peak"]:
+            raise AssertionError(f"precision {precision}: {per_peak} H2D "
+                                 "bytes per peak, not below f32's")
+        res[precision] = run
+    return res
+
+
+GAP_TOL = (dict(rtol=1e-5, atol=0.0), dict(rtol=1e-4, atol=1e-3))
+
+
+def check_gap_same(got, want, what: str) -> None:
+    """Card vs CPU gap average: the same spectra and precursors, equal peak
+    counts, m/z rtol 1e-5, intensity rtol 1e-4 / atol 1e-3 (group means
+    in float32 on the card, from float64 prefixes on the CPU)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} vs {len(want)} spectra")
+    for g, e in zip(got, want):
+        if (g.title, g.n_peaks, g.precursor_mz, g.precursor_charge,
+                g.rt) != (e.title, e.n_peaks, e.precursor_mz,
+                          e.precursor_charge, e.rt):
+            raise AssertionError(f"{what}: {g.title} differs in structure")
+        if not np.isfinite(g.intensity).all():
+            raise AssertionError(f"{what}: {g.title} non-finite intensity")
+        np.testing.assert_allclose(g.mz, e.mz, **GAP_TOL[0], err_msg=what)
+        np.testing.assert_allclose(g.intensity, e.intensity, **GAP_TOL[1],
+                                   err_msg=what)
+
+
+def gap_phase(kernels, clusters) -> dict:
+    """``run_gap_average`` on slice-20k at f32 and at int8, launch counts
+    zeroed just before each card run: one ``seg_mean_heads`` launch per
+    chunk; the card's spectra against a CPU run of the port."""
+    import torch
+
+    from specpride_tpu_torch.backends.torch_backend import TorchBackend
+
+    n_peaks = sum(c.total_peaks for c in clusters)
+    res = {}
+    for precision in ("f32", "int8"):
+        backend = TorchBackend(device=DEV, precision=precision)
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        reps = backend.run_gap_average(clusters)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        check_launches(launches, "seg_mean_heads", backend.chunks,
+                       f"gap {precision}")
+        ref = TorchBackend(device="cpu", precision=precision)\
+            .run_gap_average(clusters)
+        check_gap_same(reps, ref, f"gap {precision}")
+        run = {"chunks": backend.chunks, "launches": launches,
+               "wall_s": wall, "clusters_per_s": len(clusters) / wall,
+               "phase_s": backend.phase_seconds,
+               "h2d_bytes_per_peak": backend.h2d_bytes["h2d"] / n_peaks,
+               "peaks_out": sum(s.n_peaks for s in reps)}
+        print(f"compare gap {precision} vs cpu: peak counts equal, m/z "
+              f"{GAP_TOL[0]}, intensity {GAP_TOL[1]}", flush=True)
+        print(f"gap {precision} {json.dumps(run)}", flush=True)
+        res[precision] = run
     return res
 
 
@@ -669,33 +892,56 @@ def cli_phase() -> dict:
     qc = os.path.join(work, "qc.json")
     clusters = make_workload(CLI_CLUSTERS, seed=42)
     write_mgf([s for c in clusters for s in c.members], src)
-    for path in (dst, qc):
-        if os.path.exists(path):
-            os.remove(path)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "specpride_tpu_torch", "consensus", src, dst,
-         "--qc-report", qc],
-        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
-        capture_output=True, text=True, timeout=600,
-    )
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"CLI exited {proc.returncode}:\n{proc.stderr}")
     parsed = group_into_clusters(read_mgf(src))
-    ref_reps, ref_cos = TorchBackend(device="cpu").run_bin_mean_with_cosines(
-        parsed
-    )
+
+    def cli(*flags) -> float:
+        for path in (dst, qc):
+            if os.path.exists(path):
+                os.remove(path)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "specpride_tpu_torch", "consensus", src,
+             dst, *flags],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            capture_output=True, text=True, timeout=600,
+        )
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI {flags} exited {proc.returncode}:\n"
+                                 f"{proc.stderr}")
+        return time.perf_counter() - t0
+
+    def qc_cosines(what: str, ref_cos) -> dict:
+        with open(qc) as fh:
+            report = json.load(fh)
+        rows = report["clusters"]
+        if [r["cluster_id"] for r in rows] != [c.cluster_id for c in parsed]:
+            raise AssertionError(f"{what}: QC report rows differ from the "
+                                 "clusters")
+        if report["summary"]["n_clusters"] != len(parsed):
+            raise AssertionError(f"{what}: QC report summary miscounts "
+                                 "clusters")
+        return check_cosines([r["avg_cosine"] for r in rows], ref_cos, what)
+
+    res = {"clusters": len(clusters)}
+    res["wall_s"] = cli("--qc-report", qc)
+    cpu = TorchBackend(device="cpu")
+    ref_reps, ref_cos = cpu.run_bin_mean_with_cosines(parsed)
     check_same(read_mgf(dst), ref_reps, "cli")
-    with open(qc) as fh:
-        report = json.load(fh)
-    rows = report["clusters"]
-    if [r["cluster_id"] for r in rows] != [c.cluster_id for c in parsed]:
-        raise AssertionError("cli: QC report rows differ from the clusters")
-    if report["summary"]["n_clusters"] != len(parsed):
-        raise AssertionError("cli: QC report summary miscounts clusters")
-    cos_err = check_cosines([r["avg_cosine"] for r in rows], ref_cos, "cli")
-    res = {"clusters": len(clusters), "wall_s": wall, "cosine_err": cos_err}
+    res["cosine_err"] = qc_cosines("cli", ref_cos)
+
+    res["gap_wall_s"] = cli("--method", "gap-average", "--qc-report", qc)
+    got = read_mgf(dst)
+    check_gap_same(got, cpu.run_gap_average(parsed), "cli gap-average")
+    # the CPU's cosines of the card's own output: group m/z from the card's
+    # float32 means sit an ulp from the CPU's, enough to move a peak across
+    # a QC bin edge, so the CPU's representatives would not be comparable
+    res["gap_cosine_err"] = qc_cosines(
+        "cli gap-average", cpu.average_cosines(got, parsed))
+
+    res["int8_wall_s"] = cli("--precision", "int8")
+    ref_reps = TorchBackend(device="cpu", precision="int8").run_bin_mean(
+        parsed)
+    check_same(read_mgf(dst), ref_reps, "cli --precision int8")
     print(f"cli {json.dumps(res)}", flush=True)
     return res
 
@@ -703,6 +949,7 @@ def cli_phase() -> dict:
 def main() -> int:
     import torch
 
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -732,15 +979,26 @@ def main() -> int:
 
     mres = seg_mean_phase(kernels)
     kres = seg_scan_phase(kernels)
+    hres = seg_mean_heads_phase(kernels)
     stres = stress_phase(kernels, lib)
     xres = extremes_phase(kernels)
     twores = streams_phase(kernels, lib)
-    sres = slice_phase(kernels)
+    t0 = time.perf_counter()
+    clusters = make_workload(SLICE_CLUSTERS, seed=42)
+    sres = slice_phase(kernels, clusters, time.perf_counter() - t0)
+    qres = precision_phase(kernels, clusters, sres.pop("reps"),
+                           sres["h2d_bytes"]["h2d"])
+    gres = gap_phase(kernels, clusters)
+    del clusters
     pres = path_scan_phase(kernels, sres.pop("scan_shapes"))
     cres = cli_phase()
 
     main_case = mres["cases"][0]
     path_case = pres["cases"][0]
+    (heads_case,) = [c for c in hres["cases"] if c["case"] == HEAD_MAIN]
+    heads_launches = sum(
+        run["launches"]["seg_mean_heads"]
+        for run in (qres["bf16"], qres["int8"], gres["f32"], gres["int8"]))
     entries = [{
         "name": "seg_mean",
         "route": "cuda",
@@ -753,6 +1011,18 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"],
         "bound_by": "bytes",
         "library_ms": main_case["library_ms"],
+    }, {
+        "name": "seg_mean_heads",
+        "route": "cuda",
+        "source": "specpride_tpu_torch/ops/csrc/seg_mean.cu",
+        "replaces": "specpride_tpu/ops/pallas_kernels.py:187",
+        "launches": heads_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in hres["cases"]),
+        "ms": heads_case["ms"],
+        "plain_ms": heads_case["plain_ms"],
+        "bound_ms": heads_case["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": heads_case["library_ms"],
     }, {
         "name": "seg_scan",
         "route": "cuda",
@@ -773,9 +1043,11 @@ def main() -> int:
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "chip_smoke.json"), "w") as fh:
         json.dump({"card": smi, "seg_mean": mres, "seg_scan": kres,
-                   "stress": stres, "extremes": xres, "streams": twores,
-                   "slice": sres, "path_scan": pres, "cli": cres,
-                   "build": info.get("seconds")}, fh, indent=1)
+                   "seg_mean_heads": hres, "stress": stres,
+                   "extremes": xres, "streams": twores, "slice": sres,
+                   "precision": qres, "gap": gres, "path_scan": pres,
+                   "cli": cres, "build": info.get("seconds"),
+                   "wall_s": time.perf_counter() - start}, fh, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

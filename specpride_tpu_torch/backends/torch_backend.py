@@ -1,18 +1,24 @@
-"""The port's device backend: binned-mean consensus and its QC cosine on
-the flat layout.
+"""The port's device backend: binned-mean and gap-average consensus and
+the QC cosine, on the flat layout.
 
 ``TorchBackend.run_bin_mean`` packs every kept peak flat on the host
 (``data.packed.pack_flat_bin_mean``), computes per chunk on the host what
 its sorted pass gives exactly (run counts, the integer quorum, the m/z
 means), sends intensities and composite keys to the card, runs
 ``ops.binning.bin_mean_flat_intensity`` there and assembles the spectra
-from the host m/z means and the card's intensity means.
+from the host m/z means and the card's intensity means.  At a reduced
+``precision`` the intensities cross as bf16 or int8 codes and the keys as
+a 1-byte run-start mask (``ops.binning.bin_mean_flat_q``).
+
+``TorchBackend.run_gap_average`` sorts and groups every cluster's peaks
+on the host in float64 (``data.packed.pack_flat_gap``) and runs
+``ops.gap_average.gap_average_compact`` on the card per chunk.
 
 ``TorchBackend.average_cosines`` lays member and representative peaks
 each along one flat axis sorted by (row, spectrum, bin) on the host,
 gates intensities by each pair's grid cutoff, looks up each member peak's
-rep bin, and runs ``ops.similarity.cosine_flat`` on the card per chunk.
-``run_bin_mean_with_cosines`` is the two in a row.
+rep bin, and runs ``ops.similarity.cosine_flat`` on the card per chunk,
+always in f32.  ``run_bin_mean_with_cosines`` is the two in a row.
 """
 
 from __future__ import annotations
@@ -22,15 +28,21 @@ import time
 import numpy as np
 import torch
 
-from specpride_tpu_torch.config import BinMeanConfig, CosineConfig
+from specpride_tpu_torch.backends import numpy_backend
+from specpride_tpu_torch.config import (
+    BinMeanConfig,
+    CosineConfig,
+    GapAverageConfig,
+)
 from specpride_tpu_torch.data.packed import (
     SENTINEL,
     _as_table,
     _grouped_arange,
     pack_flat_bin_mean,
+    pack_flat_gap,
 )
 from specpride_tpu_torch.data.peaks import Cluster, Spectrum
-from specpride_tpu_torch.ops import binning, quantize, similarity
+from specpride_tpu_torch.ops import binning, gap_average, quantize, similarity
 from specpride_tpu_torch.ops.segsort import (
     searchsorted_right_i32,
     seg_argsort,
@@ -61,15 +73,20 @@ def check_uniform_charge(members: list[Spectrum]) -> None:
 class TorchBackend:
     """Runs the consensus on ``device`` ("cuda" unless the caller asks for
     "cpu").  ``max_grid_elements // 4`` bounds the peaks of one chunk.
+    ``precision`` ("f32", "bf16" or "int8") is the encoding of the
+    consensus channels sent to the card; the QC cosine is always f32.
 
     ``phase_seconds`` accumulates wall seconds per phase over calls (the
     kernel phases from CUDA events on the card); the ``qc_*`` phases are
-    the QC cosine's.  ``chunks`` counts the consensus chunks run and
-    ``cos_chunks`` the cosine chunks."""
+    the QC cosine's.  ``h2d_bytes`` counts the bytes of the arrays copied
+    to ``device`` in the ``h2d`` (consensus) and ``qc_h2d`` phases.
+    ``chunks`` counts the consensus chunks run and ``cos_chunks`` the
+    cosine chunks."""
 
     def __init__(
         self, device: str | torch.device = "cuda",
         max_grid_elements: int = 64 * 1024 * 1024,
+        precision: str = "f32",
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -79,8 +96,13 @@ class TorchBackend:
             )
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
+        if precision not in quantize.PRECISIONS:
+            raise ValueError(f"precision must be one of {quantize.PRECISIONS}"
+                             f", got {precision!r}")
         self.max_grid_elements = int(max_grid_elements)
+        self.precision = precision
         self.phase_seconds = dict.fromkeys(PHASES, 0.0)
+        self.h2d_bytes = {"h2d": 0, "qc_h2d": 0}
         self.chunks = 0
         self.cos_chunks = 0
 
@@ -96,6 +118,7 @@ class TorchBackend:
         batches = pack_flat_bin_mean(
             _as_table(clusters), config,
             max_elements=self.max_grid_elements // 4,
+            precision=self.precision,
         )
         self.phase_seconds["pack"] += time.perf_counter() - t0
         out: list[Spectrum | None] = [None] * len(clusters)
@@ -109,6 +132,17 @@ class TorchBackend:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _put(self, phase: str, tensors: list[torch.Tensor]) -> list:
+        """Host tensors copied to ``device``, synchronized; the time goes
+        to ``phase_seconds[phase]`` and the bytes to ``h2d_bytes[phase]``."""
+        t0 = time.perf_counter()
+        out = [t.to(self.device) for t in tensors]
+        self._sync()
+        self.phase_seconds[phase] += time.perf_counter() - t0
+        self.h2d_bytes[phase] += sum(t.numel() * t.element_size()
+                                     for t in tensors)
+        return out
 
     def _timed(self, phase: str, fn):
         """``fn()``, its time added to ``phase``: CUDA events around it on
@@ -167,22 +201,29 @@ class TorchBackend:
     def _flat_chunk_dispatch(self, batch, config: BinMeanConfig):
         """One chunk: the host run pass, the copy to the card, the kernel
         and the copy back.  Returns ``(kept intensity means (f32 numpy),
-        aux)``; the means are exactly ``aux``'s kept runs."""
+        aux)``; the means are exactly ``aux``'s kept runs.  A batch that
+        carries codes (reduced precision) sends them and a 1-byte
+        run-start mask in place of the f32 intensities and the int32
+        composite keys."""
         ph = self.phase_seconds
         t0 = time.perf_counter()
         aux = self._host_run_pass(batch, config)
         total_cap = int(aux["row_out_offsets"][-1])
+        keep = torch.from_numpy(aux["keep"])
+        if batch.codes is None:
+            host = [torch.from_numpy(batch.intensity),
+                    torch.from_numpy(batch.gbin), keep]
+            kernel = binning.bin_mean_flat_intensity
+        else:
+            run_start = np.zeros(batch.gbin.size, dtype=np.uint8)
+            run_start[batch.run_starts] = 1
+            host = [quantize.codes_tensor(batch.codes),
+                    torch.from_numpy(run_start), keep]
+            kernel = binning.bin_mean_flat_q
         ph["pack"] += time.perf_counter() - t0
 
-        t0 = time.perf_counter()
-        args = [
-            torch.from_numpy(a).to(self.device)
-            for a in (batch.intensity, batch.gbin, aux["keep"])
-        ]
-        self._sync()
-        ph["h2d"] += time.perf_counter() - t0
-
-        fused = self._timed("kernel", lambda: binning.bin_mean_flat_intensity(
+        args = self._put("h2d", host)
+        fused = self._timed("kernel", lambda: kernel(
             *args, total_cap=total_cap, rcap=batch.n_distinct_total
         ))
 
@@ -194,8 +235,12 @@ class TorchBackend:
 
     def _emit_bin_mean_rows(self, batch, fused, aux, clusters, out) -> None:
         """Assemble one chunk's spectra from the host m/z means and the
-        card's intensity means."""
+        card's intensity means (of int8 codes: rescaled here by each
+        cluster's scale, which never crosses to the card)."""
         off = aux["row_out_offsets"]
+        if batch.scale is not None:
+            fused = fused.astype(np.float64)
+            fused[: int(off[-1])] *= np.repeat(batch.scale, np.diff(off))
         kept_mz = aux["kept_mz"]
         for ci in range(aux["rows"]):
             o0, o1 = int(off[ci]), int(off[ci + 1])
@@ -212,6 +257,70 @@ class TorchBackend:
                 precursor_charge=members[0].precursor_charge,
                 title=batch.cluster_ids[ci],
             )
+
+    # -- gap-average consensus --------------------------------------------
+
+    def run_gap_average(
+        self,
+        clusters: list[Cluster],
+        config: GapAverageConfig = GapAverageConfig(),
+    ) -> list[Spectrum]:
+        """One gap-average consensus spectrum per cluster, in input order
+        (ref src/average_spectrum_clustering.py:158-164): groups decided on
+        the host in float64, their means, quorum and dynamic-range floor on
+        the card; precursor m/z, charge and RT from the configured
+        estimators."""
+        check_no_empty(clusters)
+        get_pepmass, get_rt = numpy_backend.resolve_gap_estimators(config)
+        t0 = time.perf_counter()
+        batches = pack_flat_gap(
+            _as_table(clusters), config,
+            max_elements=self.max_grid_elements // 4,
+            precision=self.precision,
+        )
+        self.phase_seconds["pack"] += time.perf_counter() - t0
+        out: list[Spectrum | None] = [None] * len(clusters)
+        for batch in batches:
+            total = int(batch.n_groups.sum())
+            args = self._put("h2d", [
+                quantize.codes_tensor(a) for a in (
+                    batch.mz, batch.intensity, batch.group_start,
+                    batch.quorum, batch.n_members, batch.n_groups,
+                )
+            ])
+            fused = self._timed("kernel", lambda: (
+                gap_average.gap_average_compact(
+                    *args, dyn_range=config.dyn_range, total_cap=total
+                )
+            ))
+            t0 = time.perf_counter()
+            fused = fused.cpu().numpy()
+            self.phase_seconds["d2h"] += time.perf_counter() - t0
+            self.chunks += 1
+
+            t0 = time.perf_counter()
+            n_out = fused[2 * total :].astype(np.int64)
+            off = np.zeros(n_out.size + 1, dtype=np.int64)
+            np.cumsum(n_out, out=off[1:])
+            flat_mz = fused[:total].astype(np.float64)
+            flat_int = fused[total : 2 * total].astype(np.float64)
+            if batch.scale is not None:
+                # int8 codes were averaged on the card: rescale (linear)
+                flat_int[: off[-1]] *= np.repeat(batch.scale, n_out)
+            for ci, gi in enumerate(batch.source_indices):
+                o0, o1 = int(off[ci]), int(off[ci + 1])
+                members = clusters[gi].members
+                pep_mz, pep_z = get_pepmass(members)
+                out[gi] = Spectrum(
+                    mz=flat_mz[o0:o1].copy(),
+                    intensity=flat_int[o0:o1].copy(),
+                    precursor_mz=pep_mz,
+                    precursor_charge=pep_z,
+                    rt=get_rt(members),
+                    title=batch.cluster_ids[ci],
+                )
+            self.phase_seconds["finalize"] += time.perf_counter() - t0
+        return out
 
     # -- QC cosine -------------------------------------------------------
 
@@ -428,11 +537,7 @@ class TorchBackend:
             arrays = self._cosine_chunk_arrays(prep, lo, hi)
             ph["qc_pack"] += time.perf_counter() - t0
 
-            t0 = time.perf_counter()
-            args = [torch.from_numpy(a).to(self.device) for a in arrays]
-            self._sync()
-            ph["qc_h2d"] += time.perf_counter() - t0
-
+            args = self._put("qc_h2d", [torch.from_numpy(a) for a in arrays])
             mean = self._timed("qc_kernel", lambda: similarity.cosine_flat(
                 *args, shift=prep["shift"]
             ))

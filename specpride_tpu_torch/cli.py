@@ -1,10 +1,12 @@
 """Command line of the port: ``python -m specpride_tpu_torch consensus IN
-OUT --method bin-mean [--qc-report QC.json]``.  Reads the clustered MGF,
-groups it into clusters, runs the binned-mean consensus on the card
+OUT [--method bin-mean|gap-average] [--precision f32|bf16|int8]
+[--qc-report QC.json]``.  Reads the clustered MGF, groups it into
+clusters, runs the binned-mean or gap-average consensus on the card
 (``--device cpu`` for the CPU) and writes one consensus spectrum per
 cluster; with ``--qc-report`` it also scores each consensus by its mean
-binned cosine to the cluster's members and writes the per-cluster QC
-report."""
+binned cosine to the cluster's members (always in f32) and writes the
+per-cluster QC report.  A run at a reduced ``--precision`` must pass the
+precision gate (``precision_gate``) or it exits non-zero."""
 
 from __future__ import annotations
 
@@ -12,10 +14,16 @@ import argparse
 import json
 import statistics
 
+from specpride_tpu_torch.backends import numpy_backend
 from specpride_tpu_torch.backends.torch_backend import TorchBackend
-from specpride_tpu_torch.config import BinMeanConfig, CosineConfig
+from specpride_tpu_torch.config import (
+    BinMeanConfig,
+    CosineConfig,
+    GapAverageConfig,
+)
 from specpride_tpu_torch.data.peaks import group_into_clusters
 from specpride_tpu_torch.io.mgf import read_mgf, write_mgf
+from specpride_tpu_torch.ops import quantize
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -28,7 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="merge clusters into consensus spectra")
     pc.add_argument("input")
     pc.add_argument("output")
-    pc.add_argument("--method", choices=["bin-mean"], default="bin-mean")
+    pc.add_argument("--method", choices=["bin-mean", "gap-average"],
+                    default="bin-mean")
     pc.add_argument("--min-mz", type=float, default=100.0)
     pc.add_argument("--max-mz", type=float, default=2000.0)
     pc.add_argument("--bin-size", type=float, default=0.02)
@@ -47,10 +56,26 @@ def build_parser() -> argparse.ArgumentParser:
         help="intensity transform for the QC cosine (sqrt tempers "
         "dominant peaks; log flattens dynamic range)",
     )
+    pc.add_argument("--mz-accuracy", type=float, default=0.01)
+    pc.add_argument("--dyn-range", type=float, default=1000.0)
+    pc.add_argument("--min-fraction", type=float, default=0.5)
+    pc.add_argument("--tail-mode", choices=["reference", "split"],
+                    default="reference")
+    pc.add_argument("--pepmass", choices=["naive_average", "neutral_average",
+                                          "lower_median"],
+                    default="lower_median")
+    pc.add_argument("--rt", choices=["median", "mass_lower_median"],
+                    default="median")
     pc.add_argument(
         "--qc-report", metavar="FILE",
         help="also compute each consensus spectrum's mean member cosine "
         "and write the per-cluster QC report here",
+    )
+    pc.add_argument(
+        "--precision", choices=list(quantize.PRECISIONS), default="f32",
+        help="encoding of the consensus channels sent to the card: bf16 "
+        "or int8 send fewer bytes, and the run must then pass a gate "
+        "against f32 on a sample of clusters",
     )
     pc.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the consensus runs (default: the GPU)")
@@ -83,8 +108,15 @@ def write_qc_report(path: str, clusters, cosines) -> None:
         fh.write("\n")
 
 
-def cmd_consensus(args, backend: TorchBackend) -> int:
-    config = BinMeanConfig(
+def method_config(args):
+    """The configuration of ``args.method`` from the command line."""
+    if args.method == "gap-average":
+        return GapAverageConfig(
+            mz_accuracy=args.mz_accuracy, dyn_range=args.dyn_range,
+            min_fraction=args.min_fraction, tail_mode=args.tail_mode,
+            pepmass=args.pepmass, rt=args.rt,
+        )
+    return BinMeanConfig(
         min_mz=args.min_mz,
         max_mz=args.max_mz,
         bin_size=args.bin_size,
@@ -93,15 +125,71 @@ def cmd_consensus(args, backend: TorchBackend) -> int:
         tolerance_mode=args.tolerance_mode,
         ppm=args.ppm,
     )
+
+
+def run_method(backend: TorchBackend, method: str, clusters, config):
+    if method == "gap-average":
+        return backend.run_gap_average(clusters, config)
+    return backend.run_bin_mean(clusters, config)
+
+
+# clusters re-run at f32 by the precision gate: a fixed cost however large
+# the input (the drift it checks is per cluster and i.i.d. across them)
+PRECISION_GATE_SAMPLE = 32
+
+
+def precision_gate(backend: TorchBackend, method: str, clusters, config,
+                   cos_config: CosineConfig) -> dict | None:
+    """The gate of a reduced-precision run: the first
+    ``PRECISION_GATE_SAMPLE`` clusters run again at the run's precision
+    and at f32, on twin backends on the same device, and every pair's
+    binned cosine must reach ``quantize.precision_tolerance(method,
+    precision)``.  Returns the gate's numbers (None for f32, which is
+    the reference); a breach raises ``SystemExit`` with a message."""
+    precision = backend.precision
+    if precision == "f32":
+        return None
+    sample = [c for c in clusters[:PRECISION_GATE_SAMPLE] if c.n_members]
+    tol = quantize.precision_tolerance(method, precision)
+
+    def twin(prec: str):
+        return TorchBackend(device=backend.device, precision=prec,
+                            max_grid_elements=backend.max_grid_elements)
+
+    red = run_method(twin(precision), method, sample, config)
+    ref = run_method(twin("f32"), method, sample, config)
+    cosines = [numpy_backend.binned_cosine(a, b, cos_config)
+               for a, b in zip(red, ref)]
+    min_cos = min(cosines, default=1.0)
+    if min_cos < tol:
+        raise SystemExit(
+            f"precision gate failed: {method} at --precision {precision} "
+            f"scored min cosine {min_cos:.6f} against f32 over "
+            f"{len(sample)} sampled clusters (tolerance {tol}); rerun at "
+            "f32 or a wider precision"
+        )
+    return {"precision": precision, "checked": len(sample),
+            "min_cosine": min_cos, "tolerance": tol}
+
+
+def cmd_consensus(args, backend: TorchBackend) -> int:
+    config = method_config(args)
+    cos_config = CosineConfig(normalization=args.qc_normalization)
     clusters = group_into_clusters(read_mgf(args.input))
-    if args.qc_report is None:
-        write_mgf(backend.run_bin_mean(clusters, config), args.output)
-        return 0
-    reps, cosines = backend.run_bin_mean_with_cosines(
-        clusters, config, CosineConfig(normalization=args.qc_normalization)
-    )
+    if args.method == "bin-mean" and args.qc_report is not None:
+        reps, cosines = backend.run_bin_mean_with_cosines(
+            clusters, config, cos_config
+        )
+    else:
+        reps = run_method(backend, args.method, clusters, config)
+        cosines = None
+        if args.qc_report is not None:
+            cosines = backend.average_cosines(reps, clusters, cos_config)
     write_mgf(reps, args.output)
-    write_qc_report(args.qc_report, clusters, cosines)
+    if cosines is not None:
+        write_qc_report(args.qc_report, clusters, cosines)
+    # after the outputs, so a breach leaves them on disk to diagnose
+    precision_gate(backend, args.method, clusters, config, cos_config)
     return 0
 
 
@@ -109,7 +197,7 @@ def main(argv: list[str] | None = None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
     try:
-        backend = TorchBackend(device=args.device)
+        backend = TorchBackend(device=args.device, precision=args.precision)
     except RuntimeError as exc:  # no CUDA for the default --device cuda
         ap.error(f"{exc} (here: --device cpu)")
     return cmd_consensus(args, backend)

@@ -1,7 +1,8 @@
-"""Configuration of the binned-mean consensus and the QC cosine.
+"""Configuration of the binned-mean and gap-average consensus and the QC
+cosine.
 
-The port's own copies of ``BinMeanConfig``, ``CosineConfig`` and the ppm
-grid formula.  The field names match the JAX package's, so a config
+The port's own copies of ``BinMeanConfig``, ``GapAverageConfig``,
+``CosineConfig`` and the ppm grid formula.  The field names match the JAX package's, so a config
 converts with ``BinMeanConfig(**dataclasses.asdict(other))``.
 """
 
@@ -65,6 +66,26 @@ class BinMeanConfig:
             return int(ppm_bin_index(self.max_mz, self.min_mz, self.ppm)) + 1
         # ref src/binning.py:172: int((max-min)/binsize) + 1
         return int((self.max_mz - self.min_mz) / self.bin_size) + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class GapAverageConfig:
+    """Gap-clustered average consensus
+    (ref src/average_spectrum_clustering.py:21-23,26-103).
+
+    ``tail_mode="reference"`` reproduces the reference loop over
+    ``ind_list[1:-1]`` (ref :79-87), which ignores a cluster's final m/z
+    gap when it has two or more, merging its last two groups; ``"split"``
+    honours every gap."""
+
+    mz_accuracy: float = 0.01
+    dyn_range: float = 1000.0
+    min_fraction: float = 0.5
+    tail_mode: Literal["reference", "split"] = "reference"
+    pepmass: Literal["naive_average", "neutral_average", "lower_median"] = (
+        "lower_median"
+    )
+    rt: Literal["median", "mass_lower_median"] = "median"
 
 
 @dataclasses.dataclass(frozen=True)

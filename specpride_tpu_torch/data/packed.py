@@ -1,11 +1,18 @@
-"""Flat packing of clusters for the binned-mean kernel.
+"""Flat packing of clusters for the binned-mean and gap-average kernels.
 
-Every kept peak of every cluster lies along ONE axis, sorted by
-(cluster, bin): the host quantizes m/z on the float64 grid, drops
+Binned mean: every kept peak of every cluster lies along ONE axis, sorted
+by (cluster, bin): the host quantizes m/z on the float64 grid, drops
 duplicate (member, bin) peaks (the reference's buffered ``+=``
 semantics, ref src/binning.py:197-199) and sorts, so the card only runs
-the segmented reduction.  All passes are vectorized numpy over a
-``SpectraTable``.
+the segmented reduction.
+
+Gap average: every peak lies along one axis, sorted by (cluster, m/z)
+(singletons in input order), with the groups decided on the host in
+float64 and marked by 1-byte group-start flags.
+
+All passes are vectorized numpy over a ``SpectraTable``.  With a reduced
+``precision`` the packers also encode the channels the card receives
+(``ops.quantize``).
 """
 
 from __future__ import annotations
@@ -109,23 +116,48 @@ class FlatBinBatch:
     run_starts: np.ndarray  # (R,) i64 run-start positions within the chunk
     cluster_ids: list[str]
     source_indices: list[int]
+    # reduced precision: the intensity channel the card receives instead
+    # of f32, as bf16 bit patterns (int16) or int8 codes against a
+    # per-cluster ``scale`` that the host applies to the fetched means.
+    # f32 batches leave all three at their defaults.
+    precision: str = "f32"
+    codes: np.ndarray | None = None  # (N,) int16 (bf16 bits) | int8
+    scale: np.ndarray | None = None  # (rows,) f32, int8 only
+
+
+def _reduced_fields(precision: str, codes, scale) -> dict:
+    """``precision``, ``codes`` and ``scale`` of a batch packed elsewhere,
+    checked and in the port's encoding: bf16 codes of any 2-byte dtype
+    (the JAX package's ``ml_dtypes.bfloat16``) as int16 bit patterns."""
+    if precision not in quantize.PRECISIONS:
+        raise ValueError(f"flat batch precision {precision!r} is not one of "
+                         f"{quantize.PRECISIONS}")
+    if precision == "f32":
+        if codes is not None or scale is not None:
+            raise ValueError("an f32 flat batch carries no codes or scale")
+        return dict(precision="f32", codes=None, scale=None)
+    if codes is None:
+        raise ValueError(f"a {precision} flat batch needs its codes")
+    codes = np.ascontiguousarray(codes)
+    if precision == "bf16":
+        if codes.dtype.itemsize != 2:
+            raise ValueError(f"bf16 codes must be 2-byte, got {codes.dtype}")
+        return dict(precision="bf16", codes=codes.view(np.int16), scale=None)
+    if codes.dtype != np.int8 or scale is None:
+        raise ValueError("int8 precision needs int8 codes and a scale")
+    return dict(precision="int8", codes=codes,
+                scale=np.ascontiguousarray(scale, dtype=np.float32))
 
 
 def flat_batch_from_arrays(fields: dict) -> FlatBinBatch:
     """Build a ``FlatBinBatch`` from the numpy fields of a flat batch
     packed elsewhere (``dataclasses.asdict`` of the JAX package's
     ``FlatBinBatch``): the state the two packages hand their kernels.
-    The reduced-precision fields (``precision``, ``codes``, ``scale``)
-    must be absent or at their f32 defaults."""
-    extra = set(fields) - {f.name for f in dataclasses.fields(FlatBinBatch)}
-    unknown = extra - {"precision", "codes", "scale"}
+    Reduced-precision codes arrive in the JAX package's dtypes and are
+    converted (``_reduced_fields``)."""
+    unknown = set(fields) - {f.name for f in dataclasses.fields(FlatBinBatch)}
     if unknown:
         raise ValueError(f"unknown flat batch fields {sorted(unknown)}")
-    if fields.get("precision", "f32") != "f32":
-        raise ValueError(
-            f"flat batch precision {fields['precision']!r} is not "
-            f"supported: only the f32 layout is ported"
-        )
     return FlatBinBatch(
         mz=np.ascontiguousarray(fields["mz"], dtype=np.float32),
         intensity=np.ascontiguousarray(fields["intensity"], dtype=np.float32),
@@ -135,18 +167,48 @@ def flat_batch_from_arrays(fields: dict) -> FlatBinBatch:
         run_starts=np.ascontiguousarray(fields["run_starts"], dtype=np.int64),
         cluster_ids=list(fields["cluster_ids"]),
         source_indices=[int(i) for i in fields["source_indices"]],
+        **_reduced_fields(fields.get("precision", "f32"),
+                          fields.get("codes"), fields.get("scale")),
     )
+
+
+def _row_chunks(row_peak_offsets: np.ndarray, max_elements: int,
+                max_rows: int):
+    """Row ranges [lo, hi) of the chunks, taken greedily: at most
+    ``max_rows`` rows and ``max_elements`` peaks each, a single larger row
+    in a chunk of its own."""
+    c = row_peak_offsets.size - 1
+    lo = 0
+    while lo < c:
+        hi = min(lo + max_rows, c)
+        while (
+            hi > lo + 1
+            and row_peak_offsets[hi] - row_peak_offsets[lo] > max_elements
+        ):
+            hi = lo + int(
+                np.searchsorted(
+                    row_peak_offsets[lo + 1 : hi + 1],
+                    row_peak_offsets[lo] + max_elements,
+                    side="right",
+                )
+            )
+            hi = max(hi, lo + 1)
+        yield lo, hi
+        lo = hi
 
 
 def pack_flat_bin_mean(
     clusters_or_table,
     bin_config,
     max_elements: int = 16 * 1024 * 1024,
+    precision: str = "f32",
 ) -> list[FlatBinBatch]:
     """Quantize (f64), dedup, and lay out all kept peaks flat, sorted by
     (cluster, bin).  Chunked so each batch holds <= ``max_elements`` peaks
     (a single larger cluster gets a chunk of its own) and the (row, bin)
-    composite stays inside int32."""
+    composite stays inside int32.  A reduced ``precision`` also encodes
+    each chunk's intensities (``quantize.encode_intensity_flat``); f32
+    leaves the batches exactly as they were."""
     table = _as_table(clusters_or_table)
     idx = table.cluster_order()
     n_bins = bin_config.n_bins
@@ -182,27 +244,18 @@ def pack_flat_bin_mean(
     # chunk rows greedily under the element and composite-key budgets
     max_rows = (2**31 - 2) // (n_bins + 1)
     batches: list[FlatBinBatch] = []
-    lo = 0
-    while lo < c:
-        hi = min(lo + max_rows, c)
-        while (
-            hi > lo + 1
-            and row_peak_offsets[hi] - row_peak_offsets[lo] > max_elements
-        ):
-            hi = lo + int(
-                np.searchsorted(
-                    row_peak_offsets[lo + 1 : hi + 1],
-                    row_peak_offsets[lo] + max_elements,
-                    side="right",
-                )
-            )
-            hi = max(hi, lo + 1)
+    for lo, hi in _row_chunks(row_peak_offsets, max_elements, max_rows):
         p0, p1 = int(row_peak_offsets[lo]), int(row_peak_offsets[hi])
         gbin = (
             (s_row[p0:p1] - lo) * np.int64(n_bins + 1) + s_bin[p0:p1]
         ).astype(np.int32)
         # chunk boundaries are row boundaries, so first[p0] is a run start
         run_starts = np.flatnonzero(first[p0:p1])
+        codes = scale = None
+        if precision != "f32":
+            codes, scale = quantize.encode_intensity_flat(
+                s_int[p0:p1], row_peak_offsets[lo : hi + 1] - p0, precision
+            )
         batches.append(
             FlatBinBatch(
                 mz=s_mz[p0:p1],
@@ -213,7 +266,164 @@ def pack_flat_bin_mean(
                 run_starts=run_starts,
                 cluster_ids=[table.cluster_names[i] for i in range(lo, hi)],
                 source_indices=list(range(lo, hi)),
+                precision=precision,
+                codes=codes,
+                scale=scale,
             )
         )
-        lo = hi
+    return batches
+
+
+# ---------------------------------------------------------------------------
+# Gap-average packing: f64 sort and gap groups, all vectorized
+# ---------------------------------------------------------------------------
+
+
+def gap_global_segments(table: SpectraTable, idx, config) -> dict:
+    """Sort and gap-segment every cluster in one vectorized global pass,
+    in float64 (ref src/average_spectrum_clustering.py:55-90).
+
+    One global lexsort groups peaks by cluster and orders them by m/z
+    (singleton clusters by input position instead, ref :88-90
+    passthrough); gap flags, the reference's final-gap merge
+    (``tail_mode="reference"``, ref :79-87) and per-cluster segment ids
+    come from flat cumsum/bincount passes."""
+    p_total = int(table.peak_offsets[-1])
+    spec_of_peak = np.repeat(
+        np.arange(table.n_spectra, dtype=np.int64), table.peak_counts
+    )
+    cluster_of_peak = table.cluster_code[spec_of_peak]
+    nm_of_peak = idx.n_members[cluster_of_peak]
+
+    # sort key: m/z for multi-member clusters, input position for singletons
+    # (positions are small integers, exact in f64)
+    key = np.where(
+        nm_of_peak == 1, np.arange(p_total, dtype=np.float64), table.mz
+    )
+    order = np.lexsort((key, cluster_of_peak))
+    s_cluster = cluster_of_peak[order]
+    s_mz = table.mz[order]
+
+    same_cluster = np.zeros(p_total, dtype=bool)
+    if p_total > 1:
+        same_cluster[1:] = s_cluster[1:] == s_cluster[:-1]
+    gap = np.zeros(p_total, dtype=bool)  # gap[i]: boundary BEFORE peak i
+    if p_total > 1:
+        diff_ok = (s_mz[1:] - s_mz[:-1]) >= config.mz_accuracy
+        gap[1:] = same_cluster[1:] & diff_ok
+        # singletons: every peak its own group regardless of spacing
+        gap[1:] |= same_cluster[1:] & (idx.n_members[s_cluster[1:]] == 1)
+
+    if config.tail_mode == "reference":
+        # drop each multi-member cluster's final gap when it has >= 2 gaps
+        # (ref :79-87 iterates ind_list[1:-1])
+        gpos = np.flatnonzero(gap)
+        if gpos.size:
+            gcluster = s_cluster[gpos]
+            counts = np.bincount(gcluster, minlength=table.n_clusters)
+            is_last = np.ones(gpos.size, dtype=bool)
+            is_last[:-1] = gcluster[1:] != gcluster[:-1]
+            drop = (
+                is_last
+                & (counts[gcluster] >= 2)
+                & (idx.n_members[gcluster] > 1)
+            )
+            gap[gpos[drop]] = False
+
+    # segment ids, reset at cluster starts
+    gseg = np.cumsum(gap)
+    cluster_first_peak = np.zeros(p_total, dtype=bool)
+    if p_total:
+        cluster_first_peak[0] = True
+        cluster_first_peak[1:] = ~same_cluster[1:]
+    first_pos = np.zeros(table.n_clusters, dtype=np.int64)
+    fidx = np.flatnonzero(cluster_first_peak)
+    first_pos[s_cluster[fidx]] = fidx
+    seg = (gseg - gseg[first_pos[s_cluster]]).astype(np.int32)
+
+    n_groups = np.zeros(table.n_clusters, dtype=np.int64)
+    if p_total:
+        last_peak = np.ones(p_total, dtype=bool)
+        last_peak[:-1] = ~same_cluster[1:]
+        lidx = np.flatnonzero(last_peak)
+        n_groups[s_cluster[lidx]] = seg[lidx] + 1
+
+    return dict(
+        order=order, s_cluster=s_cluster, s_mz=s_mz, gap=gap, seg=seg,
+        n_groups=n_groups, first_pos=first_pos,
+        cluster_first_peak=cluster_first_peak,
+    )
+
+
+@dataclasses.dataclass
+class FlatGapBatch:
+    """One chunk of the flat gap-average layout: every peak of its
+    clusters sorted by (cluster, m/z), singletons in input order.
+
+    A group begins where ``group_start`` is 1: at each cluster's first
+    peak and at each host-f64 gap.  ``quorum`` is the per-row integer
+    threshold ``ceil(min_fraction * n_members)`` (f64), exact for integer
+    group sizes.  Rows are chunk-local; ``row_offsets`` are their peak
+    extents."""
+
+    mz: np.ndarray  # (N,) f32, or int16 bf16 bits where exact (precision)
+    intensity: np.ndarray  # (N,) f32, or int16 bf16 bits | int8 codes
+    group_start: np.ndarray  # (N,) uint8
+    n_members: np.ndarray  # (rows,) i32
+    quorum: np.ndarray  # (rows,) i32
+    n_groups: np.ndarray  # (rows,) i64
+    row_offsets: np.ndarray  # (rows + 1,) i64
+    cluster_ids: list[str]
+    source_indices: list[int]
+    precision: str = "f32"
+    scale: np.ndarray | None = None  # (rows,) f32, int8 only
+
+
+def pack_flat_gap(
+    clusters_or_table,
+    config,
+    max_elements: int = 16 * 1024 * 1024,
+    precision: str = "f32",
+) -> list[FlatGapBatch]:
+    """Lay the peaks of ``gap_global_segments`` flat and chunk them at
+    cluster boundaries, each chunk at most ``max_elements`` peaks (a single
+    larger cluster gets a chunk of its own).  A reduced ``precision``
+    encodes each chunk's m/z (bf16 only where exact, ``encode_mz``) and
+    intensities per row (``encode_intensity_flat``)."""
+    table = _as_table(clusters_or_table)
+    idx = table.cluster_order()
+    g = gap_global_segments(table, idx, config)
+    s_mz = g["s_mz"].astype(np.float32)
+    s_int = table.intensity[g["order"]].astype(np.float32)
+    group_start = (g["cluster_first_peak"] | g["gap"]).astype(np.uint8)
+    quorum = np.ceil(
+        config.min_fraction * idx.n_members.astype(np.float64)
+    ).astype(np.int32)
+
+    c = table.n_clusters
+    row_peak_offsets = np.zeros(c + 1, dtype=np.int64)
+    np.cumsum(idx.total_peaks, out=row_peak_offsets[1:])
+    batches: list[FlatGapBatch] = []
+    for lo, hi in _row_chunks(row_peak_offsets, max_elements, c):
+        p0, p1 = int(row_peak_offsets[lo]), int(row_peak_offsets[hi])
+        offsets = row_peak_offsets[lo : hi + 1] - p0
+        mz, _ = quantize.encode_mz(s_mz[p0:p1], precision)
+        inten, scale = quantize.encode_intensity_flat(
+            s_int[p0:p1], offsets, precision
+        )
+        batches.append(
+            FlatGapBatch(
+                mz=mz,
+                intensity=inten,
+                group_start=group_start[p0:p1],
+                n_members=idx.n_members[lo:hi].astype(np.int32),
+                quorum=quorum[lo:hi],
+                n_groups=g["n_groups"][lo:hi],
+                row_offsets=offsets,
+                cluster_ids=[table.cluster_names[i] for i in range(lo, hi)],
+                source_indices=list(range(lo, hi)),
+                precision=precision,
+                scale=scale,
+            )
+        )
     return batches

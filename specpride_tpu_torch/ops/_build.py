@@ -120,8 +120,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = []
         fn.restype = ctypes.c_int
     # (runs, in0, in1, in2, out0, out1, out2, n, channels, workspace,
-    #  base, device, stream)
-    for fn in (lib.seg_mean_f32, lib.seg_scan_flags_f32,
+    #  base, device, stream); seg_mean_heads' channels are its kinds
+    for fn in (lib.seg_mean_f32, lib.seg_mean_heads, lib.seg_scan_flags_f32,
                lib.seg_scan_keys_f32):
         fn.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int,

@@ -5,7 +5,7 @@ A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  ``launches`` counts kernel
 launches per wrapper name, so a run can show that it went through them.
 
-Both kernels are one launch of the single-pass scan in
+Every kernel is one launch of the single-pass scan in
 ``ops/csrc/seg_scan_core.cuh``.  Its scratch, the workspace, is allocated
 here once per (device, stream) and kept: a wrapper call allocates only its
 outputs.
@@ -19,7 +19,7 @@ import torch
 
 from specpride_tpu_torch.ops import segments
 
-launches = {"seg_mean": 0, "seg_scan": 0}
+launches = {"seg_mean": 0, "seg_mean_heads": 0, "seg_scan": 0}
 
 # A status word keeps a tile's ticket + 1 in 62 bits (seg_scan_core.cuh).
 STAMP_LIMIT = 1 << 62
@@ -91,19 +91,20 @@ def _launch(name, entry, lib, runs, ins, outs, count: int) -> None:
         launches[name] += 1
 
 
-def _check_args(name, runs, run_dtypes, channels, counts) -> None:
+def _check_args(name, runs, run_dtypes, channels, counts,
+                value_dtypes=(torch.float32,)) -> None:
     """1-D tensors of one length on one device: ``runs`` of one of
-    ``run_dtypes``, and float32 ``channels`` whose number is in
-    ``counts``."""
+    ``run_dtypes``, and ``channels`` of ``value_dtypes`` whose number is
+    in ``counts``."""
     if len(channels) not in counts:
         raise ValueError(f"{name} takes {'/'.join(map(str, counts))} "
-                         f"float32 channels, got {len(channels)}")
+                         f"channels, got {len(channels)}")
     if runs.dtype not in run_dtypes:
         raise TypeError(f"{name} runs must be {run_dtypes}, got "
                         f"{runs.dtype}")
     for t in channels:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} channels must be float32, got "
+        if t.dtype not in value_dtypes:
+            raise TypeError(f"{name} channels must be {value_dtypes}, got "
                             f"{t.dtype}")
     for t in (runs, *channels):
         if t.dim() != 1 or t.shape != runs.shape:
@@ -198,7 +199,83 @@ def seg_mean(
     return tuple(outs)
 
 
-SCAN_RUNS = (torch.bool, torch.uint8, torch.int32)  # head flags or keys
+HEADS = (torch.bool, torch.uint8)  # head flags
+# value dtype -> its code in seg_mean_heads' kinds argument (seg_mean.cu)
+HEAD_KINDS = {torch.float32: 1, torch.bfloat16: 2, torch.int8: 3}
+# the value dtypes seg_mean_heads takes: one bf16 or int8 channel (the
+# binned mean's codes), or the gap average's m/z and intensity: f32 and
+# f32 at f32, else f32 or (where exact) bf16 m/z beside bf16 or int8 codes
+HEAD_CASES = (
+    (torch.bfloat16,), (torch.int8,), (torch.float32, torch.float32),
+    *((a, b) for a in (torch.float32, torch.bfloat16)
+      for b in (torch.bfloat16, torch.int8)),
+)
+
+
+def _check_heads(head, values) -> None:
+    _check_args("seg_mean_heads", head, HEADS, values, (1, 2),
+                tuple(HEAD_KINDS))
+    dtypes = tuple(v.dtype for v in values)
+    if dtypes not in HEAD_CASES:
+        raise TypeError(f"seg_mean_heads has no kernel for value dtypes "
+                        f"{dtypes}")
+
+
+def seg_mean_heads_plain(
+    head: torch.Tensor, *values: torch.Tensor
+) -> tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of ``seg_mean_heads``: float64 within-run
+    prefixes (``_prefix64``) of 1 and of each upcast channel, divided,
+    then cast to float32."""
+    _check_heads(head, values)
+    n = head.numel()
+    if n == 0:
+        return tuple(torch.zeros(0, device=head.device)
+                     for _ in range(1 + len(values)))
+    ones = torch.ones(n, dtype=torch.float64, device=head.device)
+    outs = _prefix64(head != 0,
+                     [ones] + [v.to(torch.float64) for v in values])
+    cnt = outs[0]
+    safe = torch.clamp(cnt, min=1.0)
+    return (cnt.to(torch.float32),) + tuple(
+        (s / safe).to(torch.float32) for s in outs[1:]
+    )
+
+
+def seg_mean_heads(
+    head: torch.Tensor, *values: torch.Tensor
+) -> tuple[torch.Tensor, ...]:
+    """Segmented mean over runs given by head flags, ``(count, mean_0[,
+    mean_1])`` per element, all float32.
+
+    ``head`` is bool or uint8, nonzero where a run begins (element 0
+    always begins one); every element weighs 1.  ``values`` are one bf16
+    or int8 channel, or two: float32 and float32, or float32 or bf16, then
+    bf16 or int8 (``HEAD_CASES``); they are upcast to float32 and summed in float32.
+    ``count[i]`` is i's position in its run plus 1 and ``mean_c[i]`` the
+    mean of ``values[c]`` over the run's head through i, so a run's last
+    element holds its mean.  The entry of B1 (``seg_mean_pallas``, the JAX
+    package's ``ops/pallas_kernels.py``) that the reduced-precision binned
+    mean and the gap average feed through a cumsum or composite key."""
+    _check_heads(head, values)
+    if not _on_card("seg_mean_heads", (head, *values)):
+        return seg_mean_heads_plain(head, *values)
+    from specpride_tpu_torch.ops import _build
+
+    lib = _build.load()
+    n = head.numel()
+    outs = [torch.empty(n, dtype=torch.float32, device=head.device)
+            for _ in range(1 + len(values))]
+    if n:
+        kinds = 0
+        for c, v in enumerate(values):
+            kinds |= HEAD_KINDS[v.dtype] << (4 * c)
+        _launch("seg_mean_heads", lib.seg_mean_heads, lib, head, values,
+                outs, kinds)
+    return tuple(outs)
+
+
+SCAN_RUNS = HEADS + (torch.int32,)  # head flags or keys
 
 
 def _heads(runs: torch.Tensor) -> torch.Tensor:

@@ -141,20 +141,27 @@ def test_import_and_help_load_no_jax():
     code = (
         "import sys, specpride_tpu_torch\n"
         "import specpride_tpu_torch.backends.torch_backend\n"
+        "import specpride_tpu_torch.backends.numpy_backend\n"
         "import specpride_tpu_torch.ops.similarity\n"
+        "import specpride_tpu_torch.ops.gap_average\n"
         "from specpride_tpu_torch.cli import main\n"
         "try:\n"
         "    main(['consensus', '--help'])\n"
         "except SystemExit:\n"
         "    pass\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
-        "             or m.startswith(('jax.', 'specpride_tpu.'))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes')\n"
+        "             or m.startswith(('jax.', 'specpride_tpu.',\n"
+        "                              'ml_dtypes.'))\n"
         "             or m == 'specpride_tpu')\n"
         "print('LOADED', bad)\n"
     )
     proc = _run("-c", code)
     assert proc.returncode == 0, proc.stderr
     assert "--device" in proc.stdout and "--qc-report" in proc.stdout
+    for flag in ("--precision", "gap-average", "--mz-accuracy",
+                 "--dyn-range", "--min-fraction", "--tail-mode",
+                 "--pepmass", "--rt"):
+        assert flag in proc.stdout
     assert "LOADED []" in proc.stdout
 
 
@@ -175,10 +182,143 @@ def test_package_source_imports_no_jax():
     bad = [
         (os.path.relpath(f, REPO), name)
         for f in files for name in _imports(f)
-        if name.split(".")[0] in ("jax", "jaxlib", "specpride_tpu")
+        if name.split(".")[0] in ("jax", "jaxlib", "specpride_tpu",
+                                  "ml_dtypes")
     ]
     assert bad == []
+    scanned = {os.path.relpath(f, PKG) for f in files}
+    assert {"backends/numpy_backend.py", "ops/gap_average.py",
+            "ops/quantize.py", "data/packed.py"} <= scanned
     assert len(files) > 10
+
+
+def _port_cli(*args):
+    return _run("-m", "specpride_tpu_torch", "consensus", *args,
+                "--device", "cpu")
+
+
+def _jax_cli(*args):
+    return _run("-m", "specpride_tpu", "consensus", *args)
+
+
+def _assert_same_mgf(got_path, want_path, mz_tol, int_tol):
+    """Same headers (title, precursor, RT, charge), equal peak counts."""
+    assert _headers(got_path) == _headers(want_path)
+    got, want = mgf.read_mgf(got_path), mgf.read_mgf(want_path)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.n_peaks == w.n_peaks, g.title
+        np.testing.assert_allclose(g.mz, w.mz, **mz_tol)
+        np.testing.assert_allclose(g.intensity, w.intensity, **int_tol)
+
+
+def test_cli_gap_average_matches_jax_cli(tmp_path):
+    """``--method gap-average`` with every gap flag at a non-default value
+    against the JAX CLI with the same flags, and with the defaults against
+    the golden file: tolerances of the JAX package's device-vs-oracle gap
+    test (float32 group sums on the card, float64 in the JAX CLI's host
+    path)."""
+    src = os.path.join(DATA, "golden_clustered.mgf")
+    tol = (dict(rtol=1e-5), dict(rtol=1e-4, atol=1e-3))
+    out = tmp_path / "port.mgf"
+    proc = _port_cli(src, str(out), "--method", "gap-average")
+    assert proc.returncode == 0, proc.stderr
+    _assert_same_mgf(out, os.path.join(DATA, "golden_gap_average.mgf"),
+                     *tol)
+    flags = ("--method", "gap-average", "--mz-accuracy", "0.02",
+             "--dyn-range", "20", "--min-fraction", "0.6", "--tail-mode",
+             "split", "--pepmass", "neutral_average", "--rt", "median")
+    proc = _port_cli(src, str(out), *flags)
+    assert proc.returncode == 0, proc.stderr
+    jax_out = tmp_path / "jax.mgf"
+    proc = _jax_cli(src, str(jax_out), *flags)
+    assert proc.returncode == 0, proc.stderr
+    _assert_same_mgf(out, jax_out, *tol)
+
+
+def test_cli_gap_average_qc_report_matches_jax_cli(tmp_path):
+    src = os.path.join(DATA, "golden_clustered.mgf")
+    out, qc = tmp_path / "port.mgf", tmp_path / "port.qc.json"
+    jax_out, jax_qc = tmp_path / "jax.mgf", tmp_path / "jax.qc.json"
+    proc = _port_cli(src, str(out), "--method", "gap-average",
+                     "--qc-report", str(qc))
+    assert proc.returncode == 0, proc.stderr
+    proc = _jax_cli(src, str(jax_out), "--method", "gap-average",
+                    "--qc-report", str(jax_qc))
+    assert proc.returncode == 0, proc.stderr
+    got, want = json.loads(qc.read_text()), json.loads(jax_qc.read_text())
+    assert [(r["cluster_id"], r["n_members"]) for r in got["clusters"]] == [
+        (r["cluster_id"], r["n_members"]) for r in want["clusters"]
+    ]
+    np.testing.assert_allclose(
+        [r["avg_cosine"] for r in got["clusters"]],
+        [r["avg_cosine"] for r in want["clusters"]], rtol=1e-5, atol=1e-6,
+    )
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+@pytest.mark.parametrize("method", ["bin-mean", "gap-average"])
+def test_cli_reduced_precision_passes_gate(method, precision, tmp_path):
+    """A reduced run with ``--qc-report`` passes the gate (exit 0) and
+    writes the spectra of the JAX package's device run at the same
+    precision: the same peaks, m/z and intensity within the stated
+    tolerances; its QC report is the f32 cosine of those spectra."""
+    src = os.path.join(DATA, "golden_clustered.mgf")
+    out, qc = tmp_path / "out.mgf", tmp_path / "qc.json"
+    proc = _port_cli(src, str(out), "--method", method, "--precision",
+                     precision, "--qc-report", str(qc))
+    assert proc.returncode == 0, proc.stderr
+    clusters = jax_group(jmgf.read_mgf(src, use_native=False))
+    if method == "bin-mean":
+        want = TpuBackend(layout="flat", precision=precision)\
+            .run_bin_mean(clusters)
+        mz_tol, int_tol = dict(rtol=0, atol=0), dict(rtol=1e-5)
+    else:
+        want = TpuBackend(layout="bucketized", force_device=True,
+                          precision=precision).run_gap_average(clusters)
+        mz_tol, int_tol = dict(rtol=1e-5), dict(rtol=1e-4, atol=1e-3)
+    got = mgf.read_mgf(out)
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.n_peaks == w.n_peaks
+        np.testing.assert_allclose(g.mz, w.mz, **mz_tol)
+        np.testing.assert_allclose(g.intensity, w.intensity, **int_tol)
+    rows = json.loads(qc.read_text())["clusters"]
+    assert len(rows) == 3 and all(0 < r["avg_cosine"] <= 1 + 1e-9
+                                  for r in rows)
+
+
+@pytest.mark.parametrize("method", ["bin-mean", "gap-average"])
+def test_cli_precision_gate_breach_exits_nonzero(method, tmp_path,
+                                                 monkeypatch):
+    """With the tolerance raised above 1 no cosine can pass: the run
+    writes its outputs, then exits non-zero with the gate's message."""
+    from specpride_tpu_torch import cli
+    from specpride_tpu_torch.ops import quantize
+
+    monkeypatch.setitem(quantize.PRECISION_MIN_COSINE, (method, "int8"), 1.5)
+    out = tmp_path / "out.mgf"
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["consensus", os.path.join(DATA, "golden_clustered.mgf"),
+                  str(out), "--method", method, "--precision", "int8",
+                  "--device", "cpu"])
+    assert exc.value.code not in (0, None)
+    assert "precision gate failed" in str(exc.value.code)
+    assert out.exists()
+    monkeypatch.undo()
+    assert cli.main(["consensus", os.path.join(DATA, "golden_clustered.mgf"),
+                     str(out), "--method", method, "--precision", "int8",
+                     "--device", "cpu"]) == 0
+
+
+@pytest.mark.parametrize("method", ["bin-mean", "gap-average"])
+def test_cli_f32_precision_is_the_default_bytes(method, tmp_path):
+    src = os.path.join(DATA, "golden_clustered.mgf")
+    a, b = tmp_path / "a.mgf", tmp_path / "b.mgf"
+    assert _port_cli(src, str(a), "--method", method).returncode == 0
+    assert _port_cli(src, str(b), "--method", method, "--precision",
+                     "f32").returncode == 0
+    assert a.read_bytes() == b.read_bytes()
 
 
 def test_cli_without_cuda_refuses_default_device(tmp_path):

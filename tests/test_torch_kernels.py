@@ -186,6 +186,111 @@ def test_seg_scan_rejects_bad_arguments(bad):
         kernels.seg_scan(*args)
 
 
+def _head_values(dtypes, n, rng):
+    """numpy channels for ``dtypes`` and the tensors the wrapper takes
+    (bf16 from int16 bit patterns of rounded float32 values)."""
+    arrays, tensors = [], []
+    for dt in dtypes:
+        if dt == torch.int8:
+            a = rng.integers(-127, 128, n).astype(np.int8)
+            t = torch.from_numpy(a)
+        else:
+            a = rng.uniform(10.0, 1e4, n).astype(np.float32)
+            t = torch.from_numpy(a)
+            if dt == torch.bfloat16:
+                t = t.to(torch.bfloat16)
+                a = t.to(torch.float32).numpy()
+        arrays.append(a)
+        tensors.append(t)
+    return arrays, tensors
+
+
+HEAD_CASES = [tuple(str(d).removeprefix("torch.") for d in c)
+              for c in kernels.HEAD_CASES]
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtypes", HEAD_CASES, ids="-".join)
+def test_seg_mean_heads_plain_equals_keyed_plain(dtypes, case):
+    """``seg_mean_heads`` on head flags is ``seg_mean`` on the cumsum key
+    of the same heads with unit weights (as the JAX package feeds
+    seg_mean_pallas), the channels upcast to float32: equal."""
+    rng = np.random.default_rng(len(case) + 7 * len(dtypes))
+    keys, _ = _case(case, rng)
+    heads = np.ones(keys.size, np.uint8)
+    heads[1:] = keys[1:] != keys[:-1]
+    arrays, tensors = _head_values(
+        [getattr(torch, d) for d in dtypes], keys.size, rng)
+    before = kernels.launches["seg_mean_heads"]
+    got = kernels.seg_mean_heads(torch.from_numpy(heads), *tensors)
+    key = (np.cumsum(heads) - 1).astype(np.int32)
+    want = kernels.seg_mean_plain(
+        torch.from_numpy(key), torch.ones(keys.size),
+        *(torch.from_numpy(a.astype(np.float32)) for a in arrays))
+    assert kernels.launches["seg_mean_heads"] == before  # CPU: no launch
+    assert len(got) == len(want) == 1 + len(dtypes)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("nv", [1, 2])
+def test_seg_mean_heads_plain_matches_pallas(nv):
+    """Against seg_mean_pallas fed the cumsum key of the heads and unit
+    weights, as ``_bin_mean_flat_q`` does: counts equal, means within rtol
+    1e-5."""
+    rng = np.random.default_rng(40 + nv)
+    keys, _ = _case("straddle", rng)
+    heads = np.ones(keys.size, bool)
+    heads[1:] = keys[1:] != keys[:-1]
+    dtypes = [torch.int8] if nv == 1 else [torch.float32, torch.bfloat16]
+    arrays, tensors = _head_values(dtypes, keys.size, rng)
+    key = (np.cumsum(heads) - 1).astype(np.int32)
+    want = [np.asarray(o) for o in pk.seg_mean_pallas(
+        key, np.ones(keys.size, np.float32),
+        *(a.astype(np.float32) for a in arrays), interpret=True)]
+    got = [o.numpy() for o in kernels.seg_mean_heads(
+        torch.from_numpy(heads), *tensors)]
+    np.testing.assert_array_equal(got[0], want[0])
+    for g, e in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g, e, rtol=1e-5, atol=0)
+
+
+def test_seg_mean_heads_first_element_always_begins_a_run():
+    head = torch.tensor([0, 0, 1, 0], dtype=torch.uint8)
+    x = torch.tensor([2, 4, 6, 8], dtype=torch.int8)
+    cnt, mean = kernels.seg_mean_heads(head, x)
+    assert cnt.tolist() == [1.0, 2.0, 1.0, 2.0]
+    assert mean.tolist() == [2.0, 3.0, 6.0, 7.0]
+    empty = kernels.seg_mean_heads(torch.zeros(0, dtype=torch.bool),
+                                   torch.zeros(0, dtype=torch.bfloat16))
+    assert [t.shape for t in empty] == [(0,), (0,)]
+
+
+@pytest.mark.parametrize(
+    "bad",
+    ["head_dtype", "one_f32", "bf16_after_int8", "int8_mz", "bf16_mz_f32",
+     "length", "no_channels", "three_channels", "two_dim"],
+)
+def test_seg_mean_heads_rejects_bad_arguments(bad):
+    head = torch.ones(8, dtype=torch.uint8)
+    f, b, i = torch.ones(8), torch.ones(8, dtype=torch.bfloat16), \
+        torch.ones(8, dtype=torch.int8)
+    args = {
+        "head_dtype": (head.int(), b),
+        "one_f32": (head, f),
+        "bf16_after_int8": (head, i, b),
+        "int8_mz": (head, i, f),
+        "bf16_mz_f32": (head, b, f),  # f32 intensity only beside f32 m/z
+        "length": (head, torch.ones(7, dtype=torch.int8)),
+        "no_channels": (head,),
+        "three_channels": (head, f, f, i),
+        "two_dim": (head.view(2, 4), b.view(2, 4)),
+    }[bad]
+    with pytest.raises((TypeError, ValueError)):
+        kernels.seg_mean_heads(*args)
+
+
 class _CudaLooking(torch.Tensor):
     """A CPU tensor that reports a CUDA device: what a wrapper sees when
     it is handed card tensors on a host with no kernel library."""
@@ -195,7 +300,8 @@ class _CudaLooking(torch.Tensor):
         return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("wrapper", ["seg_mean", "seg_scan"])
+@pytest.mark.parametrize("wrapper", ["seg_mean", "seg_scan",
+                                     "seg_mean_heads"])
 def test_cuda_tensors_without_kernel_library_raise(wrapper, monkeypatch):
     """On CUDA tensors a wrapper launches its kernel or raises: with no
     kernel library it raises, and never falls back to the plain version."""
@@ -208,9 +314,14 @@ def test_cuda_tensors_without_kernel_library_raise(wrapper, monkeypatch):
 
     monkeypatch.setattr(_build, "load", no_library)
     monkeypatch.setattr(kernels, f"{wrapper}_plain", plain)
-    keys = torch.zeros(8, dtype=torch.int32).as_subclass(_CudaLooking)
-    x = torch.ones(8).as_subclass(_CudaLooking)
+    if wrapper == "seg_mean_heads":
+        args = (torch.ones(8, dtype=torch.uint8),
+                torch.ones(8, dtype=torch.int8))
+    else:
+        x = torch.ones(8)
+        args = (torch.zeros(8, dtype=torch.int32), x, x)
     before = dict(kernels.launches)
     with pytest.raises(RuntimeError, match="no kernel library"):
-        getattr(kernels, wrapper)(keys, x, x)
+        getattr(kernels, wrapper)(*(t.as_subclass(_CudaLooking)
+                                    for t in args))
     assert kernels.launches == before

@@ -246,6 +246,40 @@ def test_model_mean_matches_plain(case, nv, window):
             assert (got[0][masked] == 0).all() and (got[1][masked] == 0).all()
 
 
+@pytest.mark.parametrize("nv", [1, 2])
+@pytest.mark.parametrize("case", ["random", "single_run", "all_heads",
+                                  "tile_starts"])
+def test_model_heads_matches_plain(case, nv):
+    """``seg_mean_heads``' channels (a count of ones, then int8 codes or
+    f32 m/z and bf16 intensity, upcast) through the protocol, launched
+    under its own name."""
+    for n in SIZES:
+        rng = np.random.default_rng([nv, n, len(case), 7])
+        heads = _heads(case, n, rng)
+        heads[0] = True
+        if nv == 1:
+            values = [torch.from_numpy(
+                rng.integers(-127, 128, n).astype(np.int8))]
+        else:
+            values = [torch.from_numpy(rng.uniform(100, 2e3, n)
+                                       .astype(np.float32)),
+                      torch.from_numpy(rng.uniform(10, 1e4, n)
+                                       .astype(np.float32)).bfloat16()]
+        x = np.stack([np.ones(n, np.float32)]
+                     + [v.float().numpy() for v in values])
+        s = np.full(x.shape, np.nan, np.float32)
+        kernels._launch("seg_mean_heads", model_entry(heads, x, rng, 32, s),
+                        LIB, torch.from_numpy(heads), values, values, nv)
+        got = [s[0]] + [c / np.maximum(s[0], np.float32(1)) for c in s[1:]]
+        want = kernels.seg_mean_heads_plain(torch.from_numpy(heads),
+                                            *values)
+        np.testing.assert_array_equal(got[0], want[0].numpy())
+        for g, e in zip(got[1:], want[1:]):
+            np.testing.assert_allclose(g, e.numpy(), rtol=1e-5, atol=0)
+    assert kernels.launches["seg_mean_heads"] == len(SIZES)
+    assert kernels.launches["seg_scan"] == kernels.launches["seg_mean"] == 0
+
+
 def test_records_of_earlier_calls_are_never_read():
     """Calls share one workspace without clearing it: records left by a
     larger earlier call carry older stamps and are waited on, not read."""

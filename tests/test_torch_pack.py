@@ -106,11 +106,25 @@ def test_flat_batch_from_arrays_round_trips():
 
 
 def test_flat_batch_from_arrays_refuses_reduced_precision():
-    (batch,) = jpacked.pack_flat_bin_mean(
-        _jax_clusters(5, n=3), JaxBinMeanConfig(), precision="bf16"
-    )
-    with pytest.raises(ValueError, match="precision"):
-        packed.flat_batch_from_arrays(dataclasses.asdict(batch))
+    """Reduced-precision batches are taken (tests/test_torch_precision.py)
+    but refused where their fields cannot be the JAX packer's: an unknown
+    precision, codes missing, codes of the wrong width, an int8 batch
+    without its scale, codes on an f32 batch."""
+    jclusters = _jax_clusters(5, n=3)
+    (bf16,) = jpacked.pack_flat_bin_mean(jclusters, JaxBinMeanConfig(),
+                                         precision="bf16")
+    (int8,) = jpacked.pack_flat_bin_mean(jclusters, JaxBinMeanConfig(),
+                                         precision="int8")
+    bad = [
+        dict(dataclasses.asdict(bf16), precision="fp8"),
+        dict(dataclasses.asdict(bf16), codes=None),
+        dict(dataclasses.asdict(bf16), codes=int8.codes),
+        dict(dataclasses.asdict(int8), scale=None),
+        dict(dataclasses.asdict(int8), precision="f32"),
+    ]
+    for fields in bad:
+        with pytest.raises(ValueError, match="precision|codes|scale"):
+            packed.flat_batch_from_arrays(fields)
 
 
 def test_jax_packed_chunk_through_port_dispatch():
