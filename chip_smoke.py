@@ -32,12 +32,21 @@ NVIDIA GPU:
    representative's cosine to the f32 one held to the precision
    tolerance, H2D bytes per peak beside f32's; gap phase:
    ``run_gap_average`` on the same clusters at f32 and int8 against CPU
-   runs; every run with the launch counts zeroed just before it; then
-   ``seg_scan`` against its plain version and timed at the path's largest
-   scans;
+   runs; medoid phase: ``run_medoid`` on the same clusters at f32 and
+   bf16 (int16 channels), the picks identical to each other, to a CPU run
+   and to the numpy oracle on subsets, no hand-written kernel launched,
+   the shared-bin counts' device time beside their bound; select phase:
+   ``run_medoid`` then ``average_cosines`` (five ``seg_scan`` launches per
+   cosine chunk) against a CPU run, and ``run_best_spectrum`` on seeded
+   scores with 5 % of clusters scoreless; every run with the launch counts
+   zeroed just before it; then ``seg_scan`` against its plain version and
+   timed at the path's largest scans;
 4. CLI phase: ``python -m specpride_tpu_torch consensus`` with
    ``--qc-report``, with ``--method gap-average --qc-report`` and with
    ``--precision int8`` on a 2,000-cluster MGF, each against a CPU run;
+   ``select --method medoid --qc-report``, ``select --method best --msms
+   --qc-report`` and ``select --precision bf16`` on the golden clustered
+   MGF, each against the port's ``--device cpu`` run;
 5. prints a ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
@@ -881,6 +890,214 @@ def gap_phase(kernels, clusters) -> dict:
     return res
 
 
+TF32_FLOPS_PER_S = 495e12  # H100 SXM data sheet, dense
+
+
+def medoid_bound(b: int, k: int, runs: int, m: int, width: int) -> dict:
+    """The least time of one ``shared_bins_packed`` call on the card: the
+    larger of its bytes (bins and member ids read once, the (b, runs, m)
+    f32 occupancy written and read once, the (b, m, m) int32 counts
+    written once) over the memory rate and its gram's 2·b·runs·m² TF32
+    operations over the tensor-core rate."""
+    moved = 2 * b * k * width + 2 * b * runs * m * 4 + b * m * m * 4
+    flops = 2 * b * runs * m * m
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / TF32_FLOPS_PER_S * 1e3
+    return {"bytes": moved, "flops": flops, "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def picks_of(reps, clusters) -> list[int]:
+    """Each representative's member index in its cluster (by identity)."""
+    return [next(i for i, s in enumerate(c.members) if s is r)
+            for r, c in zip(reps, clusters)]
+
+
+def medoid_phase(kernels, clusters) -> dict:
+    """``run_medoid`` on slice-20k at f32 and at bf16 (int16 bins and
+    member ids), launch counts zeroed just before each card run: no
+    hand-written kernel launches; the picks identical between the two, to
+    a CPU run of the port on the first 2,000 clusters and to the numpy
+    oracle on the first 200.  The ``kernel`` phase (the shared-bin counts,
+    torch ops) beside the sum of its chunks' bounds; the largest chunk's
+    call and its gram alone timed."""
+    import torch
+
+    from specpride_tpu_torch.backends import numpy_backend
+    from specpride_tpu_torch.backends.torch_backend import TorchBackend
+    from specpride_tpu_torch.ops import similarity
+
+    n_peaks = sum(c.total_peaks for c in clusters)
+    TorchBackend(device=DEV).run_medoid(clusters[:200])
+    shared = similarity.shared_bins_packed
+    chunks = []
+
+    def recording(bins, member_id, m, runs):
+        chunks.append(((*bins.shape, runs, m, bins.element_size()),
+                       (bins, member_id)))
+        return shared(bins, member_id, m=m, runs=runs)
+
+    res, picks = {}, {}
+    for precision in ("f32", "bf16"):
+        backend = TorchBackend(device=DEV, precision=precision)
+        chunks.clear()
+        torch.cuda.reset_peak_memory_stats()
+        similarity.shared_bins_packed = recording
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        try:
+            reps = backend.run_medoid(clusters)
+            torch.cuda.synchronize()
+        finally:
+            similarity.shared_bins_packed = shared
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        if any(launches.values()):
+            raise AssertionError(f"medoid {precision}: launches {launches}")
+        picks[precision] = picks_of(reps, clusters)
+        bounds = [medoid_bound(*shape) for shape, _ in chunks]
+        bound_ms = sum(b["bound_ms"] for b in bounds)
+        run = {"chunks": backend.chunks, "encodings": backend.medoid_encodings,
+               "launches": launches, "wall_s": wall,
+               "clusters_per_s": len(clusters) / wall,
+               "phase_s": backend.phase_seconds,
+               "h2d_bytes": backend.h2d_bytes["h2d"],
+               "h2d_bytes_per_peak": backend.h2d_bytes["h2d"] / n_peaks,
+               "d2h_bytes": backend.d2h_bytes["d2h"],
+               "peak_device_bytes": torch.cuda.max_memory_allocated(),
+               "kernel_ms": backend.phase_seconds["kernel"] * 1e3,
+               "bound_ms": bound_ms,
+               "bound_by": sorted({b["bound_by"] for b in bounds}),
+               "flops": sum(b["flops"] for b in bounds),
+               "bytes": sum(b["bytes"] for b in bounds),
+               "chunk_shapes": sorted({shape for shape, _ in chunks})}
+        want = {"f32": "i32", "bf16": "i16"}[precision]
+        if backend.chunks < 2 or run["encodings"][want] != backend.chunks:
+            raise AssertionError(f"medoid {precision}: {backend.chunks} "
+                                 f"chunks, encodings {run['encodings']}")
+        if precision == "bf16":
+            big = max(chunks, key=lambda c: c[0][0] * c[0][2] * c[0][3])
+            (b, k, runs, m, _), args = big
+            occ = torch.rand(b, runs, m, device=DEV).round()
+            with similarity._tf32_matmul():
+                run["gram_ms"] = time_ms(
+                    lambda: torch.bmm(occ.transpose(1, 2), occ))
+            run["largest_chunk"] = big[0]
+            run["largest_call_ms"] = time_ms(
+                lambda: shared(*args, m=m, runs=runs), lead_in=False)
+            run["largest_bound"] = medoid_bound(*big[0])
+        print(f"medoid {precision} {json.dumps(run)}", flush=True)
+        res[precision] = run
+    chunks.clear()
+    if picks["bf16"] != picks["f32"]:
+        raise AssertionError("medoid: bf16 picks differ from f32's")
+    cpu = picks_of(TorchBackend(device="cpu").run_medoid(
+        clusters[:CLI_CLUSTERS]), clusters[:CLI_CLUSTERS])
+    if cpu != picks["f32"][:CLI_CLUSTERS]:
+        raise AssertionError("medoid: picks differ from the CPU run")
+    oracle = [numpy_backend.medoid_index(c.members) for c in clusters[:200]]
+    if oracle != picks["f32"][:200]:
+        raise AssertionError("medoid: picks differ from the numpy oracle")
+    print(f"compare medoid: picks identical f32 = bf16 ({len(clusters)}), "
+          f"= cpu ({CLI_CLUSTERS}), = oracle (200)", flush=True)
+    res["host_split_s"] = medoid_host_split(clusters)
+    res["picks"] = picks["f32"]
+    return res
+
+
+def medoid_host_split(clusters) -> dict:
+    """Host seconds of the medoid's ``pack`` phase on the slice's data, one
+    call each (host clock, one sample): ``pack_bucketize`` (its table
+    included), the f64 binning, and the per-row sort with the run counts
+    (``_medoid_sorted``, the binning included)."""
+    from specpride_tpu_torch.backends.torch_backend import TorchBackend
+    from specpride_tpu_torch.config import BatchConfig, MedoidConfig
+    from specpride_tpu_torch.data.packed import pack_bucketize
+    from specpride_tpu_torch.ops.quantize import medoid_bins_packed
+
+    backend = TorchBackend(device=DEV)
+    split = {}
+    t0 = time.perf_counter()
+    batches = pack_bucketize(clusters, BatchConfig(), bucket_members=True)
+    split["pack_bucketize"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for batch in batches:
+        medoid_bins_packed(batch, MedoidConfig())
+    split["bins"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for batch in batches:
+        backend._medoid_sorted(batch, MedoidConfig())
+    split["bins_sort_runs"] = time.perf_counter() - t0
+    print(f"medoid host split {json.dumps(split)}", flush=True)
+    return split
+
+
+def select_phase(kernels, clusters, medoid_picks) -> dict:
+    """``select --method medoid --qc-report`` on slice-20k: ``run_medoid``
+    then ``average_cosines`` on the card, launch counts zeroed just before:
+    five ``seg_scan`` launches per cosine chunk and no other kernel; the
+    picks the medoid phase's, the cosines a CPU run's on the first 2,000
+    clusters.  Then ``run_best_spectrum`` with seeded scores over the
+    workload's own USIs, about 5 % of clusters left without one: their
+    clusters dropped, every pick its cluster's top score."""
+    import torch
+
+    from specpride_tpu_torch.backends import numpy_backend
+    from specpride_tpu_torch.backends.torch_backend import TorchBackend
+
+    backend = TorchBackend(device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(kernels)
+    t0 = time.perf_counter()
+    reps = backend.run_medoid(clusters)
+    t1 = time.perf_counter()
+    cosines = backend.average_cosines(reps, clusters)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    check_launches(launches, "seg_scan", 5 * backend.cos_chunks, "select")
+    if picks_of(reps, clusters) != medoid_picks:
+        raise AssertionError("select: medoid picks differ from the medoid "
+                             "phase's")
+    head = clusters[:CLI_CLUSTERS]
+    ref = TorchBackend(device="cpu").average_cosines(reps[:CLI_CLUSTERS],
+                                                      head)
+    cos_err = check_cosines(cosines[:CLI_CLUSTERS], ref, "select")
+    if not np.isfinite(cosines).all():
+        raise AssertionError("select: non-finite cosines")
+
+    rng = np.random.default_rng(5)
+    scoreless = rng.random(len(clusters)) < 0.05
+    scores = {s.usi: float(rng.uniform(0.0, 200.0))
+              for c, skip in zip(clusters, scoreless) if not skip
+              for s in c.members}
+    t2 = time.perf_counter()
+    best = backend.run_best_spectrum(clusters, scores)
+    best_s = time.perf_counter() - t2
+    kept = [c for c, skip in zip(clusters, scoreless) if not skip]
+    oracle = numpy_backend.run_best_spectrum(clusters, scores)
+    if (len(best) != len(oracle) or any(a is not b for a, b in
+                                        zip(best, oracle))
+            or [r.cluster_id for r in best] != [c.cluster_id for c in kept]):
+        raise AssertionError("best: picks or dropped clusters differ")
+    if any(scores[r.usi] != max(scores[s.usi] for s in c.members)
+           for r, c in zip(best, kept)):
+        raise AssertionError("best: a pick is not its cluster's top score")
+    res = {"chunks": backend.chunks, "cos_chunks": backend.cos_chunks,
+           "launches": launches, "wall_s": wall, "medoid_s": t1 - t0,
+           "clusters_per_s": len(clusters) / wall,
+           "phase_s": backend.phase_seconds,
+           "h2d_bytes": backend.h2d_bytes, "d2h_bytes": backend.d2h_bytes,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "mean_cosine": float(np.mean(cosines)), "cosine_err": cos_err,
+           "best_s": best_s, "best_clusters_per_s": len(clusters) / best_s,
+           "best_kept": len(best), "best_dropped": int(scoreless.sum())}
+    print(f"compare best: {len(best)} picks = oracle, {res['best_dropped']} "
+          "scoreless clusters dropped", flush=True)
+    print(f"select {json.dumps(res)}", flush=True)
+    return res
+
+
 def cli_phase() -> dict:
     from specpride_tpu_torch.backends.torch_backend import TorchBackend
     from specpride_tpu_torch.data.peaks import group_into_clusters
@@ -894,13 +1111,13 @@ def cli_phase() -> dict:
     write_mgf([s for c in clusters for s in c.members], src)
     parsed = group_into_clusters(read_mgf(src))
 
-    def cli(*flags) -> float:
+    def cli(*flags, command="consensus", source=src) -> float:
         for path in (dst, qc):
             if os.path.exists(path):
                 os.remove(path)
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, "-m", "specpride_tpu_torch", "consensus", src,
+            [sys.executable, "-m", "specpride_tpu_torch", command, source,
              dst, *flags],
             cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
             capture_output=True, text=True, timeout=600,
@@ -942,8 +1159,51 @@ def cli_phase() -> dict:
     ref_reps = TorchBackend(device="cpu", precision="int8").run_bin_mean(
         parsed)
     check_same(read_mgf(dst), ref_reps, "cli --precision int8")
+
+    golden = os.path.join(ROOT, "tests", "data", "golden_clustered.mgf")
+    msms = os.path.join(ROOT, "tests", "data", "golden_msms.txt")
+    for what, flags in (
+        ("select medoid --qc-report", ("--qc-report", qc)),
+        ("select best --qc-report", ("--method", "best", "--msms", msms,
+                                     "--qc-report", qc)),
+        ("select medoid --precision bf16", ("--precision", "bf16")),
+    ):
+        res[f"{what} wall_s"] = cli(*flags, command="select", source=golden)
+        res[what] = same_as_cpu_select(golden, dst, qc, flags, work, what)
     print(f"cli {json.dumps(res)}", flush=True)
     return res
+
+
+def same_as_cpu_select(golden, dst, qc, flags, work, what) -> dict:
+    """The card's ``select`` output against the port's ``--device cpu``
+    run with the same flags: the same bytes; a QC report with the same
+    rows and counts, cosines within COS_TOL."""
+    from specpride_tpu_torch import cli
+
+    ref_dst = os.path.join(work, "ref.mgf")
+    ref_qc = os.path.join(work, "ref.qc.json")
+    ref_flags = [ref_qc if f == qc else f for f in flags]
+    if cli.main(["select", golden, ref_dst, *ref_flags, "--device",
+                 "cpu"]) != 0:
+        raise AssertionError(f"CLI {what} on the CPU failed")
+    with open(dst, "rb") as a, open(ref_dst, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError(f"CLI {what}: output differs from the CPU's")
+    if qc not in flags:
+        return {"same_bytes": True}
+    with open(qc) as a, open(ref_qc) as b:
+        got, want = json.load(a), json.load(b)
+    keep = ("n_clusters", "n_input_clusters", "n_method_failed",
+            "n_qc_failed")
+    if ([(r["cluster_id"], r["n_members"]) for r in got["clusters"]]
+            != [(r["cluster_id"], r["n_members"]) for r in want["clusters"]]
+            or [got["summary"][k] for k in keep]
+            != [want["summary"][k] for k in keep]):
+        raise AssertionError(f"CLI {what}: QC report differs from the CPU's")
+    err = check_cosines([r["avg_cosine"] for r in got["clusters"]],
+                        [r["avg_cosine"] for r in want["clusters"]],
+                        f"cli {what}")
+    return {"same_bytes": True, "cosine_err": err}
 
 
 def main() -> int:
@@ -989,6 +1249,8 @@ def main() -> int:
     qres = precision_phase(kernels, clusters, sres.pop("reps"),
                            sres["h2d_bytes"]["h2d"])
     gres = gap_phase(kernels, clusters)
+    dres = medoid_phase(kernels, clusters)
+    selres = select_phase(kernels, clusters, dres.pop("picks"))
     del clusters
     pres = path_scan_phase(kernels, sres.pop("scan_shapes"))
     cres = cli_phase()
@@ -1028,7 +1290,8 @@ def main() -> int:
         "route": "cuda",
         "source": "specpride_tpu_torch/ops/csrc/seg_scan.cu",
         "replaces": "specpride_tpu/ops/pallas_kernels.py:148",
-        "launches": sres["launches"]["seg_scan"],
+        "launches": (sres["launches"]["seg_scan"]
+                     + selres["launches"]["seg_scan"]),
         "max_abs_err": max(
             c["max_abs_err"] for c in kres["cases"] + pres["cases"]
         ),
@@ -1045,7 +1308,8 @@ def main() -> int:
         json.dump({"card": smi, "seg_mean": mres, "seg_scan": kres,
                    "seg_mean_heads": hres, "stress": stres,
                    "extremes": xres, "streams": twores, "slice": sres,
-                   "precision": qres, "gap": gres, "path_scan": pres,
+                   "precision": qres, "gap": gres, "medoid": dres,
+                   "select": selres, "path_scan": pres,
                    "cli": cres, "build": info.get("seconds"),
                    "wall_s": time.perf_counter() - start}, fh, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -1,6 +1,9 @@
 """Pure-numpy helpers of the port: the reference's binned cosine of two
-spectra (which the precision gate scores with) and the gap-average's
-precursor mass and RT estimators.
+spectra (which the precision gate scores with), the gap-average's
+precursor mass and RT estimators, and the medoid and best-spectrum
+selections per cluster (the oracle the tests and the smoke hold the
+card's picks to; ``run_best_spectrum`` is also the port's only
+best-spectrum path).
 
 The port's own trimmed copy of the JAX package's
 ``backends/numpy_backend.py``; every function reimplements the reference
@@ -11,8 +14,13 @@ from __future__ import annotations
 
 import numpy as np
 
-from specpride_tpu_torch.config import CosineConfig, GapAverageConfig
-from specpride_tpu_torch.data.peaks import Spectrum
+from specpride_tpu_torch.config import (
+    BestSpectrumConfig,
+    CosineConfig,
+    GapAverageConfig,
+    MedoidConfig,
+)
+from specpride_tpu_torch.data.peaks import Cluster, Spectrum
 from specpride_tpu_torch.ops import quantize
 
 PROTON_MASS = 1.00727646677
@@ -134,3 +142,120 @@ def resolve_gap_estimators(config: GapAverageConfig):
     if config.pepmass == "lower_median":
         rt_mode = "mass_lower_median"
     return PEPMASS_ESTIMATORS[config.pepmass], RT_ESTIMATORS[rt_mode]
+
+
+# --- medoid representative
+# (ref src/most_similar_representative.py:13-19,87-111) ---------------------
+
+def xcorr_prescore(s1: Spectrum, s2: Spectrum, bin_size: float = 0.1) -> float:
+    """Occupancy-grid binned dot product normalised by the smaller raw peak
+    count, the capability of OpenMS ``XQuestScores::xCorrelationPrescore``
+    used at ref src/most_similar_representative.py:15.  Bin index is
+    ``floor(mz / bin_size)``; each occupied bin counts 1 however many peaks
+    fall in it.  Empty spectra score 0."""
+    if s1.n_peaks == 0 or s2.n_peaks == 0:
+        return 0.0
+    b1 = np.unique((s1.mz / bin_size).astype(np.int64))
+    b2 = np.unique((s2.mz / bin_size).astype(np.int64))
+    shared = np.intersect1d(b1, b2, assume_unique=True).size
+    return float(shared) / min(s1.n_peaks, s2.n_peaks)
+
+
+def xcorr_distance(s1: Spectrum, s2: Spectrum, bin_size: float = 0.1) -> float:
+    """1 - xcorr (ref src/most_similar_representative.py:13-16)."""
+    return 1.0 - xcorr_prescore(s1, s2, bin_size)
+
+
+def medoid_index(
+    members: list[Spectrum], config: MedoidConfig = MedoidConfig()
+) -> int:
+    """Index of the member with minimal total distance to all others.
+
+    The reference fills an upper triangular matrix including the diagonal
+    and sums row i + column i, so the self-distance counts twice; ties go
+    to the lowest index (ref src/most_similar_representative.py:88-110).
+    A singleton returns 0 (ref :79-81)."""
+    n = len(members)
+    if n == 0:
+        raise ValueError("empty cluster")
+    if n == 1:
+        return 0
+    dist = np.zeros((n, n))
+    for i in range(n):
+        for j in range(i, n):
+            dist[i, j] = xcorr_distance(members[i], members[j], config.bin_size)
+    sym = dist + dist.T  # row_i + col_i of the triangular fill, diag twice
+    total = sym.sum(axis=1) / n
+    return int(np.argmin(total))  # np.argmin: first (lowest-index) minimum
+
+
+# --- best-spectrum representative (ref src/best_spectrum.py:67-100) --------
+
+def _normalize_usi(usi: str) -> str:
+    """Empty USI fields collapsed and any interpretation suffix dropped, so
+    the scores join matches on (collection, run, scan): the reference
+    builds score USIs with a double colon (``...raw::scan:N``, ref
+    src/best_spectrum.py:61-62) while its converter writes single-colon
+    USIs (ref src/convert_mgf_cluster.py:15)."""
+    parts = [p for p in usi.split(":") if p != ""]
+    if "scan" in parts:
+        k = parts.index("scan")
+        parts = parts[: k + 2]  # drop the :PEPTIDE/z suffix
+    return ":".join(parts)
+
+
+def best_spectrum_index(
+    members: list[Spectrum],
+    scores: dict[str, float],
+    config: BestSpectrumConfig = BestSpectrumConfig(),
+) -> int:
+    """Index of the member with the highest PSM score; among tied maxima
+    the lexicographically smallest (normalised) USI, as pandas ``idxmax``
+    over the USI-sorted series of ref src/best_spectrum.py:64 picks.
+    Raises ValueError when no member has a score (ref :98-99)."""
+    return _best_index(members, _normalized_scores(scores))
+
+
+def _normalized_scores(scores: dict[str, float]) -> dict[str, float]:
+    return {_normalize_usi(k): v for k, v in scores.items()}
+
+
+def _best_index(members: list[Spectrum], norm_scores: dict[str, float]) -> int:
+    best_i: int | None = None
+    best: tuple[float, str] | None = None
+    for i, s in enumerate(members):
+        usi = _normalize_usi(s.usi)
+        if usi not in norm_scores:
+            continue
+        key = (-norm_scores[usi], usi)
+        if best is None or key < best:
+            best = key
+            best_i = i
+    if best_i is None:
+        raise ValueError("No scores found for the given scan numbers")
+    return best_i
+
+
+def run_medoid(
+    clusters: list[Cluster], config: MedoidConfig = MedoidConfig()
+) -> list[Spectrum]:
+    """Per-cluster loop of ref src/most_similar_representative.py:60-111."""
+    return [c.members[medoid_index(c.members, config)] for c in clusters]
+
+
+def run_best_spectrum(
+    clusters: list[Cluster],
+    scores: dict[str, float],
+    config: BestSpectrumConfig = BestSpectrumConfig(),
+) -> list[Spectrum]:
+    """The best-scored member of each cluster; clusters without a scored
+    member are dropped (ref src/best_spectrum.py:170-174).  The score
+    USIs are normalised once for all clusters, not once per cluster."""
+    norm_scores = _normalized_scores(scores)
+    out = []
+    for c in clusters:
+        try:
+            out.append(c.members[_best_index(c.members, norm_scores)])
+        except ValueError:
+            pass
+    return out

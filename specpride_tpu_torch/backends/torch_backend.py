@@ -14,6 +14,13 @@ a 1-byte run-start mask (``ops.binning.bin_mean_flat_q``).
 on the host in float64 (``data.packed.pack_flat_gap``) and runs
 ``ops.gap_average.gap_average_compact`` on the card per chunk.
 
+``TorchBackend.medoid_indices`` bucketizes the clusters
+(``data.packed.pack_bucketize``), bins and sorts each row by (bin, member)
+on the host, counts every member pair's shared bins on the card
+(``ops.similarity.shared_bins_packed``) and picks each medoid on the host
+in float64 (``ops.similarity.medoid_finalize``).  ``run_best_spectrum``
+is a host join and argmax (``numpy_backend.run_best_spectrum``).
+
 ``TorchBackend.average_cosines`` lays member and representative peaks
 each along one flat axis sorted by (row, spectrum, bin) on the host,
 gates intensities by each pair's grid cutoff, looks up each member peak's
@@ -30,14 +37,18 @@ import torch
 
 from specpride_tpu_torch.backends import numpy_backend
 from specpride_tpu_torch.config import (
+    BatchConfig,
+    BestSpectrumConfig,
     BinMeanConfig,
     CosineConfig,
     GapAverageConfig,
+    MedoidConfig,
 )
 from specpride_tpu_torch.data.packed import (
     SENTINEL,
     _as_table,
     _grouped_arange,
+    pack_bucketize,
     pack_flat_bin_mean,
     pack_flat_gap,
 )
@@ -78,10 +89,14 @@ class TorchBackend:
 
     ``phase_seconds`` accumulates wall seconds per phase over calls (the
     kernel phases from CUDA events on the card); the ``qc_*`` phases are
-    the QC cosine's.  ``h2d_bytes`` counts the bytes of the arrays copied
-    to ``device`` in the ``h2d`` (consensus) and ``qc_h2d`` phases.
-    ``chunks`` counts the consensus chunks run and ``cos_chunks`` the
-    cosine chunks."""
+    the QC cosine's, the others the consensus's or the medoid's.
+    ``h2d_bytes`` counts the bytes of the arrays copied to ``device`` in
+    the ``h2d`` and ``qc_h2d`` phases, ``d2h_bytes`` those fetched back in
+    the ``d2h`` and ``qc_d2h`` phases.  ``chunks`` counts the consensus or
+    medoid chunks run and ``cos_chunks`` the cosine chunks;
+    ``medoid_encodings`` counts the medoid chunks by the integer width of
+    the bins and member ids they shipped ("i32", or "i16" narrowed at a
+    reduced ``precision``)."""
 
     def __init__(
         self, device: str | torch.device = "cuda",
@@ -103,8 +118,10 @@ class TorchBackend:
         self.precision = precision
         self.phase_seconds = dict.fromkeys(PHASES, 0.0)
         self.h2d_bytes = {"h2d": 0, "qc_h2d": 0}
+        self.d2h_bytes = {"d2h": 0, "qc_d2h": 0}
         self.chunks = 0
         self.cos_chunks = 0
+        self.medoid_encodings = {"i32": 0, "i16": 0}
 
     def run_bin_mean(
         self, clusters: list[Cluster], config: BinMeanConfig = BinMeanConfig()
@@ -142,6 +159,15 @@ class TorchBackend:
         self.phase_seconds[phase] += time.perf_counter() - t0
         self.h2d_bytes[phase] += sum(t.numel() * t.element_size()
                                      for t in tensors)
+        return out
+
+    def _fetch(self, phase: str, t: torch.Tensor) -> np.ndarray:
+        """``t`` copied to the host; the time goes to
+        ``phase_seconds[phase]`` and the bytes to ``d2h_bytes[phase]``."""
+        t0 = time.perf_counter()
+        out = t.cpu().numpy()
+        self.phase_seconds[phase] += time.perf_counter() - t0
+        self.d2h_bytes[phase] += out.nbytes
         return out
 
     def _timed(self, phase: str, fn):
@@ -226,10 +252,7 @@ class TorchBackend:
         fused = self._timed("kernel", lambda: kernel(
             *args, total_cap=total_cap, rcap=batch.n_distinct_total
         ))
-
-        t0 = time.perf_counter()
-        fused = fused.cpu().numpy()
-        ph["d2h"] += time.perf_counter() - t0
+        fused = self._fetch("d2h", fused)
         self.chunks += 1
         return fused, aux
 
@@ -293,9 +316,7 @@ class TorchBackend:
                     *args, dyn_range=config.dyn_range, total_cap=total
                 )
             ))
-            t0 = time.perf_counter()
-            fused = fused.cpu().numpy()
-            self.phase_seconds["d2h"] += time.perf_counter() - t0
+            fused = self._fetch("d2h", fused)
             self.chunks += 1
 
             t0 = time.perf_counter()
@@ -321,6 +342,105 @@ class TorchBackend:
                 )
             self.phase_seconds["finalize"] += time.perf_counter() - t0
         return out
+
+    # -- medoid and best-spectrum representatives -----------------------
+
+    def medoid_indices(
+        self, clusters: list[Cluster], config: MedoidConfig = MedoidConfig()
+    ) -> list[int]:
+        """Per-cluster medoid member index (ref
+        src/most_similar_representative.py:87-110), as the JAX package's
+        bucketized path with ``medoid_device_select=False`` computes it:
+        shared-bin counts on the card, exact integers, and the pick on the
+        host in float64 (``medoid_finalize``), so ties go to the lowest
+        index as in the oracle.  A batch is cut into chunks whose (rows, R,
+        M) float32 occupancy stays within ``max_grid_elements``."""
+        check_no_empty(clusters)
+        ph = self.phase_seconds
+        out = [0] * len(clusters)
+        t0 = time.perf_counter()
+        batches = pack_bucketize(clusters, BatchConfig(), bucket_members=True)
+        ph["pack"] += time.perf_counter() - t0
+        for batch in batches:
+            # the JAX package's bound: its counts cross as uint16
+            if int(batch.n_peaks.max(initial=0)) >= 1 << 16:
+                raise ValueError(
+                    "medoid kernel: a member has >= 2**16 peaks; uint16 "
+                    "shared-bin counts would overflow"
+                )
+            t0 = time.perf_counter()
+            sbins, smm, runs, encoding = self._medoid_sorted(batch, config)
+            ph["pack"] += time.perf_counter() - t0
+            m = batch.m
+            chunk = max(1, self.max_grid_elements // (int(runs.max()) * m))
+            for lo in range(0, batch.n_clusters, chunk):
+                hi = min(lo + chunk, batch.n_clusters)
+                r = int(runs[lo:hi].max())
+                args = self._put("h2d", [torch.from_numpy(sbins[lo:hi]),
+                                         torch.from_numpy(smm[lo:hi])])
+                shared = self._timed("kernel", lambda: (
+                    similarity.shared_bins_packed(*args, m=m, runs=r)
+                ))
+                shared = self._fetch("d2h", shared)
+                self.chunks += 1
+                self.medoid_encodings[encoding] += 1
+                t0 = time.perf_counter()
+                picks = similarity.medoid_finalize(
+                    shared, batch.n_peaks[lo:hi], batch.member_mask[lo:hi],
+                    batch.n_members[lo:hi],
+                )
+                for ci, pick in enumerate(picks):
+                    out[batch.source_indices[lo + ci]] = int(pick)
+                ph["finalize"] += time.perf_counter() - t0
+        return out
+
+    def _medoid_sorted(self, batch, config: MedoidConfig):
+        """One batch's medoid channels: global bins and member ids (padding
+        member ``m``), each row sorted by (bin, member); each row's run
+        count (padding's run included); and the encoding: at a reduced
+        ``precision`` both narrowed to int16 when the grid and ``m`` fit,
+        which is exact, else int32."""
+        bins = quantize.medoid_bins_packed(batch, config)
+        b, k = bins.shape
+        m = batch.m
+        mm = np.where(batch.member_id >= 0, batch.member_id, m)
+        # a row's real peaks fill its first n_peaks_total columns and its
+        # padding (bin sentinel, member m) sorts last anyway: sort only the
+        # real peaks, stably, by (bin, member)
+        valid = np.arange(k) < batch.n_peaks_total[:, None]
+        offsets = np.zeros(b + 1, dtype=np.int64)
+        np.cumsum(batch.n_peaks_total, out=offsets[1:])
+        vbins, vmm = bins[valid], mm[valid]
+        perm = seg_argsort(vbins.astype(np.int64) * (m + 1) + vmm, offsets)
+        sbins = bins.copy()
+        sbins[valid] = vbins[perm]
+        smm = mm.astype(np.int32)
+        smm[valid] = vmm[perm]
+        runs = 1 + np.count_nonzero(sbins[:, 1:] != sbins[:, :-1], axis=1)
+        if self.precision != "f32":
+            real_max = int(sbins[sbins < quantize.MEDOID_SENTINEL]
+                           .max(initial=0))
+            b16 = quantize.narrow_i32_to_i16(sbins, real_max)
+            if b16 is not None and m < 2**15 - 1:
+                return b16, smm.astype(np.int16), runs, "i16"
+        return sbins, smm, runs, "i32"
+
+    def run_medoid(
+        self, clusters: list[Cluster], config: MedoidConfig = MedoidConfig()
+    ) -> list[Spectrum]:
+        """The medoid member of each cluster, in input order."""
+        indices = self.medoid_indices(clusters, config)
+        return [c.members[i] for c, i in zip(clusters, indices)]
+
+    def run_best_spectrum(
+        self,
+        clusters: list[Cluster],
+        scores: dict[str, float],
+        config: BestSpectrumConfig = BestSpectrumConfig(),
+    ) -> list[Spectrum]:
+        """The best-scored member of each cluster, scoreless clusters
+        dropped: a join and an argmax, on the host by design."""
+        return numpy_backend.run_best_spectrum(clusters, scores, config)
 
     # -- QC cosine -------------------------------------------------------
 
@@ -542,8 +662,6 @@ class TorchBackend:
                 *args, shift=prep["shift"]
             ))
 
-            t0 = time.perf_counter()
-            out[lo:hi] = mean.cpu().numpy()
-            ph["qc_d2h"] += time.perf_counter() - t0
+            out[lo:hi] = self._fetch("qc_d2h", mean)
             self.cos_chunks += 1
         return out

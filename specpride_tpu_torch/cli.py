@@ -1,12 +1,22 @@
-"""Command line of the port: ``python -m specpride_tpu_torch consensus IN
-OUT [--method bin-mean|gap-average] [--precision f32|bf16|int8]
-[--qc-report QC.json]``.  Reads the clustered MGF, groups it into
-clusters, runs the binned-mean or gap-average consensus on the card
-(``--device cpu`` for the CPU) and writes one consensus spectrum per
-cluster; with ``--qc-report`` it also scores each consensus by its mean
-binned cosine to the cluster's members (always in f32) and writes the
-per-cluster QC report.  A run at a reduced ``--precision`` must pass the
-precision gate (``precision_gate``) or it exits non-zero."""
+"""Command line of the port:
+
+    python -m specpride_tpu_torch consensus IN OUT \
+        [--method bin-mean|gap-average] [--precision f32|bf16|int8] \
+        [--qc-report QC.json]
+    python -m specpride_tpu_torch select IN OUT [--method medoid|best] \
+        [--msms msms.txt | --psms psms.tsv] [--precision f32|bf16|int8] \
+        [--qc-report QC.json]
+
+Both read the clustered MGF and group it into clusters.  ``consensus``
+runs the binned-mean or gap-average consensus on the card (``--device
+cpu`` for the CPU) and writes one consensus spectrum per cluster;
+``select`` writes one member per cluster: the medoid (shared-bin counts on
+the card) or the best-scored member (a host join; clusters without a
+score are dropped).  With ``--qc-report`` each representative is also
+scored by its mean binned cosine to the cluster's members (always in f32,
+on the card) and the per-cluster QC report written.  A consensus or
+medoid run at a reduced ``--precision`` must pass the precision gate
+(``precision_gate``) or it exits non-zero."""
 
 from __future__ import annotations
 
@@ -17,11 +27,17 @@ import statistics
 from specpride_tpu_torch.backends import numpy_backend
 from specpride_tpu_torch.backends.torch_backend import TorchBackend
 from specpride_tpu_torch.config import (
+    BestSpectrumConfig,
     BinMeanConfig,
     CosineConfig,
     GapAverageConfig,
+    MedoidConfig,
 )
 from specpride_tpu_torch.data.peaks import group_into_clusters
+from specpride_tpu_torch.io.maxquant import (
+    read_msms_scores,
+    read_percolator_scores,
+)
 from specpride_tpu_torch.io.mgf import read_mgf, write_mgf
 from specpride_tpu_torch.ops import quantize
 
@@ -50,12 +66,6 @@ def build_parser() -> argparse.ArgumentParser:
     )
     pc.add_argument("--ppm", type=float, default=20.0,
                     help="bin width in ppm for --tolerance-mode ppm")
-    pc.add_argument(
-        "--qc-normalization", choices=["none", "sqrt", "log"],
-        default="none",
-        help="intensity transform for the QC cosine (sqrt tempers "
-        "dominant peaks; log flattens dynamic range)",
-    )
     pc.add_argument("--mz-accuracy", type=float, default=0.01)
     pc.add_argument("--dyn-range", type=float, default=1000.0)
     pc.add_argument("--min-fraction", type=float, default=0.5)
@@ -66,26 +76,57 @@ def build_parser() -> argparse.ArgumentParser:
                     default="lower_median")
     pc.add_argument("--rt", choices=["median", "mass_lower_median"],
                     default="median")
-    pc.add_argument(
-        "--qc-report", metavar="FILE",
-        help="also compute each consensus spectrum's mean member cosine "
-        "and write the per-cluster QC report here",
-    )
-    pc.add_argument(
-        "--precision", choices=list(quantize.PRECISIONS), default="f32",
-        help="encoding of the consensus channels sent to the card: bf16 "
-        "or int8 send fewer bytes, and the run must then pass a gate "
-        "against f32 on a sample of clusters",
-    )
-    pc.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                    help="where the consensus runs (default: the GPU)")
+    _add_common(pc, "consensus spectrum")
+    pc.set_defaults(fn=cmd_consensus)
+
+    ps = sub.add_parser("select", help="pick an existing member per cluster")
+    ps.add_argument("input")
+    ps.add_argument("output")
+    ps.add_argument("--method", choices=["best", "medoid"], default="medoid")
+    ps.add_argument("--msms", help="MaxQuant msms.txt (for --method best)")
+    ps.add_argument("--psms", help="percolator/crux PSM TSV score source "
+                                   "(for --method best)")
+    ps.add_argument("--raw-name", help="raw file name for --psms USIs "
+                                       "(default: basename of its 'file' "
+                                       "column)")
+    ps.add_argument("--px-accession", default="PXD004732")
+    ps.add_argument("--xcorr-bin", type=float, default=0.1,
+                    help="medoid occupancy-grid bin width in Da")
+    _add_common(ps, "representative")
+    ps.set_defaults(fn=cmd_select)
     return ap
 
 
-def write_qc_report(path: str, clusters, cosines) -> None:
+def _add_common(p: argparse.ArgumentParser, what: str) -> None:
+    """The QC, precision and device flags both subcommands take."""
+    p.add_argument(
+        "--qc-report", metavar="FILE",
+        help=f"also compute each {what}'s mean member cosine and write the "
+        "per-cluster QC report here",
+    )
+    p.add_argument(
+        "--qc-normalization", choices=["none", "sqrt", "log"],
+        default="none",
+        help="intensity transform for the QC cosine (sqrt tempers "
+        "dominant peaks; log flattens dynamic range)",
+    )
+    p.add_argument(
+        "--precision", choices=list(quantize.PRECISIONS), default="f32",
+        help="encoding of the channels sent to the card: bf16 or int8 send "
+        "fewer bytes, and a consensus or medoid run must then pass a gate "
+        "against f32 on a sample of clusters",
+    )
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the method runs (default: the GPU)")
+
+
+def write_qc_report(path: str, clusters, cosines,
+                    n_input_clusters: int | None = None) -> None:
     """The per-cluster QC report, in the JAX package's keys and layout: a
-    summary and one row per cluster in input order.  Every cluster gets a
-    row here, so no method or QC failure is ever listed."""
+    summary and one row per scored cluster in input order.
+    ``n_input_clusters`` (default: all rows) counts the input's clusters,
+    scored or not: a method may drop some (``select --method best``
+    drops the scoreless), which is no failure."""
     rows = [
         {"cluster_id": c.cluster_id, "n_members": c.n_members,
          "avg_cosine": float(v)}
@@ -97,7 +138,8 @@ def write_qc_report(path: str, clusters, cosines) -> None:
             "n_clusters": len(rows),
             "mean_cosine": statistics.fmean(values) if values else None,
             "median_cosine": statistics.median(values) if values else None,
-            "n_input_clusters": len(clusters),
+            "n_input_clusters": (len(clusters) if n_input_clusters is None
+                                 else n_input_clusters),
             "n_method_failed": 0,
             "n_qc_failed": 0,
         },
@@ -110,6 +152,10 @@ def write_qc_report(path: str, clusters, cosines) -> None:
 
 def method_config(args):
     """The configuration of ``args.method`` from the command line."""
+    if args.method == "medoid":
+        return MedoidConfig(bin_size=args.xcorr_bin)
+    if args.method == "best":
+        return BestSpectrumConfig(px_accession=args.px_accession)
     if args.method == "gap-average":
         return GapAverageConfig(
             mz_accuracy=args.mz_accuracy, dyn_range=args.dyn_range,
@@ -133,6 +179,20 @@ def run_method(backend: TorchBackend, method: str, clusters, config):
     return backend.run_bin_mean(clusters, config)
 
 
+def load_scores(args) -> dict[str, float]:
+    """The PSM scores of ``select --method best``: ``--psms`` (percolator
+    or crux) before ``--msms`` (MaxQuant); neither exits with a message."""
+    if args.psms:
+        return read_percolator_scores(args.psms, args.px_accession,
+                                      raw_name=args.raw_name)
+    if args.msms:
+        return read_msms_scores(args.msms, args.px_accession)
+    raise SystemExit(
+        "select --method best needs a score source: --msms "
+        "(MaxQuant msms.txt) or --psms (percolator/crux TSV)"
+    )
+
+
 # clusters re-run at f32 by the precision gate: a fixed cost however large
 # the input (the drift it checks is per cluster and i.i.d. across them)
 PRECISION_GATE_SAMPLE = 32
@@ -147,7 +207,7 @@ def precision_gate(backend: TorchBackend, method: str, clusters, config,
     precision)``.  Returns the gate's numbers (None for f32, which is
     the reference); a breach raises ``SystemExit`` with a message."""
     precision = backend.precision
-    if precision == "f32":
+    if precision == "f32" or method == "best":
         return None
     sample = [c for c in clusters[:PRECISION_GATE_SAMPLE] if c.n_members]
     tol = quantize.precision_tolerance(method, precision)
@@ -156,10 +216,20 @@ def precision_gate(backend: TorchBackend, method: str, clusters, config,
         return TorchBackend(device=backend.device, precision=prec,
                             max_grid_elements=backend.max_grid_elements)
 
-    red = run_method(twin(precision), method, sample, config)
-    ref = run_method(twin("f32"), method, sample, config)
-    cosines = [numpy_backend.binned_cosine(a, b, cos_config)
-               for a, b in zip(red, ref)]
+    if method == "medoid":
+        # an equal pick scores 1; a different one, the two members' cosine
+        red = twin(precision).medoid_indices(sample, config)
+        ref = twin("f32").medoid_indices(sample, config)
+        cosines = [
+            1.0 if a == b else numpy_backend.binned_cosine(
+                c.members[a], c.members[b], cos_config)
+            for a, b, c in zip(red, ref, sample)
+        ]
+    else:
+        red = run_method(twin(precision), method, sample, config)
+        ref = run_method(twin("f32"), method, sample, config)
+        cosines = [numpy_backend.binned_cosine(a, b, cos_config)
+                   for a, b in zip(red, ref)]
     min_cos = min(cosines, default=1.0)
     if min_cos < tol:
         raise SystemExit(
@@ -193,6 +263,26 @@ def cmd_consensus(args, backend: TorchBackend) -> int:
     return 0
 
 
+def cmd_select(args, backend: TorchBackend) -> int:
+    config = method_config(args)
+    cos_config = CosineConfig(normalization=args.qc_normalization)
+    clusters = group_into_clusters(read_mgf(args.input))
+    if args.method == "best":
+        reps = backend.run_best_spectrum(clusters, load_scores(args), config)
+    else:
+        reps = backend.run_medoid(clusters, config)
+    write_mgf(reps, args.output)
+    if args.qc_report is not None:
+        # representatives align to clusters by id: best drops clusters
+        by_id = {r.cluster_id: r for r in reps}
+        kept = [c for c in clusters if c.cluster_id in by_id]
+        cosines = backend.average_cosines(
+            [by_id[c.cluster_id] for c in kept], kept, cos_config)
+        write_qc_report(args.qc_report, kept, cosines, len(clusters))
+    precision_gate(backend, args.method, clusters, config, cos_config)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
@@ -200,4 +290,4 @@ def main(argv: list[str] | None = None) -> int:
         backend = TorchBackend(device=args.device, precision=args.precision)
     except RuntimeError as exc:  # no CUDA for the default --device cuda
         ap.error(f"{exc} (here: --device cpu)")
-    return cmd_consensus(args, backend)
+    return args.fn(args, backend)

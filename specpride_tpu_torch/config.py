@@ -1,9 +1,11 @@
-"""Configuration of the binned-mean and gap-average consensus and the QC
-cosine.
+"""Configuration of the binned-mean and gap-average consensus, the medoid
+and best-spectrum selection, the bucketized packing and the QC cosine.
 
 The port's own copies of ``BinMeanConfig``, ``GapAverageConfig``,
-``CosineConfig`` and the ppm grid formula.  The field names match the JAX package's, so a config
-converts with ``BinMeanConfig(**dataclasses.asdict(other))``.
+``MedoidConfig``, ``BestSpectrumConfig``, ``CosineConfig``,
+``BatchConfig`` and the ppm grid formula.  The field names match the JAX
+package's, so a config converts with
+``BinMeanConfig(**dataclasses.asdict(other))``.
 """
 
 from __future__ import annotations
@@ -86,6 +88,44 @@ class GapAverageConfig:
         "lower_median"
     )
     rt: Literal["median", "mass_lower_median"] = "median"
+
+
+@dataclasses.dataclass(frozen=True)
+class MedoidConfig:
+    """Most-similar (medoid) representative
+    (ref src/most_similar_representative.py:13-19,60-111).
+
+    Similarity is an occupancy-grid binned dot product normalised by the
+    smaller raw peak count, the capability pyOpenMS
+    ``XQuestScores::xCorrelationPrescore(spec1, spec2, 0.1)`` supplies at
+    ref src/most_similar_representative.py:15; ``bin_size`` is that 0.1 Da
+    literal.  Bin index is ``floor(mz / bin_size)`` (truncation)."""
+
+    bin_size: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class BestSpectrumConfig:
+    """Best-PSM-score representative (ref src/best_spectrum.py:43-100).
+
+    ``px_accession`` replaces the hardcoded ``mzspec:PXD004732:`` prefix
+    (ref src/best_spectrum.py:61-62)."""
+
+    px_accession: str = "PXD004732"
+    raw_suffix: str = ".raw"
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchConfig:
+    """Bucketing of ragged clusters into (B, K) packed batches
+    (``data.packed.pack_bucketize``): K from ``total_peak_buckets`` by a
+    cluster's total peak count, M from ``member_buckets`` by its member
+    count, at most ``clusters_per_batch`` clusters per batch (which bounds
+    the host memory of one batch)."""
+
+    member_buckets: tuple[int, ...] = (32, 128)
+    total_peak_buckets: tuple[int, ...] = (2048, 8192, 32768)
+    clusters_per_batch: int = 1024
 
 
 @dataclasses.dataclass(frozen=True)

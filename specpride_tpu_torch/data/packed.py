@@ -1,4 +1,5 @@
-"""Flat packing of clusters for the binned-mean and gap-average kernels.
+"""Packing of clusters for the card: flat for the binned-mean and
+gap-average kernels, bucketized (B, K) for the medoid.
 
 Binned mean: every kept peak of every cluster lies along ONE axis, sorted
 by (cluster, bin): the host quantizes m/z on the float64 grid, drops
@@ -10,6 +11,10 @@ Gap average: every peak lies along one axis, sorted by (cluster, m/z)
 (singletons in input order), with the groups decided on the host in
 float64 and marked by 1-byte group-start flags.
 
+Bucketized: clusters of like total peak count share a (B, K) batch, each
+row its cluster's peaks concatenated in member order with a member-id
+channel (``pack_bucketize``).
+
 All passes are vectorized numpy over a ``SpectraTable``.  With a reduced
 ``precision`` the packers also encode the channels the card receives
 (``ops.quantize``).
@@ -18,10 +23,12 @@ All passes are vectorized numpy over a ``SpectraTable``.  With a reduced
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 
-from specpride_tpu_torch.data.table import SpectraTable
+from specpride_tpu_torch.config import BatchConfig
+from specpride_tpu_torch.data.table import ClusterIndex, SpectraTable
 from specpride_tpu_torch.ops import quantize
 from specpride_tpu_torch.ops.segsort import seg_argsort
 
@@ -424,6 +431,226 @@ def pack_flat_gap(
                 source_indices=list(range(lo, hi)),
                 precision=precision,
                 scale=scale,
+            )
+        )
+    return batches
+
+
+# ---------------------------------------------------------------------------
+# Bucketized packing: (B, K) batches of like-sized clusters (medoid)
+# ---------------------------------------------------------------------------
+
+
+def _bucket_keys(values: np.ndarray, buckets: Sequence[int]) -> np.ndarray:
+    """Bucket size per value: the least bucket holding it, past the last
+    bucket the next power of two."""
+    values = np.maximum(values, 1)
+    b = np.asarray(buckets, dtype=np.int64)
+    idx = np.searchsorted(b, values, side="left")
+    inside = idx < len(b)
+    keys = np.where(inside, b[np.minimum(idx, len(b) - 1)], 0)
+    if not inside.all():
+        over = values[~inside]
+        keys[~inside] = 1 << (
+            np.ceil(np.log2(np.maximum(over, 2))).astype(np.int64)
+        )
+    return keys
+
+
+@dataclasses.dataclass
+class PackedBatch:
+    """B clusters, each with up to K packed peaks (its members' peaks
+    concatenated in member order) and up to M members."""
+
+    mz: np.ndarray  # (B, K) float32
+    mz64: np.ndarray  # (B, K) float64, host only: exact m/z for binning
+    intensity: np.ndarray  # (B, K) float32
+    member_id: np.ndarray  # (B, K) int32, -1 = padding
+    n_peaks_total: np.ndarray  # (B,) int32 valid peaks per cluster
+    n_members: np.ndarray  # (B,) int32
+    member_mask: np.ndarray  # (B, M) bool
+    precursor_mz: np.ndarray  # (B, M) float32
+    precursor_charge: np.ndarray  # (B, M) int32
+    rt: np.ndarray  # (B, M) float32
+    n_peaks: np.ndarray  # (B, M) int32 raw per-member peak counts
+    member_spec: np.ndarray  # (B, M) int64 table spectrum id, -1 = padding
+    cluster_ids: list[str]
+    source_indices: list[int]
+
+    @property
+    def n_clusters(self) -> int:
+        return self.mz.shape[0]
+
+    @property
+    def k(self) -> int:
+        return self.mz.shape[1]
+
+    @property
+    def m(self) -> int:
+        return self.member_mask.shape[1]
+
+
+def packed_batch_from_arrays(fields: dict) -> PackedBatch:
+    """Build a ``PackedBatch`` from the numpy fields of a bucketized batch
+    packed elsewhere (``dataclasses.asdict`` of the JAX package's
+    ``PackedBatch``), in the port's dtypes."""
+    names = [f.name for f in dataclasses.fields(PackedBatch)]
+    unknown = set(fields) - set(names)
+    if unknown:
+        raise ValueError(f"unknown packed batch fields {sorted(unknown)}")
+    dtypes = dict(
+        mz=np.float32, mz64=np.float64, intensity=np.float32,
+        member_id=np.int32, n_peaks_total=np.int32, n_members=np.int32,
+        member_mask=bool, precursor_mz=np.float32,
+        precursor_charge=np.int32, rt=np.float32, n_peaks=np.int32,
+        member_spec=np.int64,
+    )
+    return PackedBatch(
+        **{k: np.ascontiguousarray(fields[k], dtype=dt)
+           for k, dt in dtypes.items()},
+        cluster_ids=list(fields["cluster_ids"]),
+        source_indices=[int(i) for i in fields["source_indices"]],
+    )
+
+
+@dataclasses.dataclass
+class _BucketPlan:
+    """One (K[, M]) bucket group of clusters, chunked by clusters_per_batch."""
+
+    codes: np.ndarray  # cluster codes in this chunk, appearance order
+    k: int
+    m: int  # 0 when the member axis is unbucketed
+
+
+def _plan_buckets(
+    idx: ClusterIndex,
+    eligible: np.ndarray,  # (C,) bool
+    totals: np.ndarray,  # (C,) value that picks the K bucket
+    config: BatchConfig,
+    bucket_members: bool,
+) -> list[_BucketPlan]:
+    """Clusters grouped by (K, M) bucket, in ascending K then M, each
+    group cut into batches of at most ``clusters_per_batch``."""
+    codes = np.flatnonzero(eligible)
+    if codes.size == 0:
+        return []
+    kkeys = _bucket_keys(totals[codes], config.total_peak_buckets)
+    if bucket_members:
+        mkeys = _bucket_keys(idx.n_members[codes], config.member_buckets)
+    else:
+        mkeys = np.zeros(codes.size, dtype=np.int64)
+    plans: list[_BucketPlan] = []
+    for kkey in np.unique(kkeys):
+        for mkey in np.unique(mkeys[kkeys == kkey]):
+            sel = codes[(kkeys == kkey) & (mkeys == mkey)]
+            for start in range(0, sel.size, config.clusters_per_batch):
+                chunk = sel[start : start + config.clusters_per_batch]
+                plans.append(_BucketPlan(chunk, int(kkey), int(mkey)))
+    return plans
+
+
+def _peak_layout(table: SpectraTable, idx: ClusterIndex, plan: _BucketPlan):
+    """Flat source/destination indices for scattering a plan's peaks into a
+    (B, K) buffer in cluster-member-peak order.
+
+    Returns (spec_ids, row_of_spec, member_idx, counts, src, dest):
+    ``src`` indexes ``table.mz``, ``dest`` the flat (B*K,) buffer."""
+    codes = plan.codes
+    nm = idx.n_members[codes]
+    # positions of each chosen cluster's spectra within idx.order
+    first = np.zeros(len(idx.n_members), dtype=np.int64)
+    np.cumsum(idx.n_members[:-1], out=first[1:])
+    starts = first[codes]
+    row_of_spec = np.repeat(np.arange(codes.size, dtype=np.int64), nm)
+    member_idx = _grouped_arange(nm)
+    spec_ids = idx.order[np.repeat(starts, nm) + member_idx]
+    counts = table.peak_counts[spec_ids]
+    # within-row start offset of each spectrum's peaks
+    cs = np.concatenate([[0], np.cumsum(counts)])[:-1]
+    row_spec_start = np.concatenate([[0], np.cumsum(nm)])[:-1]
+    base = np.repeat(cs[row_spec_start], nm)
+    within = cs - base
+    src = np.repeat(table.peak_offsets[spec_ids], counts) + _grouped_arange(
+        counts
+    )
+    dest = (
+        np.repeat(row_of_spec, counts) * plan.k
+        + np.repeat(within, counts)
+        + _grouped_arange(counts)
+    )
+    return spec_ids, row_of_spec, member_idx, counts, src, dest
+
+
+def pack_bucketize(
+    clusters_or_table,
+    config: BatchConfig = BatchConfig(),
+    bucket_members: bool = False,
+) -> list[PackedBatch]:
+    """Group clusters into PackedBatches of one K bucket each, recording
+    cluster codes in ``source_indices``.  Each row holds its cluster's
+    peaks from column 0 on, padding after them.
+
+    With ``bucket_members=False`` the member axis M is the largest cluster
+    of the batch rounded up to a power of two; ``bucket_members=True``
+    buckets M by ``config.member_buckets`` (the medoid's run × member
+    occupancy shape)."""
+    table = _as_table(clusters_or_table)
+    idx = table.cluster_order()
+    eligible = idx.n_members > 0
+    plans = _plan_buckets(idx, eligible, idx.total_peaks, config,
+                          bucket_members)
+
+    batches: list[PackedBatch] = []
+    for plan in plans:
+        codes = plan.codes
+        b, k = codes.size, plan.k
+        spec_ids, row_of_spec, member_idx, counts, src, dest = _peak_layout(
+            table, idx, plan
+        )
+        if plan.m:
+            m = plan.m
+        else:
+            mx = int(idx.n_members[codes].max(initial=1))
+            m = 1 << (max(mx, 1) - 1).bit_length()
+
+        mz64 = np.zeros(b * k, dtype=np.float64)
+        mz64[dest] = table.mz[src]
+        inten = np.zeros(b * k, dtype=np.float32)
+        inten[dest] = table.intensity[src]
+        member_id = np.full(b * k, -1, dtype=np.int32)
+        member_id[dest] = np.repeat(member_idx, counts)
+
+        member_mask = np.zeros((b, m), dtype=bool)
+        member_mask[row_of_spec, member_idx] = True
+        precursor_mz = np.zeros((b, m), dtype=np.float32)
+        precursor_mz[row_of_spec, member_idx] = table.precursor_mz[spec_ids]
+        precursor_charge = np.zeros((b, m), dtype=np.int32)
+        precursor_charge[row_of_spec, member_idx] = table.precursor_charge[
+            spec_ids
+        ]
+        rt = np.zeros((b, m), dtype=np.float32)
+        rt[row_of_spec, member_idx] = table.rt[spec_ids]
+        n_peaks = np.zeros((b, m), dtype=np.int32)
+        n_peaks[row_of_spec, member_idx] = counts
+        member_spec = np.full((b, m), -1, dtype=np.int64)
+        member_spec[row_of_spec, member_idx] = spec_ids
+
+        batches.append(
+            PackedBatch(
+                mz=mz64.astype(np.float32).reshape(b, k),
+                mz64=mz64.reshape(b, k),
+                intensity=inten.reshape(b, k),
+                member_id=member_id.reshape(b, k),
+                n_peaks_total=idx.total_peaks[codes].astype(np.int32),
+                n_members=idx.n_members[codes].astype(np.int32),
+                member_mask=member_mask,
+                precursor_mz=precursor_mz,
+                precursor_charge=precursor_charge,
+                rt=rt,
+                n_peaks=n_peaks,
+                member_spec=member_spec,
+                cluster_ids=[table.cluster_names[c] for c in codes],
+                source_indices=[int(c) for c in codes],
             )
         )
     return batches

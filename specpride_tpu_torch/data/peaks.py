@@ -66,6 +66,10 @@ class Spectrum:
     def cluster_id(self) -> str:
         return parse_title(self.title)[0]
 
+    @property
+    def usi(self) -> str:
+        return parse_title(self.title)[1]
+
 
 @dataclasses.dataclass
 class Cluster:

@@ -23,6 +23,9 @@ class SpectraTable:
     mz: np.ndarray  # (P,) f64 — all peaks, spectrum-major
     intensity: np.ndarray  # (P,) f64
     peak_offsets: np.ndarray  # (S+1,) i64
+    precursor_mz: np.ndarray  # (S,) f64
+    precursor_charge: np.ndarray  # (S,) i32
+    rt: np.ndarray  # (S,) f64
     titles: list[str]  # (S,)
     cluster_code: np.ndarray  # (S,) i64 — index into cluster_names
     cluster_names: list[str]
@@ -69,6 +72,13 @@ class SpectraTable:
             mz=np.ascontiguousarray(mz, dtype=np.float64),
             intensity=np.ascontiguousarray(inten, dtype=np.float64),
             peak_offsets=offsets,
+            precursor_mz=np.array(
+                [s.precursor_mz for s in spectra], dtype=np.float64
+            ),
+            precursor_charge=np.array(
+                [s.precursor_charge for s in spectra], dtype=np.int32
+            ),
+            rt=np.array([s.rt for s in spectra], dtype=np.float64),
             titles=titles,
             cluster_code=codes,
             cluster_names=names,

@@ -16,8 +16,11 @@ import torch
 from specpride_tpu_torch.config import (
     BinMeanConfig,
     CosineConfig,
+    MedoidConfig,
     ppm_bin_index,
 )
+
+MEDOID_SENTINEL = 2**30  # medoid bin of a padding slot
 
 
 def bin_mean_bins(
@@ -38,6 +41,17 @@ def bin_mean_bins(
     else:
         bins = ((mzf - config.min_mz) / config.bin_size).astype(np.int64)
     return bins, in_range
+
+
+def medoid_bins_packed(batch, config: MedoidConfig) -> np.ndarray:
+    """(B, K) int32 global occupancy-grid bins of a ``PackedBatch``:
+    ``floor(mz / bin_size)`` in float64 (truncation), clipped to
+    [0, 2^30), with ``MEDOID_SENTINEL`` in padding slots.  Pairwise shared
+    bin counts do not depend on a per-cluster origin, so none is taken."""
+    valid = batch.member_id >= 0
+    bins = (batch.mz64 / config.bin_size).astype(np.int64)
+    sent = np.int64(MEDOID_SENTINEL)
+    return np.where(valid, np.clip(bins, 0, sent - 1), sent).astype(np.int32)
 
 
 def cosine_normalize(intensity: np.ndarray, config: CosineConfig) -> np.ndarray:
@@ -156,6 +170,21 @@ def encode_intensity_flat(
     per_elem = np.repeat(scale, np.diff(row_offsets))
     codes = np.clip(np.round(x / per_elem), -127, 127).astype(np.int8)
     return codes, scale
+
+
+def narrow_i32_to_i16(
+    arr: np.ndarray, max_valid: int, sentinel: int | None = None
+) -> np.ndarray | None:
+    """int16 copy of an int32 index channel, or None when it cannot narrow
+    losslessly.  ``max_valid`` is the largest real value the channel
+    carries; values above it (the int32 sentinel) map to ``sentinel``
+    (default int16 max).  Narrowing is exact, so the only failure is a
+    grid too large for int16, and the caller then ships int32."""
+    if max_valid >= 2**15 - 1:
+        return None
+    a = np.asarray(arr)
+    sent = np.int16(2**15 - 1 if sentinel is None else sentinel)
+    return np.where(a > max_valid, sent, a).astype(np.int16)
 
 
 def codes_tensor(codes: np.ndarray) -> torch.Tensor:

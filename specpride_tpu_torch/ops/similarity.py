@@ -1,8 +1,16 @@
-"""QC cosine on the card: each representative's mean binned cosine to its
-cluster's members, over one flat peak axis for a whole chunk.
+"""Similarity on the card: the medoid's pairwise shared-bin counts and the
+QC cosine.
 
-The host ships per-peak composite keys, edge-gated intensities, spectrum
-ids and rep-lookup positions outright (``TorchBackend._dispatch_cosine_flat``
+Medoid: per (B, K) chunk of host-sorted global bins and member ids, a
+scatter of ones builds each cluster's 0/1 (run × member) occupancy and one
+batched matrix product gives every member pair's shared occupied-bin
+count (``shared_bins_packed``); the host finalizes the pick in float64
+(``medoid_finalize``).
+
+QC cosine: each representative's mean binned cosine to its cluster's
+members, over one flat peak axis for a whole chunk.  The host ships
+per-peak composite keys, edge-gated intensities, spectrum ids and
+rep-lookup positions outright (``TorchBackend._dispatch_cosine_flat``
 builds them); the card runs five segmented scans through the ``seg_scan``
 kernel, plus gathers and elementwise torch ops, and returns one float per
 cluster.
@@ -10,11 +18,102 @@ cluster.
 
 from __future__ import annotations
 
+import contextlib
+
+import numpy as np
 import torch
 
 from specpride_tpu_torch.data.packed import SENTINEL
 from specpride_tpu_torch.ops import kernels
 from specpride_tpu_torch.ops import segments as sg
+from specpride_tpu_torch.ops.quantize import MEDOID_SENTINEL
+
+
+@contextlib.contextmanager
+def _tf32_matmul():
+    """TF32 tensor-core matrix products inside the block, the process
+    setting restored after it."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def shared_bins_packed(
+    bins: torch.Tensor,  # (B, K) int32 global bins, or int16 narrowed; each
+    #   row sorted by (bin, member), padding (MEDOID_SENTINEL or 2^15 - 1)
+    #   last
+    member_id: torch.Tensor,  # (B, K) int32 or int16 in [0, m], same
+    #   order; padding = m
+    m: int,
+    runs: int,  # R: at least the largest number of (row, bin) runs in any
+    #   row, padding's run included
+) -> torch.Tensor:
+    """(B, M, M) int32 shared occupied-bin counts of every member pair: the
+    counterpart of the JAX package's ``ops/similarity.py::
+    _shared_bins_packed`` on the same sorted arguments.
+
+    Where the JAX function builds each run's member set by a segmented
+    OR-scan of bitmasks (every TPU scatter serialized), this one scatters
+    ones into a zeroed (B, R, M) float32 occupancy, at the first element
+    of each (run, member) pair, and takes the gram ``O^T O`` with one
+    ``torch.bmm``.  The run axis is R, the chunk's largest run count
+    (the host knows it from its sort), not K: the same counts from a
+    smaller tensor.  The counts are exact: the occupancy is 0/1, exact in
+    float32, TF32 and bf16, so every product is exact, and a sum of ones
+    is exact in float32 below 2^24 (a count never exceeds a member's peak
+    count, which the caller holds below 2^16); so the TF32 tensor cores
+    give the integers."""
+    bins = bins.to(torch.int32)
+    member = member_id.to(torch.int32)
+    b = bins.shape[0]
+    ok = (member < m) & (bins < MEDOID_SENTINEL)
+    starts = torch.ones_like(ok)
+    starts[:, 1:] = bins[:, 1:] != bins[:, :-1]
+    first_of_mb = starts.clone()
+    first_of_mb[:, 1:] |= member[:, 1:] != member[:, :-1]
+    contrib = ok & first_of_mb
+    run = torch.cumsum(starts, dim=1) - 1  # within-row run index
+    if int(run[:, -1].max()) >= runs:
+        raise ValueError(f"shared_bins_packed: a row holds more than "
+                         f"runs={runs} runs")
+    row = torch.arange(b, device=bins.device).unsqueeze(1)
+    flat = (row * runs + run) * m + member.clamp(max=m - 1)
+    occ = torch.zeros(b * runs * m, dtype=torch.float32, device=bins.device)
+    occ.index_put_((flat[contrib],), torch.ones((), device=bins.device))
+    occ = occ.view(b, runs, m)
+    with _tf32_matmul():
+        shared = torch.bmm(occ.transpose(1, 2), occ)
+    return shared.to(torch.int32)
+
+
+def medoid_finalize(
+    shared: np.ndarray,  # (B, M, M) int
+    n_peaks: np.ndarray,  # (B, M) int raw peak counts
+    member_mask: np.ndarray,  # (B, M) bool
+    n_members: np.ndarray,  # (B,) int
+) -> np.ndarray:
+    """Host float64 finalize: prescore = shared / min(raw counts),
+    distance = 1 - prescore, total = row sum + diagonal (the triangular
+    fill's double-counted self-distance, ref
+    src/most_similar_representative.py:88-100), lowest-index argmin."""
+    n = n_peaks.astype(np.float64)
+    min_n = np.minimum(n[:, :, None], n[:, None, :])
+    with np.errstate(invalid="ignore", divide="ignore"):
+        prescore = np.where(
+            min_n > 0, shared.astype(np.float64) / np.maximum(min_n, 1.0), 0.0
+        )
+    dist = 1.0 - prescore
+    pair_ok = member_mask[:, :, None] & member_mask[:, None, :]
+    dist = np.where(pair_ok, dist, 0.0)
+    diag = np.einsum("bii->bi", dist)
+    total = (dist.sum(axis=2) + diag) / np.maximum(
+        n_members.astype(np.float64)[:, None], 1.0
+    )
+    total = np.where(member_mask, total, np.inf)
+    return np.argmin(total, axis=1).astype(np.int32)
 
 
 def cosine_flat(

@@ -144,11 +144,14 @@ def test_import_and_help_load_no_jax():
         "import specpride_tpu_torch.backends.numpy_backend\n"
         "import specpride_tpu_torch.ops.similarity\n"
         "import specpride_tpu_torch.ops.gap_average\n"
+        "import specpride_tpu_torch.io.maxquant\n"
+        "import specpride_tpu_torch.data.packed\n"
         "from specpride_tpu_torch.cli import main\n"
-        "try:\n"
-        "    main(['consensus', '--help'])\n"
-        "except SystemExit:\n"
-        "    pass\n"
+        "for cmd in ('consensus', 'select'):\n"
+        "    try:\n"
+        "        main([cmd, '--help'])\n"
+        "    except SystemExit:\n"
+        "        pass\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes')\n"
         "             or m.startswith(('jax.', 'specpride_tpu.',\n"
         "                              'ml_dtypes.'))\n"
@@ -162,6 +165,11 @@ def test_import_and_help_load_no_jax():
                  "--dyn-range", "--min-fraction", "--tail-mode",
                  "--pepmass", "--rt"):
         assert flag in proc.stdout
+    for flag in ("{best,medoid}", "--msms", "--psms", "--raw-name",
+                 "--px-accession", "--xcorr-bin", "--qc-normalization"):
+        assert flag in proc.stdout
+    assert proc.stdout.count("--qc-report") >= 2
+    assert proc.stdout.count("--device") >= 2
     assert "LOADED []" in proc.stdout
 
 
@@ -188,7 +196,8 @@ def test_package_source_imports_no_jax():
     assert bad == []
     scanned = {os.path.relpath(f, PKG) for f in files}
     assert {"backends/numpy_backend.py", "ops/gap_average.py",
-            "ops/quantize.py", "data/packed.py"} <= scanned
+            "ops/quantize.py", "data/packed.py", "io/maxquant.py",
+            "ops/similarity.py", "config.py"} <= scanned
     assert len(files) > 10
 
 
