@@ -47,7 +47,22 @@ NVIDIA GPU:
    ``select --method medoid --qc-report``, ``select --method best --msms
    --qc-report`` and ``select --precision bf16`` on the golden clustered
    MGF, each against the port's ``--device cpu`` run;
-5. prints a ``{"kernels": [...]}`` line and, last, the
+   host sort phase: the packs' segmented sorts and searches on slice-20k
+   (consensus pack, QC member prep, QC rep sort, cosine chunk search,
+   medoid per-row sort, gap pack, and the consensus pack's dedup
+   lexsort), native (``ops/csrc/segsort.cpp``) against plain numpy,
+   identical, each beside its stage's wall, with the host's core count;
+   executor phase: slice-20k with QC through the CLI's
+   chunked executor (``cli._checkpointed_run``, 512 clusters a chunk) at
+   ``--prefetch 0``, the defaults, ``--h2d-buffer 2`` and ``--pack-workers
+   0``, the bytes of output, manifest and QC report identical, one
+   ``seg_mean`` and five ``seg_scan`` launches per chunk; medoid, gap f32
+   and bin-mean int8 through it at the defaults; kill phase: the CLI on
+   the 2,000-cluster MGF killed (SIGKILL) after its first committed chunk
+   and resumed, its output and QC report the bytes of an uninterrupted
+   run;
+5. prints a ``{"kernels": [...]}`` line (launches: the executor's runs at
+   the defaults) and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Every comparison of a kernel with its plain version prints its largest
@@ -772,6 +787,7 @@ def slice_phase(kernels, clusters, gen_s: float) -> dict:
     print(f"slice {json.dumps(res)}", flush=True)
     res["scan_shapes"] = shapes
     res["reps"] = reps
+    res["cosines"] = cosines
     return res
 
 
@@ -1098,6 +1114,320 @@ def select_phase(kernels, clusters, medoid_picks) -> dict:
     return res
 
 
+SORT_SITES = ("consensus pack", "qc member prep", "qc rep sort",
+              "qc chunk search", "medoid per-row sort", "gap pack")
+
+
+def dedup_site(calls, stage_s: float) -> dict:
+    """The consensus pack's dedup (``packed._dedup_keep_mask``), still
+    numpy: its (spectrum, bin, position) ``np.lexsort`` runs only when a
+    spectrum's m/z is out of order, else one vector compare decides.  For
+    each recorded call: whether the lexsort ran, the lexsort timed on the
+    call's arrays regardless, and ``seg_argsort`` over the spectra (what
+    moving it would run), held to the same permutation.  Shares are of
+    the consensus pack's wall, with the lexsort added where it did not
+    run."""
+    from specpride_tpu_torch.ops import segsort
+
+    site = {"calls": len(calls), "elements": 0, "lexsort_runs": 0,
+            "stage_s": stage_s, "dedup_s": 0.0, "plain_s": 0.0,
+            "native_s": 0.0}
+    for spec, bins, mz, dedup_s in calls:
+        p = bins.size
+        site["elements"] += p
+        site["dedup_s"] += dedup_s
+        site["lexsort_runs"] += bool(
+            ((spec[1:] == spec[:-1]) & (mz[1:] < mz[:-1])).any())
+        t0 = time.perf_counter()
+        want = np.lexsort((np.arange(p), bins, spec))
+        site["plain_s"] += time.perf_counter() - t0
+        offsets = np.r_[0, np.flatnonzero(spec[1:] != spec[:-1]) + 1, p]
+        t0 = time.perf_counter()
+        got = segsort.seg_argsort(bins, offsets)
+        site["native_s"] += time.perf_counter() - t0
+        if not np.array_equal(got, want):
+            raise AssertionError("sort split dedup lexsort: native and plain "
+                                 "permutations differ")
+    ran = site["lexsort_runs"] > 0
+    base = stage_s if ran else stage_s + site["plain_s"]
+    site.update({
+        "share_plain": site["plain_s"] / base,
+        "share_native": site["native_s"] / (base - site["plain_s"]
+                                            + site["native_s"]),
+        "share_this_input": site["plain_s"] / stage_s if ran else 0.0,
+        "speedup": (site["plain_s"] / site["native_s"]
+                    if site["native_s"] else None),
+        "identical": True,
+    })
+    return site
+
+
+def sort_split_phase(clusters, reps) -> dict:
+    """The host sorts on slice-20k's real arrays, native (the port's
+    threaded ``ops/csrc/segsort.cpp``) against plain (numpy), host clock,
+    one sample each: every ``seg_argsort`` / ``searchsorted_right_i32``
+    call of six stages is recorded while the stage runs (native), then
+    replayed native and plain and the results held identical.  Each
+    stage's wall beside its sorts gives the sort's share of it, and the
+    share it would have with the plain sort.  A seventh site, the
+    consensus pack's dedup lexsort, is ``dedup_site``'s."""
+    from specpride_tpu_torch.backends import torch_backend
+    from specpride_tpu_torch.backends.torch_backend import TorchBackend
+    from specpride_tpu_torch.config import (
+        BatchConfig,
+        BinMeanConfig,
+        CosineConfig,
+        GapAverageConfig,
+        MedoidConfig,
+    )
+    from specpride_tpu_torch.data import packed
+    from specpride_tpu_torch.ops import segsort
+
+    backend = TorchBackend(device=DEV)
+    cfg = CosineConfig()
+    cap = backend.max_grid_elements // 4
+    calls = []
+
+    def recording(real, plain):
+        def rec(*args):
+            calls.append((real, plain, args))
+            return real(*args)
+        return rec
+
+    sort = recording(segsort.seg_argsort, segsort.seg_argsort_plain)
+    search = recording(segsort.searchsorted_right_i32,
+                       segsort.searchsorted_right_i32_plain)
+    dedup_calls = []
+    real_dedup = packed._dedup_keep_mask
+
+    def dedup(spec, bins, mz):
+        t0 = time.perf_counter()
+        keep = real_dedup(spec, bins, mz)
+        dedup_calls.append((spec, bins, mz, time.perf_counter() - t0))
+        return keep
+
+    saved = (packed.seg_argsort, torch_backend.seg_argsort,
+             torch_backend.searchsorted_right_i32, real_dedup)
+    state = {}
+
+    def member_prep():
+        state["mprep"] = backend._prep_cosine_members(clusters, cfg)
+
+    def rep_sort():
+        state["prep"] = backend._prep_cosine_reps(reps, state["mprep"], cfg)
+
+    def chunk_search():
+        for lo, hi in backend._cosine_chunks(state["prep"]):
+            backend._cosine_chunk_arrays(state["prep"], lo, hi)
+
+    def medoid_sort():
+        for batch in state["buckets"]:
+            backend._medoid_sorted(batch, MedoidConfig())
+
+    stages = (
+        lambda: packed.pack_flat_bin_mean(clusters, BinMeanConfig(),
+                                          max_elements=cap),
+        member_prep, rep_sort, chunk_search, medoid_sort,
+        lambda: packed.pack_flat_gap(clusters, GapAverageConfig(),
+                                     max_elements=cap),
+    )
+    state["buckets"] = packed.pack_bucketize(clusters, BatchConfig(),
+                                             bucket_members=True)
+    res = {"cores": len(os.sched_getaffinity(0)),
+           "cpu_count": os.cpu_count(), "sites": {}}
+    packed.seg_argsort = torch_backend.seg_argsort = sort
+    torch_backend.searchsorted_right_i32 = search
+    packed._dedup_keep_mask = dedup
+    try:
+        for site, stage in zip(SORT_SITES, stages):
+            calls.clear()
+            t0 = time.perf_counter()
+            stage()
+            stage_s = time.perf_counter() - t0
+            native_s = plain_s = 0.0
+            n = 0
+            for real, plain, args in calls:
+                t0 = time.perf_counter()
+                got = real(*args)
+                native_s += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                want = plain(*args)
+                plain_s += time.perf_counter() - t0
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"sort split {site}: native and "
+                                         "plain results differ")
+                n += args[0].size if real is segsort.seg_argsort \
+                    else args[1].size
+            res["sites"][site] = {
+                "calls": len(calls), "elements": n, "stage_s": stage_s,
+                "native_s": native_s, "plain_s": plain_s,
+                "speedup": plain_s / native_s if native_s else None,
+                "share_native": native_s / stage_s,
+                "share_plain": plain_s / (stage_s - native_s + plain_s),
+                "identical": True,
+            }
+    finally:
+        packed.seg_argsort, torch_backend.seg_argsort, \
+            torch_backend.searchsorted_right_i32, \
+            packed._dedup_keep_mask = saved
+    res["sites"]["dedup lexsort"] = dedup_site(
+        dedup_calls, res["sites"]["consensus pack"]["stage_s"])
+    print(f"compare host sorts native vs plain: identical at "
+          f"{len(SORT_SITES) + 1} sites ({res['cores']} cores)", flush=True)
+    print(f"host sort split {json.dumps(res)}", flush=True)
+    return res
+
+
+EXEC_EVERY = 512  # --checkpoint-every, the JAX CLI's default
+EXEC_SETTINGS = (
+    ("prefetch 0", ("--prefetch", "0")),
+    ("defaults", ()),
+    ("h2d-buffer 2", ("--h2d-buffer", "2")),
+    ("pack-workers 0", ("--pack-workers", "0")),
+)
+
+
+def executor_run(kernels, clusters, name: str, command: str, flags=(),
+                 qc: bool = True) -> dict:
+    """One in-process run of the CLI's chunked executor
+    (``cli._checkpointed_run``, then ``cli._write_qc_report``) on
+    ``clusters`` with ``--checkpoint`` and ``--checkpoint-every
+    EXEC_EVERY``, launch counts zeroed just before; the bytes it wrote and
+    its numbers.  The input is in memory: parsing the MGF is not what is
+    measured."""
+    import torch
+
+    from specpride_tpu_torch import cli
+    from specpride_tpu_torch.backends.torch_backend import TorchBackend
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "executor")
+    os.makedirs(work, exist_ok=True)
+    paths = {k: os.path.join(work, f"{name}.{k}") for k in
+             ("mgf", "ck.json", "qc.json")}
+    for path in paths.values():
+        if os.path.exists(path):
+            os.remove(path)
+    argv = [command, "in.mgf", paths["mgf"], "--checkpoint",
+            paths["ck.json"], "--checkpoint-every", str(EXEC_EVERY), *flags]
+    if qc:
+        argv += ["--qc-report", paths["qc.json"]]
+    args = cli.build_parser().parse_args(argv)
+    backend = TorchBackend(device=DEV, precision=args.precision)
+    stats = cli.RunStats()
+    rows = [] if qc else None
+    zero_launches(kernels)
+    t0 = time.perf_counter()
+    resumed, failed, qc_failed = cli._checkpointed_run(
+        backend, args.method, clusters, args, stats, qc=rows)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    if qc:
+        cli._write_qc_report(args, backend, clusters, rows, resumed, failed,
+                             qc_failed)
+    if failed or qc_failed:
+        raise AssertionError(f"executor {name}: failed {failed} {qc_failed}")
+    got = {}
+    for key, path in paths.items():
+        if key != "qc.json" or qc:
+            with open(path, "rb") as fh:
+                got[key] = fh.read()
+    ph = backend.phase_seconds
+    pipe = stats.pipeline or {}
+    run = {"wall_s": wall, "clusters_per_s": len(clusters) / wall,
+           "device_idle_s": pipe.get("device_idle_s"),
+           "overlap_efficiency": pipe.get("overlap_efficiency"),
+           "launches": launches, "chunks": backend.chunks,
+           "cos_chunks": backend.cos_chunks, "pipeline": stats.pipeline,
+           "phase_s": ph, "cli_phases_s": dict(stats.phases),
+           "h2d_bytes": backend.h2d_bytes,
+           "output_bytes": len(got["mgf"])}
+    if not stats.pipeline:
+        # the card's share of the wall, from the CUDA events around each
+        # kernel: only a serial run's, since with other lanes running the
+        # dispatch thread can lose the interpreter between an event and
+        # its kernel's launch, which inflates the events' times
+        run["card_busy_share"] = (ph["kernel"] + ph["qc_kernel"]) / wall
+    return run, got
+
+
+def executor_phase(kernels, clusters, slice_cos, medoid_picks) -> dict:
+    """slice-20k (bin-mean with QC) through the chunked executor at four
+    settings: the output, manifest and QC-report bytes identical across
+    them; per run one ``seg_mean`` launch per chunk and five ``seg_scan``
+    launches per cosine chunk, one cosine chunk per executor chunk; the
+    QC cosines within COS_TOL of the one-shot slice phase's.  Then
+    medoid-20k, gap-20k (f32) and bin-mean int8 at the defaults: the
+    medoid's output the bytes of the medoid phase's picks, the gap and
+    int8 outputs identical to their own ``--prefetch 0`` runs."""
+    from specpride_tpu_torch.io.mgf import write_mgf
+
+    n_chunks = -(-len(clusters) // EXEC_EVERY)
+    res = {"every": EXEC_EVERY, "chunks": n_chunks}
+    first = None
+    for what, flags in EXEC_SETTINGS:
+        run, got = executor_run(kernels, clusters, what.replace(" ", "_"),
+                                "consensus", flags)
+        want = {"seg_mean": n_chunks, "seg_mean_heads": 0,
+                "seg_scan": 5 * n_chunks}
+        if (run["launches"] != want or run["chunks"] != n_chunks
+                or run["cos_chunks"] != n_chunks):
+            raise AssertionError(f"executor {what}: launches "
+                                 f"{run['launches']}, chunks {run['chunks']}"
+                                 f"/{run['cos_chunks']}, expected {want}")
+        if first is None:
+            first = got
+            rows = json.loads(got["qc.json"])["clusters"]
+            run["cosine_err"] = check_cosines(
+                [r["avg_cosine"] for r in rows], slice_cos,
+                "executor vs one-shot slice")
+        elif got != first:
+            bad = [k for k in got if got[k] != first[k]]
+            raise AssertionError(f"executor {what}: {bad} differ from the "
+                                 f"{EXEC_SETTINGS[0][0]} run's")
+        print(f"executor {what} {json.dumps(run)}", flush=True)
+        res[what] = run
+    print(f"compare executor: output, manifest and QC report identical over "
+          f"{len(EXEC_SETTINGS)} settings ({len(first['mgf'])} output "
+          "bytes)", flush=True)
+
+    run, got = executor_run(kernels, clusters, "medoid", "select")
+    if any(run["launches"][k] for k in ("seg_mean", "seg_mean_heads")):
+        raise AssertionError(f"executor medoid: launches {run['launches']}")
+    path = os.path.join(ROOT, "build", "chip_smoke", "executor",
+                        "medoid_phase_picks.mgf")
+    write_mgf([c.members[p] for c, p in zip(clusters, medoid_picks)], path)
+    with open(path, "rb") as fh:
+        if fh.read() != got["mgf"]:
+            raise AssertionError("executor medoid: picks differ from the "
+                                 "medoid phase's")
+    print(f"executor medoid {json.dumps(run)}", flush=True)
+    res["medoid"] = run
+    for what, command, flags in (
+        ("gap f32", "consensus", ("--method", "gap-average")),
+        ("bin-mean int8", "consensus", ("--precision", "int8")),
+    ):
+        run, got = executor_run(kernels, clusters, what.replace(" ", "_"),
+                                command, flags, qc=False)
+        ls = run["launches"]
+        if (ls["seg_mean_heads"] != run["chunks"] or ls["seg_mean"]
+                or ls["seg_scan"] or run["chunks"] < n_chunks):
+            raise AssertionError(f"executor {what}: launches "
+                                 f"{run['launches']}, chunks {run['chunks']}")
+        _, serial = executor_run(kernels, clusters,
+                                 what.replace(" ", "_") + "_serial",
+                                 command, flags + ("--prefetch", "0"),
+                                 qc=False)
+        if serial != got:
+            raise AssertionError(f"executor {what}: defaults and "
+                                 "--prefetch 0 differ")
+        print(f"executor {what} {json.dumps(run)}", flush=True)
+        res[what] = run
+    print("compare executor: medoid = medoid phase picks; gap f32 and "
+          "bin-mean int8 = their --prefetch 0 runs", flush=True)
+    return res
+
+
 def cli_phase() -> dict:
     from specpride_tpu_torch.backends.torch_backend import TorchBackend
     from specpride_tpu_torch.data.peaks import group_into_clusters
@@ -1174,6 +1504,96 @@ def cli_phase() -> dict:
     return res
 
 
+KILL_EVERY = 128
+
+
+def kill_resume_phase(src: str) -> dict:
+    """A real kill and resume of the CLI on CLI-2k's file, ``--checkpoint
+    --checkpoint-every KILL_EVERY --qc-report`` at the defaults: the run
+    is sent SIGKILL once its manifest lists a chunk and it has not ended,
+    then resumed with the same flags; the output and QC report must be
+    the bytes of an uninterrupted run, and the resume's summary must show
+    the skipped clusters."""
+    import signal
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "kill")
+    os.makedirs(work, exist_ok=True)
+
+    def paths(name):
+        p = {k: os.path.join(work, f"{name}.{k}")
+             for k in ("mgf", "ck.json", "qc.json")}
+        for path in p.values():
+            if os.path.exists(path):
+                os.remove(path)
+        return p
+
+    def argv(p):
+        return [sys.executable, "-m", "specpride_tpu_torch", "consensus",
+                src, p["mgf"], "--checkpoint", p["ck.json"],
+                "--checkpoint-every", str(KILL_EVERY), "--qc-report",
+                p["qc.json"]]
+
+    env = dict(os.environ, PYTHONPATH=ROOT)
+
+    def run(p) -> dict:
+        proc = subprocess.run(argv(p), cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"kill phase CLI exited {proc.returncode}:"
+                                 f"\n{proc.stderr}")
+        return json.loads(proc.stderr.strip().splitlines()[-1])
+
+    full = paths("full")
+    t0 = time.perf_counter()
+    full_summary = run(full)
+    full_s = time.perf_counter() - t0
+    killed = paths("killed")
+    proc = subprocess.Popen(argv(killed), cwd=ROOT, env=env,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL)
+    done_at_kill = 0
+    try:
+        deadline = time.perf_counter() + 600
+        while time.perf_counter() < deadline and proc.poll() is None:
+            try:
+                with open(killed["ck.json"]) as fh:
+                    done_at_kill = len(json.load(fh)["done"])
+            except (OSError, ValueError, KeyError):
+                done_at_kill = 0
+            if done_at_kill >= KILL_EVERY:
+                proc.send_signal(signal.SIGKILL)
+                break
+            time.sleep(0.005)
+    finally:
+        if proc.poll() is None and done_at_kill < KILL_EVERY:
+            proc.kill()
+        proc.wait()
+    if proc.returncode != -signal.SIGKILL or done_at_kill < KILL_EVERY:
+        raise AssertionError(f"kill phase: the run ended with "
+                             f"{proc.returncode} before it could be killed "
+                             f"after a chunk ({done_at_kill} done)")
+    with open(killed["mgf"], "rb") as fh:
+        bytes_at_kill = len(fh.read())
+    resumed = run(killed)
+    same = {}
+    for key in ("mgf", "qc.json"):
+        with open(full[key], "rb") as a, open(killed[key], "rb") as b:
+            same[key] = a.read() == b.read()
+    skipped = resumed["counters"].get("clusters_skipped_done", 0)
+    res = {"every": KILL_EVERY, "done_at_kill": done_at_kill,
+           "output_bytes_at_kill": bytes_at_kill, "resume_skipped": skipped,
+           "identical": same, "full_wall_s": full_s,
+           "full_pipeline": full_summary.get("pipeline"),
+           "resume_pipeline": resumed.get("pipeline")}
+    if not all(same.values()) or skipped < done_at_kill:
+        raise AssertionError(f"kill phase: {res}")
+    print(f"compare kill and resume: output and QC report identical to an "
+          f"uninterrupted run; killed after {done_at_kill} clusters, resume "
+          f"skipped {skipped}", flush=True)
+    print(f"kill {json.dumps(res)}", flush=True)
+    return res
+
+
 def same_as_cpu_select(golden, dst, qc, flags, work, what) -> dict:
     """The card's ``select`` output against the port's ``--device cpu``
     run with the same flags: the same bytes; a QC report with the same
@@ -1246,27 +1666,36 @@ def main() -> int:
     t0 = time.perf_counter()
     clusters = make_workload(SLICE_CLUSTERS, seed=42)
     sres = slice_phase(kernels, clusters, time.perf_counter() - t0)
-    qres = precision_phase(kernels, clusters, sres.pop("reps"),
+    slice_reps, slice_cos = sres.pop("reps"), sres.pop("cosines")
+    qres = precision_phase(kernels, clusters, slice_reps,
                            sres["h2d_bytes"]["h2d"])
     gres = gap_phase(kernels, clusters)
     dres = medoid_phase(kernels, clusters)
-    selres = select_phase(kernels, clusters, dres.pop("picks"))
-    del clusters
+    picks = dres.pop("picks")
+    selres = select_phase(kernels, clusters, picks)
+    sortres = sort_split_phase(clusters, slice_reps)
+    exres = executor_phase(kernels, clusters, slice_cos, picks)
+    del clusters, slice_reps
     pres = path_scan_phase(kernels, sres.pop("scan_shapes"))
     cres = cli_phase()
+    killres = kill_resume_phase(
+        os.path.join(ROOT, "build", "chip_smoke", "in.mgf"))
 
     main_case = mres["cases"][0]
     path_case = pres["cases"][0]
     (heads_case,) = [c for c in hres["cases"] if c["case"] == HEAD_MAIN]
-    heads_launches = sum(
-        run["launches"]["seg_mean_heads"]
-        for run in (qres["bf16"], qres["int8"], gres["f32"], gres["int8"]))
+    # launches: the main path's runs, through the CLI's chunked executor
+    # at its defaults (bin-mean with QC, select medoid with QC, gap f32
+    # and bin-mean int8)
+    main_run = exres["defaults"]["launches"]
+    heads_launches = sum(exres[what]["launches"]["seg_mean_heads"]
+                         for what in ("gap f32", "bin-mean int8"))
     entries = [{
         "name": "seg_mean",
         "route": "cuda",
         "source": "specpride_tpu_torch/ops/csrc/seg_mean.cu",
         "replaces": "specpride_tpu/ops/pallas_kernels.py:187",
-        "launches": sres["launches"]["seg_mean"],
+        "launches": main_run["seg_mean"],
         "max_abs_err": max(c["max_abs_err"] for c in mres["cases"]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -1290,8 +1719,8 @@ def main() -> int:
         "route": "cuda",
         "source": "specpride_tpu_torch/ops/csrc/seg_scan.cu",
         "replaces": "specpride_tpu/ops/pallas_kernels.py:148",
-        "launches": (sres["launches"]["seg_scan"]
-                     + selres["launches"]["seg_scan"]),
+        "launches": (main_run["seg_scan"]
+                     + exres["medoid"]["launches"]["seg_scan"]),
         "max_abs_err": max(
             c["max_abs_err"] for c in kres["cases"] + pres["cases"]
         ),
@@ -1310,7 +1739,9 @@ def main() -> int:
                    "extremes": xres, "streams": twores, "slice": sres,
                    "precision": qres, "gap": gres, "medoid": dres,
                    "select": selres, "path_scan": pres,
-                   "cli": cres, "build": info.get("seconds"),
+                   "host_sorts": sortres, "executor": exres,
+                   "cli": cres, "kill_resume": killres,
+                   "build": info.get("seconds"),
                    "wall_s": time.perf_counter() - start}, fh, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

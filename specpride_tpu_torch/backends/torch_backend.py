@@ -25,11 +25,19 @@ is a host join and argmax (``numpy_backend.run_best_spectrum``).
 each along one flat axis sorted by (row, spectrum, bin) on the host,
 gates intensities by each pair's grid cutoff, looks up each member peak's
 rep bin, and runs ``ops.similarity.cosine_flat`` on the card per chunk,
-always in f32.  ``run_bin_mean_with_cosines`` is the two in a row.
+always in f32.  ``run_bin_mean_with_cosines`` is the two in a row, on
+one ``SpectraTable``.
+
+Each of the three card paths is two phases (``prepare_chunk``, host work
+only, and ``run_prepared``, the dispatch and finalize), the protocol the
+CLI's chunked executor drives from its pack and dispatch lanes; the
+one-shot ``run_*`` entry points are the two in a row, so the executor and
+the one-shot calls share one copy of each method.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -63,6 +71,29 @@ PHASES = (
     "pack", "h2d", "kernel", "d2h", "finalize",
     "qc_pack", "qc_h2d", "qc_kernel", "qc_d2h",
 )
+PREPARED_METHODS = ("bin-mean", "gap-average", "medoid")
+
+
+def _add_time(phases: dict, phase: str, t0: float) -> None:
+    phases[phase] = phases.get(phase, 0.0) + time.perf_counter() - t0
+
+
+@dataclasses.dataclass
+class PreparedChunk:
+    """Host product of ``TorchBackend.prepare_chunk``, phase 1 of the
+    two-phase chunk protocol: numpy arrays and host tensors built with no
+    device call and no write to the backend, so pack workers can build
+    chunks while the dispatch lane runs an earlier one.  ``phases`` holds
+    the seconds of its host stages (and of a staged copy,
+    ``stage_chunk``); ``run_prepared`` adds them to the backend's
+    ``phase_seconds`` on the dispatch lane."""
+
+    method: str  # one of PREPARED_METHODS
+    clusters: list
+    config: object
+    cos_config: object | None = None
+    data: dict = dataclasses.field(default_factory=dict)
+    phases: dict = dataclasses.field(default_factory=dict)
 
 
 def check_no_empty(clusters: list[Cluster]) -> None:
@@ -96,7 +127,9 @@ class TorchBackend:
     medoid chunks run and ``cos_chunks`` the cosine chunks;
     ``medoid_encodings`` counts the medoid chunks by the integer width of
     the bins and member ids they shipped ("i32", or "i16" narrowed at a
-    reduced ``precision``)."""
+    reduced ``precision``).  These are written on the dispatch lane only
+    (``run_prepared`` and the one-shot calls); ``prepare_chunk`` writes
+    none of them."""
 
     def __init__(
         self, device: str | torch.device = "cuda",
@@ -122,29 +155,156 @@ class TorchBackend:
         self.chunks = 0
         self.cos_chunks = 0
         self.medoid_encodings = {"i32": 0, "i16": 0}
+        # the staging lane's copy stream (stage_chunk); kernels never run
+        # on it, so the per-(device, stream) workspaces stay one per lane
+        self._h2d_stream = (torch.cuda.Stream(self.device)
+                            if self.device.type == "cuda" else None)
+
+    # -- two-phase chunk protocol (the CLI's chunked executor) ----------
+
+    def supports_prepare(self, method: str) -> bool:
+        """True for the methods with a host pack stage (the three card
+        paths, at every precision); ``best`` is a host join and has none."""
+        return method in PREPARED_METHODS
+
+    def prepare_chunk(
+        self, method: str, clusters: list[Cluster], config,
+        cos_config: CosineConfig | None = None, phases: dict | None = None,
+    ) -> PreparedChunk | None:
+        """Phase 1: every host input ``method`` needs for ``clusters``:
+        validation, the packs, their sorts and host run passes, and, for
+        bin-mean with ``cos_config``, the QC member prep on the same
+        ``SpectraTable``.  No device call and no write to the backend, so
+        pack workers may call it side by side on distinct chunks.  Its
+        seconds go to ``phases`` (default: a new dict), kept as the
+        chunk's ``phases``.  None for a method without a pack stage."""
+        if not self.supports_prepare(method):
+            return None
+        prepared = PreparedChunk(method, clusters, config, cos_config,
+                                 phases={} if phases is None else phases)
+        if method == "bin-mean":
+            self._prepare_bin_mean(prepared)
+        elif method == "gap-average":
+            self._prepare_gap_average(prepared)
+        else:
+            self._prepare_medoid(prepared)
+        return prepared
+
+    def run_prepared(
+        self, prepared: PreparedChunk
+    ) -> tuple[list[Spectrum], np.ndarray | None]:
+        """Phase 2, on the dispatch lane: the chunk's device work and
+        finalize.  Returns ``(representatives, cosines or None)``; cosines
+        for bin-mean prepared with a ``cos_config``."""
+        self._merge_prepared(prepared)
+        if prepared.method == "bin-mean":
+            return self._finish_bin_mean(prepared)
+        if prepared.method == "gap-average":
+            return self._finish_gap_average(prepared), None
+        indices = self._finish_medoid(prepared)
+        return [c.members[i] for c, i in zip(prepared.clusters, indices)], None
+
+    def _merge_prepared(self, prepared: PreparedChunk) -> None:
+        for phase, seconds in prepared.phases.items():
+            self.phase_seconds[phase] += seconds
+        self.h2d_bytes["h2d"] += prepared.data.pop("staged_bytes", 0)
+
+    def supports_h2d_stage(self, prepared: PreparedChunk | None) -> bool:
+        """True when ``stage_chunk`` can copy the chunk's device inputs
+        ahead of its dispatch: the flat bin-mean's."""
+        return prepared is not None and prepared.method == "bin-mean"
+
+    def stage_chunk(self, prepared: PreparedChunk) -> int:
+        """The H2D staging lane's step (``--h2d-buffer``): copy a prepared
+        bin-mean chunk's device inputs now, from pinned host tensors on the
+        backend's side stream, and wait on that copy's own event (never on
+        the device, which would wait for the dispatch lane's kernels too).
+        The dispatch lane's stream waits on the event before its kernel
+        (``_take_staged``).  Returns the bytes staged; they and the seconds
+        go to the chunk, merged by ``run_prepared``."""
+        t0 = time.perf_counter()
+        staged, total = [], 0
+        hosts = [tensors for _, tensors, _, _ in prepared.data["chunks"]]
+        if self.device.type == "cuda":
+            with torch.cuda.stream(self._h2d_stream):
+                copies = [[t.pin_memory().to(self.device, non_blocking=True)
+                           for t in tensors] for tensors in hosts]
+                event = torch.cuda.Event()
+                event.record(self._h2d_stream)
+            event.synchronize()
+        else:
+            copies = [[t.to(self.device) for t in ts] for ts in hosts]
+            event = None
+        for tensors, dev in zip(hosts, copies):
+            total += sum(t.numel() * t.element_size() for t in tensors)
+            staged.append((dev, event))
+        prepared.data["staged"] = staged
+        prepared.data["staged_bytes"] = total
+        _add_time(prepared.phases, "h2d", t0)
+        return total
+
+    def _take_staged(self, staged) -> list:
+        """A staged chunk's device tensors, ready for the current stream:
+        it waits on the copy's event, and the caching allocator is told the
+        tensors are used there (they were allocated on the side stream)."""
+        tensors, event = staged
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            for t in tensors:
+                t.record_stream(stream)
+        return tensors
+
+    # -- binned-mean consensus -------------------------------------------
 
     def run_bin_mean(
         self, clusters: list[Cluster], config: BinMeanConfig = BinMeanConfig()
     ) -> list[Spectrum]:
         """One consensus spectrum per cluster, in input order (ref
         src/binning.py:291-297)."""
+        return self.run_prepared(
+            self.prepare_chunk("bin-mean", clusters, config))[0]
+
+    def _prepare_bin_mean(self, prepared: PreparedChunk) -> None:
+        """The flat pack and each chunk's host run pass and host tensors;
+        with a ``cos_config``, the QC member prep on the same table."""
+        clusters, config = prepared.clusters, prepared.config
         check_no_empty(clusters)
         for c in clusters:
             check_uniform_charge(c.members)
         t0 = time.perf_counter()
-        batches = pack_flat_bin_mean(
-            _as_table(clusters), config,
-            max_elements=self.max_grid_elements // 4,
-            precision=self.precision,
-        )
-        self.phase_seconds["pack"] += time.perf_counter() - t0
+        table = _as_table(clusters)
+        prepared.data["chunks"] = [
+            (batch, *self._flat_chunk_host_args(batch, config))
+            for batch in pack_flat_bin_mean(
+                table, config, max_elements=self.max_grid_elements // 4,
+                precision=self.precision,
+            )
+        ]
+        _add_time(prepared.phases, "pack", t0)
+        if prepared.cos_config is not None:
+            t0 = time.perf_counter()
+            prepared.data["mprep"] = self._prep_cosine_members(
+                table, prepared.cos_config)
+            _add_time(prepared.phases, "qc_pack", t0)
+
+    def _finish_bin_mean(
+        self, prepared: PreparedChunk
+    ) -> tuple[list[Spectrum], np.ndarray | None]:
+        clusters = prepared.clusters
+        staged = prepared.data.pop("staged", None)
         out: list[Spectrum | None] = [None] * len(clusters)
-        for batch in batches:
-            fused, aux = self._flat_chunk_dispatch(batch, config)
+        for i, (batch, *host) in enumerate(prepared.data["chunks"]):
+            fused, aux = self._flat_chunk_dispatch(
+                batch, host, staged=staged[i] if staged else None,
+            )
             t0 = time.perf_counter()
             self._emit_bin_mean_rows(batch, fused, aux, clusters, out)
             self.phase_seconds["finalize"] += time.perf_counter() - t0
-        return out
+        if prepared.cos_config is None:
+            return out, None
+        return out, self._cosines_from_members(
+            out, prepared.data["mprep"], prepared.cos_config)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -224,31 +384,33 @@ class TorchBackend:
             keep=keep,
         )
 
-    def _flat_chunk_dispatch(self, batch, config: BinMeanConfig):
-        """One chunk: the host run pass, the copy to the card, the kernel
-        and the copy back.  Returns ``(kept intensity means (f32 numpy),
-        aux)``; the means are exactly ``aux``'s kept runs.  A batch that
-        carries codes (reduced precision) sends them and a 1-byte
-        run-start mask in place of the f32 intensities and the int32
-        composite keys."""
-        ph = self.phase_seconds
-        t0 = time.perf_counter()
+    def _flat_chunk_host_args(self, batch, config: BinMeanConfig):
+        """One chunk's host side: the host run pass, the host tensors the
+        kernel takes, and the kernel.  A batch that carries codes (reduced
+        precision) sends them and a 1-byte run-start mask in place of the
+        f32 intensities and the int32 composite keys."""
         aux = self._host_run_pass(batch, config)
-        total_cap = int(aux["row_out_offsets"][-1])
         keep = torch.from_numpy(aux["keep"])
         if batch.codes is None:
-            host = [torch.from_numpy(batch.intensity),
-                    torch.from_numpy(batch.gbin), keep]
-            kernel = binning.bin_mean_flat_intensity
-        else:
-            run_start = np.zeros(batch.gbin.size, dtype=np.uint8)
-            run_start[batch.run_starts] = 1
-            host = [quantize.codes_tensor(batch.codes),
-                    torch.from_numpy(run_start), keep]
-            kernel = binning.bin_mean_flat_q
-        ph["pack"] += time.perf_counter() - t0
+            return ([torch.from_numpy(batch.intensity),
+                     torch.from_numpy(batch.gbin), keep], aux,
+                    binning.bin_mean_flat_intensity)
+        run_start = np.zeros(batch.gbin.size, dtype=np.uint8)
+        run_start[batch.run_starts] = 1
+        return ([quantize.codes_tensor(batch.codes),
+                 torch.from_numpy(run_start), keep], aux,
+                binning.bin_mean_flat_q)
 
-        args = self._put("h2d", host)
+    def _flat_chunk_dispatch(self, batch, host, staged=None):
+        """One chunk: the copy to the card of ``host``'s tensors (the pack
+        made them with ``_flat_chunk_host_args``; unless ``staged`` brings
+        them), the kernel and the copy back.  Returns ``(kept intensity
+        means (f32 numpy), aux)``; the means are exactly ``aux``'s kept
+        runs."""
+        tensors, aux, kernel = host
+        args = (self._put("h2d", tensors) if staged is None
+                else self._take_staged(staged))
+        total_cap = int(aux["row_out_offsets"][-1])
         fused = self._timed("kernel", lambda: kernel(
             *args, total_cap=total_cap, rcap=batch.n_distinct_total
         ))
@@ -293,24 +455,32 @@ class TorchBackend:
         the host in float64, their means, quorum and dynamic-range floor on
         the card; precursor m/z, charge and RT from the configured
         estimators."""
-        check_no_empty(clusters)
-        get_pepmass, get_rt = numpy_backend.resolve_gap_estimators(config)
+        return self.run_prepared(
+            self.prepare_chunk("gap-average", clusters, config))[0]
+
+    def _prepare_gap_average(self, prepared: PreparedChunk) -> None:
+        check_no_empty(prepared.clusters)
         t0 = time.perf_counter()
-        batches = pack_flat_gap(
-            _as_table(clusters), config,
-            max_elements=self.max_grid_elements // 4,
-            precision=self.precision,
-        )
-        self.phase_seconds["pack"] += time.perf_counter() - t0
+        prepared.data["batches"] = [
+            (batch, [quantize.codes_tensor(a) for a in (
+                batch.mz, batch.intensity, batch.group_start,
+                batch.quorum, batch.n_members, batch.n_groups,
+            )])
+            for batch in pack_flat_gap(
+                _as_table(prepared.clusters), prepared.config,
+                max_elements=self.max_grid_elements // 4,
+                precision=self.precision,
+            )
+        ]
+        _add_time(prepared.phases, "pack", t0)
+
+    def _finish_gap_average(self, prepared: PreparedChunk) -> list[Spectrum]:
+        clusters, config = prepared.clusters, prepared.config
+        get_pepmass, get_rt = numpy_backend.resolve_gap_estimators(config)
         out: list[Spectrum | None] = [None] * len(clusters)
-        for batch in batches:
+        for batch, host in prepared.data["batches"]:
             total = int(batch.n_groups.sum())
-            args = self._put("h2d", [
-                quantize.codes_tensor(a) for a in (
-                    batch.mz, batch.intensity, batch.group_start,
-                    batch.quorum, batch.n_members, batch.n_groups,
-                )
-            ])
+            args = self._put("h2d", host)
             fused = self._timed("kernel", lambda: (
                 gap_average.gap_average_compact(
                     *args, dyn_range=config.dyn_range, total_cap=total
@@ -355,12 +525,17 @@ class TorchBackend:
         host in float64 (``medoid_finalize``), so ties go to the lowest
         index as in the oracle.  A batch is cut into chunks whose (rows, R,
         M) float32 occupancy stays within ``max_grid_elements``."""
-        check_no_empty(clusters)
-        ph = self.phase_seconds
-        out = [0] * len(clusters)
+        prepared = self.prepare_chunk("medoid", clusters, config)
+        self._merge_prepared(prepared)
+        return self._finish_medoid(prepared)
+
+    def _prepare_medoid(self, prepared: PreparedChunk) -> None:
+        """The bucketized batches, each row's channels sorted by (bin,
+        member) (``_medoid_sorted``)."""
+        check_no_empty(prepared.clusters)
         t0 = time.perf_counter()
-        batches = pack_bucketize(clusters, BatchConfig(), bucket_members=True)
-        ph["pack"] += time.perf_counter() - t0
+        batches = pack_bucketize(prepared.clusters, BatchConfig(),
+                                 bucket_members=True)
         for batch in batches:
             # the JAX package's bound: its counts cross as uint16
             if int(batch.n_peaks.max(initial=0)) >= 1 << 16:
@@ -368,9 +543,16 @@ class TorchBackend:
                     "medoid kernel: a member has >= 2**16 peaks; uint16 "
                     "shared-bin counts would overflow"
                 )
-            t0 = time.perf_counter()
-            sbins, smm, runs, encoding = self._medoid_sorted(batch, config)
-            ph["pack"] += time.perf_counter() - t0
+        prepared.data["batches"] = [
+            (batch, *self._medoid_sorted(batch, prepared.config))
+            for batch in batches
+        ]
+        _add_time(prepared.phases, "pack", t0)
+
+    def _finish_medoid(self, prepared: PreparedChunk) -> list[int]:
+        ph = self.phase_seconds
+        out = [0] * len(prepared.clusters)
+        for batch, sbins, smm, runs, encoding in prepared.data["batches"]:
             m = batch.m
             chunk = max(1, self.max_grid_elements // (int(runs.max()) * m))
             for lo in range(0, batch.n_clusters, chunk):
@@ -429,8 +611,8 @@ class TorchBackend:
         self, clusters: list[Cluster], config: MedoidConfig = MedoidConfig()
     ) -> list[Spectrum]:
         """The medoid member of each cluster, in input order."""
-        indices = self.medoid_indices(clusters, config)
-        return [c.members[i] for c, i in zip(clusters, indices)]
+        return self.run_prepared(
+            self.prepare_chunk("medoid", clusters, config))[0]
 
     def run_best_spectrum(
         self,
@@ -451,10 +633,10 @@ class TorchBackend:
         cos_config: CosineConfig = CosineConfig(),
     ) -> tuple[list[Spectrum], np.ndarray]:
         """Consensus and QC: the bin-mean representatives and each one's
-        mean binned cosine to its cluster's members, run one after the
-        other."""
-        reps = self.run_bin_mean(clusters, bin_config)
-        return reps, self.average_cosines(reps, clusters, cos_config)
+        mean binned cosine to its cluster's members, the QC member prep on
+        the consensus pack's ``SpectraTable``."""
+        return self.run_prepared(self.prepare_chunk(
+            "bin-mean", clusters, bin_config, cos_config))
 
     def average_cosines(
         self,
@@ -469,16 +651,25 @@ class TorchBackend:
         check_no_empty(clusters)
         t0 = time.perf_counter()
         mprep = self._prep_cosine_members(clusters, config)
+        self.phase_seconds["qc_pack"] += time.perf_counter() - t0
+        return self._cosines_from_members(representatives, mprep, config)
+
+    def _cosines_from_members(self, representatives, mprep: dict,
+                              config: CosineConfig) -> np.ndarray:
+        """The rep half of the cosine prep, then one ``cosine_flat`` per
+        chunk."""
+        t0 = time.perf_counter()
         prep = self._prep_cosine_reps(representatives, mprep, config)
         self.phase_seconds["qc_pack"] += time.perf_counter() - t0
         return self._dispatch_cosine_flat(prep)
 
-    def _prep_cosine_members(self, clusters, config: CosineConfig) -> dict:
+    def _prep_cosine_members(self, clusters_or_table,
+                             config: CosineConfig) -> dict:
         """Representative-independent half of the cosine prep: member peaks
         along one flat axis sorted by (row, member, bin), with float64
         grid bins, normalized f32 intensities and each spectrum's edge
         count."""
-        table = _as_table(clusters)
+        table = _as_table(clusters_or_table)
         idx = table.cluster_order()
         space = config.mz_space
 
@@ -544,9 +735,10 @@ class TorchBackend:
             dtype=np.float64,
         )
         rep_edges = quantize.cosine_edge_count(rep_last, space)
-        rperm = np.lexsort((rbin, rep_row))
         rep_offsets = np.zeros(c + 1, dtype=np.int64)
         np.cumsum(rep_counts, out=rep_offsets[1:])
+        # reps lie row by row already: sort each row's peaks by bin
+        rperm = seg_argsort(rbin, rep_offsets)
         row_peak_offsets = np.zeros(c + 1, dtype=np.int64)
         np.cumsum(mprep["idx"].total_peaks, out=row_peak_offsets[1:])
 

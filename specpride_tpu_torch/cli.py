@@ -2,10 +2,10 @@
 
     python -m specpride_tpu_torch consensus IN OUT \
         [--method bin-mean|gap-average] [--precision f32|bf16|int8] \
-        [--qc-report QC.json]
+        [--qc-report QC.json] [--checkpoint CK.json] [executor flags]
     python -m specpride_tpu_torch select IN OUT [--method medoid|best] \
         [--msms msms.txt | --psms psms.tsv] [--precision f32|bf16|int8] \
-        [--qc-report QC.json]
+        [--qc-report QC.json] [--checkpoint CK.json] [executor flags]
 
 Both read the clustered MGF and group it into clusters.  ``consensus``
 runs the binned-mean or gap-average consensus on the card (``--device
@@ -16,13 +16,33 @@ score are dropped).  With ``--qc-report`` each representative is also
 scored by its mean binned cosine to the cluster's members (always in f32,
 on the card) and the per-cluster QC report written.  A consensus or
 medoid run at a reduced ``--precision`` must pass the precision gate
-(``precision_gate``) or it exits non-zero."""
+(``precision_gate``) or it exits non-zero.
+
+Both run through the chunked executor (``_checkpointed_run``, the JAX
+package's names kept): chunks of ``--checkpoint-every`` clusters, each
+appended to the output and then recorded in the ``--checkpoint`` manifest,
+so a killed run resumes where it stopped.  With ``--prefetch N`` pack
+workers (``--pack-workers``) build the next chunks' host inputs
+(``TorchBackend.prepare_chunk``) while the dispatch lane runs the current
+one on the card, an optional lane copies them to the card ahead
+(``--h2d-buffer``) and a write lane commits finished chunks in order
+(``--async-write``).  Every setting writes the same bytes.  The run
+summary goes to stderr as one JSON line.
+"""
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import logging
+import os
+import queue
 import statistics
+import sys
+import threading
+import time
+from collections import defaultdict
 
 from specpride_tpu_torch.backends import numpy_backend
 from specpride_tpu_torch.backends.torch_backend import TorchBackend
@@ -38,8 +58,14 @@ from specpride_tpu_torch.io.maxquant import (
     read_msms_scores,
     read_percolator_scores,
 )
-from specpride_tpu_torch.io.mgf import read_mgf, write_mgf
+from specpride_tpu_torch.io.mgf import read_mgf, truncate_tail, write_mgf
 from specpride_tpu_torch.ops import quantize
+from specpride_tpu_torch.robustness.integrity import (
+    OutputIntegrity,
+    manifest_payload,
+)
+
+logger = logging.getLogger("specpride_tpu_torch")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -77,7 +103,6 @@ def build_parser() -> argparse.ArgumentParser:
     pc.add_argument("--rt", choices=["median", "mass_lower_median"],
                     default="median")
     _add_common(pc, "consensus spectrum")
-    pc.set_defaults(fn=cmd_consensus)
 
     ps = sub.add_parser("select", help="pick an existing member per cluster")
     ps.add_argument("input")
@@ -93,12 +118,12 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--xcorr-bin", type=float, default=0.1,
                     help="medoid occupancy-grid bin width in Da")
     _add_common(ps, "representative")
-    ps.set_defaults(fn=cmd_select)
     return ap
 
 
 def _add_common(p: argparse.ArgumentParser, what: str) -> None:
-    """The QC, precision and device flags both subcommands take."""
+    """The QC, precision, device and executor flags both subcommands
+    take."""
     p.add_argument(
         "--qc-report", metavar="FILE",
         help=f"also compute each {what}'s mean member cosine and write the "
@@ -118,36 +143,98 @@ def _add_common(p: argparse.ArgumentParser, what: str) -> None:
     )
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the method runs (default: the GPU)")
+    p.add_argument("--append", action="store_true",
+                   help="append to the output instead of replacing it")
+    p.add_argument("--checkpoint", help="resume manifest path")
+    p.add_argument("--checkpoint-every", type=int, default=512,
+                   help="clusters per chunk (one manifest write each)")
+    p.add_argument(
+        "--prefetch", type=int, default=2, metavar="N",
+        help="pipelined chunk executor: pack up to N chunks ahead of the "
+        "dispatch lane (0 = serial; the output is the same bytes)",
+    )
+    p.add_argument(
+        "--pack-workers", type=int, default=None, metavar="N",
+        help="N threads pack distinct chunks at once, released to the "
+        "dispatch lane in order (default min(4, cores/4); 0 = one packer "
+        "thread; only with --prefetch > 0)",
+    )
+    p.add_argument(
+        "--h2d-buffer", type=int, default=0, metavar="N",
+        help="a transfer lane copies up to N packed bin-mean chunks to the "
+        "card ahead of their dispatch, on a side stream (only with "
+        "--prefetch > 0; default 0 = off)",
+    )
+    p.add_argument(
+        "--async-write", choices=["auto", "on", "off"], default="auto",
+        help="commit chunks (QC rows, MGF append, then the manifest) on a "
+        "write lane, in order (auto = on whenever the executor pipelines)",
+    )
+    p.add_argument(
+        "--on-error", choices=["abort", "skip"], default="abort",
+        help="a failed chunk aborts the run, or (skip) is retried cluster "
+        "by cluster and the failing clusters are recorded and skipped (a "
+        "failed QC pass then omits its rows from the report)",
+    )
 
 
-def write_qc_report(path: str, clusters, cosines,
-                    n_input_clusters: int | None = None) -> None:
-    """The per-cluster QC report, in the JAX package's keys and layout: a
-    summary and one row per scored cluster in input order.
-    ``n_input_clusters`` (default: all rows) counts the input's clusters,
-    scored or not: a method may drop some (``select --method best``
-    drops the scoreless), which is no failure."""
-    rows = [
-        {"cluster_id": c.cluster_id, "n_members": c.n_members,
-         "avg_cosine": float(v)}
-        for c, v in zip(clusters, cosines)
-    ]
-    values = [row["avg_cosine"] for row in rows]
-    report = {
-        "summary": {
-            "n_clusters": len(rows),
-            "mean_cosine": statistics.fmean(values) if values else None,
-            "median_cosine": statistics.median(values) if values else None,
-            "n_input_clusters": (len(clusters) if n_input_clusters is None
-                                 else n_input_clusters),
-            "n_method_failed": 0,
-            "n_qc_failed": 0,
-        },
-        "clusters": rows,
-    }
-    with open(path, "w") as fh:
-        json.dump(report, fh, indent=1)
-        fh.write("\n")
+def _default_pack_workers() -> int:
+    """Default ``--pack-workers``: min(4, cores/4), at least 1."""
+    try:
+        cores = len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):
+        cores = os.cpu_count() or 1
+    return max(1, min(4, cores // 4))
+
+
+class RunStats:
+    """Counters and phase timers of one CLI run (a trimmed copy of the
+    JAX package's ``observability/stats.py::RunStats``).  Not thread-safe:
+    each pack worker fills a private one, merged on the dispatch lane."""
+
+    def __init__(self) -> None:
+        self.counters: dict[str, int] = defaultdict(int)
+        self.phases: dict[str, float] = defaultdict(float)
+        # the executor's lane summary (``_checkpointed_run``), or None
+        self.pipeline: dict | None = None
+        self._start = time.perf_counter()
+
+    def count(self, name: str, n: int = 1) -> None:
+        self.counters[name] += n
+
+    def merge(self, other: "RunStats") -> None:
+        for k, v in other.counters.items():
+            self.counters[k] += v
+        for k, v in other.phases.items():
+            self.phases[k] += v
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.phases[name] += time.perf_counter() - t0
+
+    @property
+    def elapsed(self) -> float:
+        return time.perf_counter() - self._start
+
+    def throughput(self, counter: str = "clusters") -> float:
+        """Clusters/s over the work phases (compute + write), or the wall
+        when none was timed."""
+        dt = self.phases.get("compute", 0.0) + self.phases.get("write", 0.0)
+        if dt <= 0.0:
+            dt = self.elapsed
+        return self.counters[counter] / dt if dt > 0 else 0.0
+
+    def summary(self) -> dict:
+        return {
+            "elapsed_s": round(self.elapsed, 3),
+            "counters": dict(self.counters),
+            "phases_s": {k: round(v, 3) for k, v in self.phases.items()},
+            **({"pipeline": self.pipeline} if self.pipeline else {}),
+        }
 
 
 def method_config(args):
@@ -171,12 +258,6 @@ def method_config(args):
         tolerance_mode=args.tolerance_mode,
         ppm=args.ppm,
     )
-
-
-def run_method(backend: TorchBackend, method: str, clusters, config):
-    if method == "gap-average":
-        return backend.run_gap_average(clusters, config)
-    return backend.run_bin_mean(clusters, config)
 
 
 def load_scores(args) -> dict[str, float]:
@@ -226,8 +307,8 @@ def precision_gate(backend: TorchBackend, method: str, clusters, config,
             for a, b, c in zip(red, ref, sample)
         ]
     else:
-        red = run_method(twin(precision), method, sample, config)
-        ref = run_method(twin("f32"), method, sample, config)
+        red = _run_method(twin(precision), method, sample, config)
+        ref = _run_method(twin("f32"), method, sample, config)
         cosines = [numpy_backend.binned_cosine(a, b, cos_config)
                    for a, b in zip(red, ref)]
     min_cos = min(cosines, default=1.0)
@@ -242,45 +323,748 @@ def precision_gate(backend: TorchBackend, method: str, clusters, config,
             "min_cosine": min_cos, "tolerance": tol}
 
 
-def cmd_consensus(args, backend: TorchBackend) -> int:
-    config = method_config(args)
-    cos_config = CosineConfig(normalization=args.qc_normalization)
-    clusters = group_into_clusters(read_mgf(args.input))
-    if args.method == "bin-mean" and args.qc_report is not None:
-        reps, cosines = backend.run_bin_mean_with_cosines(
-            clusters, config, cos_config
-        )
-    else:
-        reps = run_method(backend, args.method, clusters, config)
-        cosines = None
-        if args.qc_report is not None:
-            cosines = backend.average_cosines(reps, clusters, cos_config)
-    write_mgf(reps, args.output)
-    if cosines is not None:
-        write_qc_report(args.qc_report, clusters, cosines)
-    # after the outputs, so a breach leaves them on disk to diagnose
-    precision_gate(backend, args.method, clusters, config, cos_config)
-    return 0
+def _cosine_config(args) -> CosineConfig:
+    return CosineConfig(normalization=args.qc_normalization)
 
 
-def cmd_select(args, backend: TorchBackend) -> int:
-    config = method_config(args)
-    cos_config = CosineConfig(normalization=args.qc_normalization)
-    clusters = group_into_clusters(read_mgf(args.input))
-    if args.method == "best":
-        reps = backend.run_best_spectrum(clusters, load_scores(args), config)
+def _append_qc_rows(qc: list, clusters, cosines) -> None:
+    qc.extend(
+        {"cluster_id": c.cluster_id, "n_members": c.n_members,
+         "avg_cosine": float(v)}
+        for c, v in zip(clusters, cosines)
+    )
+
+
+def _run_method(backend: TorchBackend, method: str, clusters, config,
+                scores=None, qc: list | None = None, cos_config=None):
+    """One-shot ``method`` over ``clusters``; bin-mean with a ``qc`` list
+    runs the fused consensus and QC (``cos_config``) and appends the
+    rows."""
+    if method == "bin-mean":
+        if qc is not None:
+            reps, cosines = backend.run_bin_mean_with_cosines(
+                clusters, config, cos_config)
+            _append_qc_rows(qc, clusters, cosines)
+            return reps
+        return backend.run_bin_mean(clusters, config)
+    if method == "gap-average":
+        return backend.run_gap_average(clusters, config)
+    if method == "medoid":
+        return backend.run_medoid(clusters, config)
+    return backend.run_best_spectrum(clusters, scores, config)
+
+
+def _write_qc_report(args, backend: TorchBackend, clusters, qc: list,
+                     resumed_ids: set[str], failed_ids=(),
+                     qc_failed_ids=()) -> None:
+    """Finalize and write the per-cluster QC report, in the JAX package's
+    keys and layout.
+
+    A resume skips the clusters already in the manifest, so their cosines
+    were not computed this run: they are recomputed from the
+    representatives in the output, in groups of ``--checkpoint-every``
+    (the chunks the run committed them in, so the cosines equal an
+    uninterrupted run's: the card's f32 scans round by chunk layout).
+    Only resume-skipped ids are candidates: clusters a method dropped
+    (scoreless best-spectrum, ``--on-error skip``) are no reason to
+    re-read the output."""
+    have = {row["cluster_id"] for row in qc}
+    ids = [c.cluster_id for c in clusters]
+    missing = [c for c in clusters
+               if c.cluster_id in resumed_ids and c.cluster_id not in have]
+    if missing:
+        reps_by_id = {s.cluster_id: s for s in read_mgf(args.output)}
+        w = args.checkpoint_every if args.checkpoint else len(missing)
+        for b0 in range(0, len(missing), w):
+            pairs = [(reps_by_id[c.cluster_id], c)
+                     for c in missing[b0 : b0 + w]
+                     if c.cluster_id in reps_by_id and c.n_members > 0]
+            if pairs:
+                kept = [c for _, c in pairs]
+                _append_qc_rows(qc, kept, backend.average_cosines(
+                    [r for r, _ in pairs], kept, _cosine_config(args)))
+    order = {cid: i for i, cid in enumerate(ids)}
+    qc.sort(key=lambda row: order.get(row["cluster_id"], len(order)))
+    cosines = [row["avg_cosine"] for row in qc]
+    # rows can be missing because the METHOD dropped or failed the cluster
+    # (failed_ids, scoreless best-spectrum) or because the QC pass failed
+    have = {row["cluster_id"] for row in qc}
+    qc_failed = sorted(i for i in qc_failed_ids if i not in have)
+    report = {
+        "summary": {
+            "n_clusters": len(qc),
+            "mean_cosine": statistics.fmean(cosines) if cosines else None,
+            "median_cosine": statistics.median(cosines) if cosines else None,
+            "n_input_clusters": len(clusters),
+            "n_method_failed": len(failed_ids),
+            "n_qc_failed": len(qc_failed),
+            **({"method_failed_cluster_ids": sorted(failed_ids)}
+               if failed_ids else {}),
+            **({"qc_failed_cluster_ids": qc_failed} if qc_failed else {}),
+        },
+        "clusters": qc,
+    }
+    with open(args.qc_report, "w") as fh:
+        json.dump(report, fh, indent=1)
+        fh.write("\n")
+
+
+# -- the chunked executor ---------------------------------------------------
+
+
+class _ChunkItem:
+    """One chunk flowing from a pack lane to the dispatch lane (or made
+    inline when serial)."""
+
+    __slots__ = ("index", "idxs", "part", "prepared", "pack_stats", "error",
+                 "wait_s")
+
+    def __init__(self, index: int, idxs: list[int]):
+        self.index = index
+        self.idxs = idxs
+        self.part = None  # the chunk's clusters (None if packing died)
+        self.prepared = None  # the backend's PreparedChunk (None: one-shot)
+        self.pack_stats = None  # the pack lane's RunStats, merged at handoff
+        self.error = None  # the exception packing raised
+        self.wait_s = 0.0  # the dispatch lane's wait for this item
+
+
+def _serial_chunks(clusters, worklist):
+    """``--prefetch 0``: each chunk made inline."""
+    for chunk_index, idxs in worklist:
+        item = _ChunkItem(chunk_index, idxs)
+        item.part = [clusters[i] for i in idxs]
+        yield item
+
+
+def _pack_chunk(clusters, chunk_index: int, idxs: list, prepare,
+                method: str, config, cos_config):
+    """THE pack stage, the one copy every pack worker runs: the chunk's
+    clusters and the backend's host pack
+    (``prepare_chunk``) into a private RunStats.  An exception is kept on
+    the item for the dispatch lane's ``--on-error`` policy.  Returns
+    ``(item, busy seconds)``."""
+    item = _ChunkItem(chunk_index, idxs)
+    item.pack_stats = RunStats()
+    t0 = time.perf_counter()
+    try:
+        item.part = [clusters[i] for i in idxs]
+        if prepare is not None and item.part:
+            item.prepared = prepare(method, item.part, config,
+                                    cos_config=cos_config,
+                                    phases=item.pack_stats.phases)
+    except Exception as e:  # noqa: BLE001 - raised on the dispatch lane
+        item.error = e
+    return item, time.perf_counter() - t0
+
+
+def _lane_inputs(backend: TorchBackend, method: str, args, want_qc: bool):
+    """What a pack lane hands ``_pack_chunk``: the prepare function (None
+    for a method without a pack stage), the config and the QC config of
+    the fused bin-mean."""
+    prepare = (backend.prepare_chunk if backend.supports_prepare(method)
+               else None)
+    cos_config = (_cosine_config(args)
+                  if want_qc and method == "bin-mean" else None)
+    return prepare, method_config(args), cos_config
+
+
+def _bounded_put(q: queue.Queue, stop: threading.Event, obj) -> bool:
+    """Put ``obj`` unless the consumer stopped; a lane parks on ``stop``
+    while the queue is full, so an aborting consumer never deadlocks it."""
+    while True:
+        if stop.is_set():
+            return False
+        try:
+            q.put(obj, timeout=0.1)
+            return True
+        except queue.Full:
+            if stop.wait(timeout=0.05):
+                return False
+
+
+def _pooled_chunks(clusters, worklist, backend, method, args, prefetch: int,
+                   want_qc: bool, n_workers: int, lanes: dict):
+    """``--prefetch P --pack-workers N``, the counterpart of both the JAX
+    package's ``_pipelined_chunks`` (its ``--pack-workers 0``, run here as
+    one worker) and its ``_pooled_chunks``: N threads pack distinct chunks
+    at once and a bounded reorder buffer releases them to the dispatch
+    lane strictly in worklist order, so dispatch order, resume and
+    ``--on-error skip`` are those of the serial path.  At most
+    ``max(prefetch, N)`` chunks are out
+    (packing or buffered) at once.  Worker i's busy seconds go to
+    ``lanes["pack_busy_s"][i]``; the dispatch lane's waits for chunk s
+    while later chunks sat finished go to ``lanes["reorder_stall_s"]``."""
+    prepare, config, cos_config = _lane_inputs(backend, method, args,
+                                               want_qc)
+    n_workers = max(1, min(n_workers, len(worklist)))
+    admit = threading.Semaphore(max(prefetch, n_workers))
+    stop = threading.Event()
+    cond = threading.Condition()
+    buf: dict[int, _ChunkItem] = {}
+    state = {"next_task": 0, "exited": 0}
+    busy = [0.0] * n_workers
+    lanes["pack_busy_s"] = busy
+
+    def _worker(wid: int) -> None:
+        claimed: int | None = None  # claimed but not yet delivered
+        try:
+            while True:
+                admit.acquire()
+                if stop.is_set():
+                    return
+                with cond:
+                    seq = state["next_task"]
+                    if seq >= len(worklist):
+                        return
+                    state["next_task"] = seq + 1
+                claimed = seq
+                chunk_index, idxs = worklist[seq]
+                item, elapsed = _pack_chunk(clusters, chunk_index, idxs,
+                                            prepare, method, config,
+                                            cos_config)
+                busy[wid] += elapsed
+                with cond:
+                    buf[seq] = item
+                    claimed = None
+                    cond.notify_all()
+        finally:
+            with cond:
+                if claimed is not None:
+                    # dying between claim and delivery (an exception
+                    # outside _pack_chunk's guard): deliver an errored item
+                    # so the dispatch lane applies its policy
+                    chunk_index, idxs = worklist[claimed]
+                    it = _ChunkItem(chunk_index, idxs)
+                    it.error = RuntimeError(
+                        f"pack worker {wid} died packing chunk {chunk_index}")
+                    buf.setdefault(claimed, it)
+                state["exited"] += 1
+                cond.notify_all()
+
+    threads = [threading.Thread(target=_worker, args=(w,),
+                                name=f"specpride-packer-{w}", daemon=True)
+               for w in range(n_workers)]
+    for t in threads:
+        t.start()
+    stall = 0.0
+    try:
+        for seq in range(len(worklist)):
+            t_wait = time.perf_counter()
+            with cond:
+                while seq not in buf:
+                    if state["exited"] == n_workers:
+                        raise RuntimeError(
+                            "pack worker pool exited without delivering "
+                            f"chunk {seq}")
+                    blocked = bool(buf)
+                    seg0 = time.perf_counter()
+                    cond.wait(0.1)
+                    if blocked:
+                        stall += time.perf_counter() - seg0
+                item = buf.pop(seq)
+            item.wait_s = time.perf_counter() - t_wait
+            admit.release()
+            yield item
+    finally:
+        stop.set()
+        for _ in threads:
+            admit.release()  # unblock workers parked on the admit gate
+        with cond:
+            cond.notify_all()
+        for t in threads:
+            t.join()
+        lanes["reorder_stall_s"] = lanes.get("reorder_stall_s", 0.0) + stall
+
+
+def _h2d_staged_chunks(items, backend: TorchBackend, slots: int,
+                       lanes: dict):
+    """``--h2d-buffer N``: a transfer thread between the pack lanes and the
+    dispatch lane takes packed chunks in order and copies each stageable
+    one's device inputs to the card (``backend.stage_chunk``: pinned host
+    tensors, a side stream, its own event) into a queue of ``slots``, so
+    chunk i+1's copy runs while chunk i dispatches.  A staging failure
+    lands on ``item.error``; an upstream failure is raised on the dispatch
+    lane."""
+    q: queue.Queue = queue.Queue(maxsize=max(slots, 1))
+    stop = threading.Event()
+    busy, staged_bytes, upstream_wait = [0.0], [0], [0.0]
+    lanes["h2d_busy_s"] = busy
+    lanes["h2d_bytes"] = staged_bytes
+    lanes["h2d_upstream_wait_s"] = upstream_wait
+    upstream_error: list = [None]
+
+    def _stager() -> None:
+        it = iter(items)
+        try:
+            while True:
+                t_wait = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                except BaseException as e:  # noqa: BLE001 - re-raised
+                    # a pack-lane failure must abort the run on the
+                    # dispatch lane, never end the stream early
+                    upstream_error[0] = e
+                    return
+                upstream_wait[0] += time.perf_counter() - t_wait
+                if stop.is_set():
+                    return
+                if item.error is None and backend.supports_h2d_stage(
+                        item.prepared):
+                    t0 = time.perf_counter()
+                    try:
+                        staged_bytes[0] += backend.stage_chunk(item.prepared)
+                    except Exception as e:  # noqa: BLE001 - to dispatch lane
+                        item.error = e
+                    busy[0] += time.perf_counter() - t0
+                if not _bounded_put(q, stop, item):
+                    return
+        finally:
+            _bounded_put(q, stop, None)
+
+    t = threading.Thread(target=_stager, name="specpride-h2d", daemon=True)
+    t.start()
+    try:
+        while True:
+            t0 = time.perf_counter()
+            item = q.get()
+            if item is None:
+                if upstream_error[0] is not None:
+                    raise upstream_error[0]
+                break
+            item.wait_s = time.perf_counter() - t0
+            yield item
+    finally:
+        stop.set()
+        try:
+            while True:
+                q.get_nowait()
+        except queue.Empty:
+            pass
+        t.join()
+        # the stager drove the pack generator; it is parked now, so close
+        # it here to stop the pack lanes at once
+        close = getattr(items, "close", None)
+        if close is not None:
+            close()
+
+
+class _CommitItem:
+    """One finished chunk handed from the dispatch lane to the write lane,
+    everything the commit needs taken on the dispatch lane."""
+
+    __slots__ = ("index", "reps", "part_ids", "qc_rows", "failed")
+
+    def __init__(self, index, reps, part_ids, qc_rows, failed):
+        self.index = index
+        self.reps = reps
+        self.part_ids = part_ids
+        self.qc_rows = qc_rows  # the chunk's QC rows (or None)
+        self.failed = failed  # sorted failures at submit time (or None)
+
+
+def _commit_chunk(item: _CommitItem, args, stats: RunStats, qc: list,
+                  done: set, first_write: bool,
+                  integrity: OutputIntegrity) -> None:
+    """THE commit protocol, the one copy the inline tail of
+    ``_checkpointed_run`` and the ``_Committer`` lane run: the QC rows,
+    the MGF append, the counters, then (with a checkpoint) the atomic
+    schema-2 manifest replace, strictly after the append: a kill between
+    the two leaves output past the manifest, which a resume truncates."""
+    if item.qc_rows:
+        qc.extend(item.qc_rows)
+    with stats.phase("write"):
+        write_mgf(item.reps, args.output, append=not first_write)
+    output_bytes = os.path.getsize(args.output)
+    if first_write:
+        integrity.reset()
+    integrity.absorb(args.output, output_bytes)
+    stats.count("clusters", len(item.part_ids))
+    stats.count("representatives", len(item.reps))
+    done.update(item.part_ids)
+    if args.checkpoint:
+        tmp = args.checkpoint + ".tmp"
+        with open(tmp, "w") as fh:
+            json.dump(manifest_payload(done, output_bytes, integrity,
+                                       failed=item.failed), fh)
+        os.replace(tmp, args.checkpoint)
+
+
+class _Committer:
+    """The ordered write lane (``--async-write``): a thread commits
+    finished chunks in order from a bounded queue, each through
+    ``_commit_chunk``, so a kill at any point leaves a state a serial run
+    can leave.  It owns ``done``, ``first_write`` and the QC list from
+    construction on.  Its phase time and counters go to a private RunStats
+    merged at ``finish``/``shutdown``; a commit error is raised on the
+    dispatch lane at the next ``submit`` or at ``finish``, and the lane
+    keeps draining its queue after one."""
+
+    def __init__(self, args, qc: list, done: set, first_write: bool,
+                 depth: int, integrity: OutputIntegrity):
+        self._args = args
+        self._qc = qc
+        self._done = done
+        self._first_write = first_write
+        self._integrity = integrity
+        self.stats = RunStats()
+        self.busy_s = 0.0
+        self.error: BaseException | None = None
+        self._merged = False
+        self._q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
+        self._thread = threading.Thread(target=self._run,
+                                        name="specpride-committer",
+                                        daemon=True)
+        self._thread.start()
+
+    def submit(self, item: _CommitItem) -> None:
+        if self.error is not None:
+            self.finish(None)  # raises the commit error on this lane
+        self._q.put(item)
+
+    def _run(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            if self.error is not None:
+                continue  # drain; submit() re-raises
+            t0 = time.perf_counter()
+            try:
+                _commit_chunk(item, self._args, self.stats, self._qc,
+                              self._done, self._first_write,
+                              self._integrity)
+                self._first_write = False
+            except BaseException as e:  # noqa: BLE001 - re-raised on submit
+                self.error = e
+            self.busy_s += time.perf_counter() - t0
+
+    def finish(self, stats: RunStats | None) -> None:
+        """Flush every queued commit, stop the lane, fold its counters
+        into ``stats`` and raise any commit error."""
+        self.shutdown(stats)
+        if self.error is not None:
+            err, self.error = self.error, None
+            raise err
+
+    def shutdown(self, stats: RunStats | None) -> None:
+        """Idempotent stop: drain, join, merge once, never raise."""
+        if self._thread.is_alive():
+            self._q.put(None)
+        self._thread.join()
+        if stats is not None and not self._merged:
+            self._merged = True
+            stats.merge(self.stats)
+
+
+def _dispatch_chunk(backend: TorchBackend, method: str, item: _ChunkItem,
+                    part, args, stats: RunStats, scores, chunk_qc):
+    """The chunk's device work on the dispatch lane: ``run_prepared`` of
+    what the pack lane prepared, else the one-shot method."""
+    with stats.phase("compute"):
+        if item.prepared is not None:
+            reps, cosines = backend.run_prepared(item.prepared)
+            if chunk_qc is not None and cosines is not None:
+                _append_qc_rows(chunk_qc, part, cosines)
+            return reps
+        return _run_method(backend, method, part, method_config(args),
+                           scores, chunk_qc, _cosine_config(args))
+
+
+def _read_manifest(args, integ: OutputIntegrity):
+    """The resume state of ``args.checkpoint``: ``(done, output_bytes,
+    restarted, prior_failed)``, each unusable state repaired as the JAX
+    package does: an unreadable manifest, a missing output, an output
+    shorter than the manifest, a ragged boundary without a hash and a
+    sha256 mismatch restart; a torn tail is truncated back.  Seeds
+    ``integ`` with the committed prefix."""
+    done: set[str] = set()
+    output_bytes: int | None = None  # None: the manifest has no offset
+    restarted = False
+    prior_failed: list[str] = []
+    if not (args.checkpoint and os.path.exists(args.checkpoint)):
+        return done, output_bytes, restarted, prior_failed
+    manifest: dict | None = None
+    try:
+        with open(args.checkpoint, encoding="utf-8") as fh:
+            manifest = json.load(fh)
+        if not isinstance(manifest, dict):
+            raise ValueError("manifest is not a JSON object")
+    except (ValueError, UnicodeDecodeError) as e:
+        logger.warning("checkpoint %s is unreadable (%s); restarting from "
+                       "scratch", args.checkpoint, e)
+        return set(), 0, True, []
+    done = set(manifest.get("done", []))
+    prior_failed = list(manifest.get("failed", []))
+    raw = manifest.get("output_bytes")
+    output_bytes = None if raw is None else int(raw)
+    out_size = (os.path.getsize(args.output)
+                if os.path.exists(args.output) else None)
+    if done and out_size is None:
+        logger.warning("checkpoint lists %d done clusters but output %s is "
+                       "gone; restarting from scratch", len(done),
+                       args.output)
+        # no output on disk: nothing a redo could duplicate, so this
+        # restart is safe even under --append
+        return set(), 0, restarted, []
+    if output_bytes is not None and out_size is not None:
+        if out_size < output_bytes:
+            # an append lost after its manifest landed: done-listed
+            # clusters are missing from the output
+            logger.warning("output %s is %d bytes but the manifest recorded "
+                           "%d; restarting from scratch", args.output,
+                           out_size, output_bytes)
+            return set(), 0, True, []
+        if out_size > output_bytes:
+            logger.info("dropping %d output bytes past the manifest "
+                        "(interrupted chunk)", out_size - output_bytes)
+            clean = truncate_tail(args.output, output_bytes)
+            if not clean and not manifest.get("sha256"):
+                logger.warning("truncated output does not end on a record "
+                               "boundary and the manifest has no sha256; "
+                               "restarting from scratch")
+                return set(), 0, True, []
+    # a bit flip inside the committed prefix passes every byte count: only
+    # the hash catches it.  The check also seeds this run's running hash.
+    want = manifest.get("sha256")
+    if done and output_bytes and os.path.exists(args.output):
+        got = integ.seed_file(args.output, output_bytes)
+        if want and got != want:
+            logger.warning("output %s fails the manifest's sha256 check; "
+                           "restarting from scratch", args.output)
+            integ.reset()
+            return set(), 0, True, []
+    return done, output_bytes, restarted, prior_failed
+
+
+def _checkpointed_run(backend: TorchBackend, method: str, clusters, args,
+                      stats: RunStats, scores=None, qc: list | None = None):
+    """Chunked execution with a resume manifest.
+
+    Each chunk appends to the output FIRST, then the manifest records
+    {done ids, output byte size, sha256 of the output} atomically; a kill
+    between the two leaves output past the manifest's size, which the
+    resume truncates before appending, so no chunk is written twice.
+    Chunks are consumed in order whatever the lanes, and every method is
+    per cluster, so pipelined and serial runs write the same bytes.
+    Returns ``(resumed ids, failed ids, QC-failed ids)``."""
+    integ = OutputIntegrity()
+    done, output_bytes, restarted, prior_failed = _read_manifest(args, integ)
+    ids = [c.cluster_id for c in clusters]
+    todo_idx = [i for i, cid in enumerate(ids) if cid not in done]
+    resumed_ids = set(done)  # skipped this run (the QC recomputes these)
+    stats.count("clusters_skipped_done", len(ids) - len(todo_idx))
+    first_write = not done if output_bytes is None else output_bytes == 0
+    if args.append:
+        if restarted:
+            # with --append, earlier user content and this run's partial
+            # output cannot be told apart: refuse rather than duplicate
+            raise SystemExit(
+                f"resume state for {args.output} is unusable (see warning "
+                "above) and --append cannot safely redo on top of partial "
+                f"output; remove the stale checkpoint {args.checkpoint} "
+                "(and clean the output) before re-running"
+            )
+        # ref average_spectrum_clustering.py:183-184,198: mode 'a'
+        first_write = False
+    if not first_write and integ.offset == 0 and os.path.exists(args.output):
+        # --append over existing content, or a legacy resume: fold the
+        # committed prefix into the running hash so the manifests cover
+        # the whole output
+        integ.seed_file(args.output, output_bytes if output_bytes is not None
+                        else os.path.getsize(args.output))
+    # chunk size: the checkpoint interval; without a checkpoint, the same
+    # when the executor can pack this method ahead, else one chunk
+    prefetch = max(int(args.prefetch or 0), 0)
+    can_prepare = prefetch > 0 and backend.supports_prepare(method)
+    chunk = (args.checkpoint_every if args.checkpoint or can_prepare
+             else 0) or len(todo_idx) or 1
+
+    if not todo_idx:
+        # still produce an output file ('a' creates without truncating)
+        write_mgf([], args.output, append=not first_write)
+
+    # failures recorded by an interrupted earlier attempt stay recorded
+    failed: dict[str, None] = dict.fromkeys(prior_failed)
+    qc_failed: dict[str, None] = {}
+    worklist = [
+        (chunk_index, todo_idx[start : start + chunk])
+        for chunk_index, start in enumerate(range(0, len(todo_idx), chunk))
+    ]
+    # overlap needs two chunks: a one-chunk run takes the serial path
+    pipelined = prefetch > 0 and len(worklist) > 1
+    n_workers = (_default_pack_workers() if args.pack_workers is None
+                 else max(int(args.pack_workers), 0))
+    lanes: dict = {"pack_busy_s": [], "reorder_stall_s": 0.0}
+    if pipelined:
+        # --pack-workers 0 (the JAX package's single packer) is one worker
+        items = _pooled_chunks(clusters, worklist, backend, method, args,
+                               prefetch, qc is not None, max(n_workers, 1),
+                               lanes)
     else:
-        reps = backend.run_medoid(clusters, config)
-    write_mgf(reps, args.output)
-    if args.qc_report is not None:
-        # representatives align to clusters by id: best drops clusters
-        by_id = {r.cluster_id: r for r in reps}
-        kept = [c for c in clusters if c.cluster_id in by_id]
-        cosines = backend.average_cosines(
-            [by_id[c.cluster_id] for c in kept], kept, cos_config)
-        write_qc_report(args.qc_report, kept, cosines, len(clusters))
-    precision_gate(backend, args.method, clusters, config, cos_config)
-    return 0
+        items = _serial_chunks(clusters, worklist)
+    h2d_slots = max(int(args.h2d_buffer or 0), 0)
+    h2d_active = pipelined and h2d_slots > 0 and can_prepare
+    if h2d_active:
+        items = _h2d_staged_chunks(items, backend, h2d_slots, lanes)
+    committer = (
+        _Committer(args, qc if qc is not None else [], done, first_write,
+                   depth=max(prefetch, 1), integrity=integ)
+        if worklist and (args.async_write == "on"
+                         or (args.async_write == "auto" and pipelined))
+        else None
+    )
+    idle_s = 0.0
+    loop_t0 = time.perf_counter()
+    try:
+        for item in items:
+            part = item.part
+            idle_s += item.wait_s
+            if item.pack_stats is not None:
+                # pack-lane time lands in `pack`, not in the dispatch
+                # lane's `compute`
+                stats.merge(item.pack_stats)
+            # the chunk's QC rows reach the shared list only at commit
+            chunk_qc: list | None = [] if qc is not None else None
+            try:
+                if item.error is not None:
+                    raise item.error
+                reps = _dispatch_chunk(backend, method, item, part, args,
+                                       stats, scores, chunk_qc)
+            except (ValueError, RuntimeError, OSError) as e:
+                # --on-error skip: retry the chunk cluster by cluster, so
+                # only the offending clusters are dropped, and record them
+                if args.on_error != "skip":
+                    raise
+                if part is None:
+                    part = [clusters[i] for i in item.idxs]
+                logger.warning("chunk of %d clusters failed (%s); retrying "
+                               "one by one", len(part), e)
+                reps, bad = [], []
+                with stats.phase("compute"):
+                    for c in part:
+                        try:
+                            reps.extend(_run_method(
+                                backend, method, [c], method_config(args),
+                                scores, chunk_qc, _cosine_config(args)))
+                        except (ValueError, RuntimeError, OSError) as ce:
+                            logger.warning("skipping cluster %s: %s",
+                                           c.cluster_id, ce)
+                            bad.append(c.cluster_id)
+                failed.update(dict.fromkeys(bad))
+                stats.count("clusters_failed", len(bad))
+            if chunk_qc is not None and not chunk_qc and reps:
+                # the QC of every non-fused method, on the dispatch lane:
+                # reps align to clusters by id (best drops the scoreless);
+                # under --on-error skip a QC failure omits the chunk's rows
+                # and keeps its representatives, else it aborts the run
+                try:
+                    by_id = {r.cluster_id: r for r in reps}
+                    kept = [c for c in part if c.cluster_id in by_id]
+                    with stats.phase("compute"):
+                        _append_qc_rows(chunk_qc, kept,
+                                        backend.average_cosines(
+                                            [by_id[c.cluster_id]
+                                             for c in kept],
+                                            kept, _cosine_config(args)))
+                except (ValueError, RuntimeError, OSError) as e:
+                    if args.on_error != "skip":
+                        raise
+                    logger.warning("QC cosines failed for a %d-cluster chunk "
+                                   "(%s); their rows are omitted from the "
+                                   "report", len(part), e)
+                    qc_failed.update(dict.fromkeys(c.cluster_id
+                                                   for c in part))
+            commit_item = _CommitItem(item.index, reps,
+                                      [c.cluster_id for c in part], chunk_qc,
+                                      sorted(failed) if failed else None)
+            if committer is not None:
+                committer.submit(commit_item)
+            else:
+                _commit_chunk(commit_item, args, stats,
+                              qc if qc is not None else [], done,
+                              first_write, integ)
+                first_write = False
+        if committer is not None:
+            # flush before the lane summary, so the write lane's time is
+            # inside the wall and the output is whole before the QC report
+            committer.finish(stats)
+    finally:
+        close = getattr(items, "close", None)
+        if close is not None:
+            close()  # stop the pack lanes now on an abort
+        if committer is not None:
+            committer.shutdown(stats)
+    if pipelined or committer is not None:
+        # device_idle_s: the dispatch lane's waits on the pack lanes, the
+        # overlap shortfall: overlap_efficiency = 1 - idle / wall
+        wall = time.perf_counter() - loop_t0
+        stats.pipeline = {
+            "prefetch": prefetch,
+            "pack_workers": len(lanes["pack_busy_s"]),
+            "async_write": committer is not None,
+            "n_chunks": len(worklist),
+            "device_idle_s": round(idle_s, 4),
+            "wall_s": round(wall, 4),
+            "overlap_efficiency": (round(1.0 - idle_s / wall, 4)
+                                   if wall > 0 else None),
+            "pack_busy_s": [round(b, 4) for b in lanes["pack_busy_s"]],
+            "write_busy_s": (round(committer.busy_s, 4)
+                             if committer is not None else 0.0),
+            "reorder_stall_s": round(lanes["reorder_stall_s"], 4),
+        }
+        if h2d_active:
+            # the staging lane: its bytes and busy time, the dispatch
+            # lane's waits it caused (all waits less its own waits on the
+            # pack lanes) and the share of its time hidden
+            h2d_busy = lanes["h2d_busy_s"][0]
+            h2d_stall = max(0.0, idle_s - lanes["h2d_upstream_wait_s"][0])
+            stats.pipeline["h2d"] = {
+                "slots": h2d_slots,
+                "busy_s": round(h2d_busy, 4),
+                "bytes": int(lanes["h2d_bytes"][0]),
+                "stall_s": round(h2d_stall, 4),
+                "overlap_efficiency": (
+                    round(max(0.0, 1.0 - h2d_stall / h2d_busy), 4)
+                    if h2d_busy > 0 else 1.0),
+            }
+    if failed:
+        logger.warning("%d clusters failed and were skipped: %s%s",
+                       len(failed), ", ".join(list(failed)[:5]),
+                       "..." if len(failed) > 5 else "")
+    return resumed_ids, list(failed), list(qc_failed)
+
+
+def _run_pipeline_command(args, backend: TorchBackend) -> dict:
+    """THE consensus/select body: parse, the chunked run, the QC report,
+    then the precision gate (after the outputs, so a breach leaves them on
+    disk to diagnose).  Returns the run summary."""
+    stats = RunStats()
+    with stats.phase("parse"):
+        clusters = group_into_clusters(read_mgf(args.input))
+    scores = load_scores(args) if args.method == "best" else None
+    qc = [] if args.qc_report is not None else None
+    resumed, failed, qc_failed = _checkpointed_run(
+        backend, args.method, clusters, args, stats, scores, qc=qc)
+    if qc is not None:
+        _write_qc_report(args, backend, clusters, qc, resumed, failed,
+                         qc_failed)
+    gate = precision_gate(backend, args.method, clusters, method_config(args),
+                          _cosine_config(args))
+    return {
+        **stats.summary(),
+        "clusters_per_sec": round(stats.throughput("clusters"), 3),
+        "backend": {
+            "device": str(backend.device), "precision": backend.precision,
+            "chunks": backend.chunks, "cos_chunks": backend.cos_chunks,
+            "phase_s": {k: round(v, 6)
+                        for k, v in backend.phase_seconds.items()},
+            "h2d_bytes": backend.h2d_bytes, "d2h_bytes": backend.d2h_bytes,
+        },
+        **({"precision_gate": gate} if gate else {}),
+    }
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -290,4 +1074,6 @@ def main(argv: list[str] | None = None) -> int:
         backend = TorchBackend(device=args.device, precision=args.precision)
     except RuntimeError as exc:  # no CUDA for the default --device cuda
         ap.error(f"{exc} (here: --device cpu)")
-    return args.fn(args, backend)
+    # the run summary: one JSON line on stderr
+    print(json.dumps(_run_pipeline_command(args, backend)), file=sys.stderr)
+    return 0

@@ -51,6 +51,24 @@ def _grouped_arange(counts: np.ndarray) -> np.ndarray:
     return np.arange(total, dtype=np.int64) - np.repeat(starts, counts)
 
 
+def f64_sort_keys(x: np.ndarray) -> np.ndarray:
+    """int64 keys that order as ``np.sort`` orders the float64 ``x``:
+    the bit patterns with the magnitude bits of negatives flipped, after
+    -0.0 is made 0.0 (the two compare equal) and every NaN the one
+    positive NaN (sorted last, equal to each other)."""
+    x = np.where(np.isnan(x), np.nan, np.asarray(x, dtype=np.float64) + 0.0)
+    bits = x.view(np.int64)
+    return bits ^ ((bits >> 63) & np.int64(0x7FFF_FFFF_FFFF_FFFF))
+
+
+def _cluster_peak_order(table: SpectraTable, idx) -> np.ndarray:
+    """Peak ids grouped by cluster code, each cluster's in file order."""
+    if np.array_equal(idx.order, np.arange(idx.order.size)):
+        return np.arange(int(table.peak_offsets[-1]), dtype=np.int64)
+    cnt = table.peak_counts[idx.order]
+    return np.repeat(table.peak_offsets[idx.order], cnt) + _grouped_arange(cnt)
+
+
 def _dedup_keep_mask(
     spec_of_peak: np.ndarray,  # (P,) i64 spectrum id per peak
     bins: np.ndarray,  # (P,) i64, -1 = out of range
@@ -290,11 +308,12 @@ def gap_global_segments(table: SpectraTable, idx, config) -> dict:
     """Sort and gap-segment every cluster in one vectorized global pass,
     in float64 (ref src/average_spectrum_clustering.py:55-90).
 
-    One global lexsort groups peaks by cluster and orders them by m/z
-    (singleton clusters by input position instead, ref :88-90
-    passthrough); gap flags, the reference's final-gap merge
-    (``tail_mode="reference"``, ref :79-87) and per-cluster segment ids
-    come from flat cumsum/bincount passes."""
+    A segmented sort (``seg_argsort`` per cluster, on ``f64_sort_keys``)
+    orders each cluster's peaks by m/z (singleton clusters by input
+    position instead, ref :88-90 passthrough), ties in file order, as one
+    global lexsort over (cluster, key) would; gap flags, the reference's
+    final-gap merge (``tail_mode="reference"``, ref :79-87) and
+    per-cluster segment ids come from flat cumsum/bincount passes."""
     p_total = int(table.peak_offsets[-1])
     spec_of_peak = np.repeat(
         np.arange(table.n_spectra, dtype=np.int64), table.peak_counts
@@ -307,7 +326,10 @@ def gap_global_segments(table: SpectraTable, idx, config) -> dict:
     key = np.where(
         nm_of_peak == 1, np.arange(p_total, dtype=np.float64), table.mz
     )
-    order = np.lexsort((key, cluster_of_peak))
+    src = _cluster_peak_order(table, idx)
+    offsets = np.zeros(table.n_clusters + 1, dtype=np.int64)
+    np.cumsum(idx.total_peaks, out=offsets[1:])
+    order = src[seg_argsort(f64_sort_keys(key[src]), offsets)]
     s_cluster = cluster_of_peak[order]
     s_mz = table.mz[order]
 

@@ -127,11 +127,32 @@ def format_spectrum(spectrum: Spectrum) -> str:
     return "\n".join(lines) + "\n\n"
 
 
+def truncate_tail(path: str | os.PathLike, offset: int) -> bool:
+    """Drop the bytes of ``path`` past ``offset``: the resume repair of a
+    torn append (a kill between an MGF append and its checkpoint).
+    Returns True when what is left ends on a record boundary (``END
+    IONS``), as every offset a manifest records does; False means the
+    damage reaches into the committed prefix."""
+    path = os.fspath(path)
+    with open(path, "r+b") as fh:
+        fh.truncate(int(offset))
+    if offset <= 0:
+        return True
+    with open(path, "rb") as fh:
+        fh.seek(max(0, int(offset) - 4096))
+        tail = fh.read()
+    return tail.rstrip().endswith(b"END IONS")
+
+
 def write_mgf(
     spectra: Sequence[Spectrum] | Iterator[Spectrum],
     path: str | os.PathLike,
+    append: bool = False,
 ) -> None:
-    """Write spectra to an MGF file, one record at a time."""
-    with open(os.fspath(path), "w", encoding="utf-8") as fh:
+    """Write spectra to an MGF file, one record at a time; ``append`` adds
+    them after what the file holds (ref
+    src/average_spectrum_clustering.py:183-184,198)."""
+    with open(os.fspath(path), "a" if append else "w",
+              encoding="utf-8") as fh:
         for s in spectra:
             fh.write(format_spectrum(s))

@@ -1,15 +1,19 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host library.
 
 ``nvcc`` compiles every ``ops/csrc/*.cu`` (one process per source, all
 started together) and links them into one shared library with a plain C
 interface, ``build/torch_kernels/libspecpride_torch.so`` beside the
 package, at first use; it is rebuilt when the sources' hash changes.  The
-library is loaded with ``ctypes``.  Nothing here runs at import time.
+host C++ compiler (``g++``, no CUDA needed) builds every ``ops/csrc/*.cpp``
+the same way into ``build/torch_kernels/libspecpride_host.so``
+(``load_host``).  Both are loaded with ``ctypes``.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -29,8 +33,13 @@ NVCC_FLAGS = (
     *GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+HOST_LIB_NAME = "libspecpride_host.so"
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
+
 _lock = threading.Lock()
+_host_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_host_lib: ctypes.CDLL | None = None
 # seconds and compiler output of this process's build (None: loaded as is)
 build_info: dict | None = None
 
@@ -39,14 +48,23 @@ def _sources(pattern: str = "*.cu") -> list[str]:
     return sorted(glob.glob(os.path.join(_CSRC, pattern)))
 
 
-def _digest(nvcc: str) -> str:
+def _digest(compiler: str, flags: tuple, sources: list[str]) -> str:
     """Hash of the compiler, its flags and every source and header."""
-    h = hashlib.sha256(" ".join((nvcc,) + NVCC_FLAGS).encode())
-    for path in _sources("*.cu") + _sources("*.cuh"):
+    h = hashlib.sha256(" ".join((compiler,) + flags).encode())
+    for path in sources:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as fh:
             h.update(fh.read())
     return h.hexdigest()
+
+
+def _fresh(lib_path: str, digest: str) -> bool:
+    """True when ``lib_path`` exists and its stamp holds ``digest``."""
+    try:
+        with open(lib_path + ".sha256") as fh:
+            return fh.read() == digest and os.path.exists(lib_path)
+    except FileNotFoundError:
+        return False
 
 
 def _find_nvcc() -> str:
@@ -142,14 +160,69 @@ def load() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         nvcc = _find_nvcc()
-        digest = _digest(nvcc)
+        digest = _digest(nvcc, NVCC_FLAGS,
+                         _sources("*.cu") + _sources("*.cuh"))
         lib_path = os.path.join(BUILD_DIR, LIB_NAME)
-        try:
-            with open(lib_path + ".sha256") as fh:
-                fresh = fh.read() == digest and os.path.exists(lib_path)
-        except FileNotFoundError:
-            fresh = False
-        if not fresh:
+        if not _fresh(lib_path, digest):
             lib_path = _build(nvcc, digest)
         _lib = _declare(ctypes.CDLL(lib_path))
         return _lib
+
+
+def _find_cxx() -> str:
+    for name in ("g++", "c++"):
+        cxx = shutil.which(name)
+        if cxx is not None:
+            return cxx
+    raise RuntimeError(
+        "no host C++ compiler (g++ or c++ on PATH): it is needed to build "
+        "the port's host library"
+    )
+
+
+def _declare_host(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p64 = ctypes.POINTER(ctypes.c_int64)
+    p32 = ctypes.POINTER(ctypes.c_int32)
+    lib.seg_argsort_i64.argtypes = [p64, p64, ctypes.c_int64, p64,
+                                    ctypes.c_int]
+    lib.seg_argsort_i64.restype = ctypes.c_int
+    lib.searchsorted_right_i32.argtypes = [p32, ctypes.c_int64, p32,
+                                           ctypes.c_int64, p64, ctypes.c_int]
+    lib.searchsorted_right_i32.restype = ctypes.c_int
+    return lib
+
+
+def load_host() -> ctypes.CDLL:
+    """The host library (``ops/csrc/*.cpp``: the segmented sort and the
+    search), built first with the host C++ compiler if its sources
+    changed.  Processes that build at once serialize on a file lock in
+    the build directory (released by the kernel if a holder dies), and
+    each writes its own temporary library before renaming it into place.
+    A failed build raises with the compiler's output."""
+    global _host_lib
+    if _host_lib is not None:
+        return _host_lib
+    with _host_lock:
+        if _host_lib is not None:
+            return _host_lib
+        cxx = _find_cxx()
+        sources = _sources("*.cpp")
+        digest = _digest(cxx, HOST_FLAGS, sources)
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        lib_path = os.path.join(BUILD_DIR, HOST_LIB_NAME)
+        with open(lib_path + ".lock", "w") as lock_fh:
+            fcntl.flock(lock_fh, fcntl.LOCK_EX)
+            if not _fresh(lib_path, digest):
+                tmp = f"{lib_path}.tmp{os.getpid()}"
+                cmd = [cxx, *HOST_FLAGS, "-o", tmp, *sources]
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"host library build failed ({proc.returncode}): "
+                        f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+                    )
+                os.replace(tmp, lib_path)
+                with open(lib_path + ".sha256", "w") as fh:
+                    fh.write(digest)
+            _host_lib = _declare_host(ctypes.CDLL(lib_path))
+        return _host_lib

@@ -146,6 +146,11 @@ def test_import_and_help_load_no_jax():
         "import specpride_tpu_torch.ops.gap_average\n"
         "import specpride_tpu_torch.io.maxquant\n"
         "import specpride_tpu_torch.data.packed\n"
+        "import specpride_tpu_torch.ops.segsort\n"
+        "import specpride_tpu_torch.robustness.integrity\n"
+        "import numpy\n"
+        "from specpride_tpu_torch.ops.segsort import seg_argsort\n"
+        "seg_argsort(numpy.arange(3), numpy.array([0, 3]))\n"
         "from specpride_tpu_torch.cli import main\n"
         "for cmd in ('consensus', 'select'):\n"
         "    try:\n"
@@ -168,6 +173,10 @@ def test_import_and_help_load_no_jax():
     for flag in ("{best,medoid}", "--msms", "--psms", "--raw-name",
                  "--px-accession", "--xcorr-bin", "--qc-normalization"):
         assert flag in proc.stdout
+    for flag in ("--append", "--checkpoint", "--checkpoint-every",
+                 "--prefetch", "--pack-workers", "--h2d-buffer",
+                 "--async-write", "--on-error"):
+        assert proc.stdout.count(flag) >= 2, flag
     assert proc.stdout.count("--qc-report") >= 2
     assert proc.stdout.count("--device") >= 2
     assert "LOADED []" in proc.stdout
@@ -197,8 +206,17 @@ def test_package_source_imports_no_jax():
     scanned = {os.path.relpath(f, PKG) for f in files}
     assert {"backends/numpy_backend.py", "ops/gap_average.py",
             "ops/quantize.py", "data/packed.py", "io/maxquant.py",
-            "ops/similarity.py", "config.py"} <= scanned
+            "ops/similarity.py", "config.py", "ops/segsort.py",
+            "ops/_build.py", "robustness/integrity.py", "cli.py"} <= scanned
     assert len(files) > 10
+    # the port builds its own host library: none of the JAX package's
+    # native libraries (native/lib*.so) is named, let alone loaded
+    for f in files:
+        with open(f) as fh:
+            text = fh.read()
+        for name in ("libsegsort", "libmedoid", "libcosine",
+                     "libgap_average", "libmgf_parser", "SPECPRIDE_"):
+            assert name not in text, (os.path.relpath(f, REPO), name)
 
 
 def _port_cli(*args):

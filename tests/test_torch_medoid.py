@@ -280,6 +280,27 @@ def _case(name, rng):
             make_cluster(rng, f"cluster-{i}", n_members=m, n_peaks=20)
             for i, m in enumerate([1, 7, 2, 7, 15, 1, 3, 40])
         ])
+    if name == "peakless_members":
+        # members 1 and 3 of a five-member cluster have no peak, beside a
+        # cluster whose first member has none
+        clusters = _port([
+            make_cluster(rng, f"cluster-{i}", n_members=m, n_peaks=30)
+            for i, m in enumerate([5, 3])
+        ])
+        for c, empty in zip(clusters, ((1, 3), (0,))):
+            for k in empty:
+                s = c.members[k]
+                s.mz, s.intensity = s.mz[:0], s.intensity[:0]
+        return clusters
+    if name == "all_peakless":
+        # a cluster none of whose members has a peak, between two others
+        clusters = _port([
+            make_cluster(rng, f"cluster-{i}", n_members=m, n_peaks=25)
+            for i, m in enumerate([3, 4, 2])
+        ])
+        for s in clusters[1].members:
+            s.mz, s.intensity = s.mz[:0], s.intensity[:0]
+        return clusters
     raise ValueError(name)
 
 
@@ -293,7 +314,8 @@ def _as_jax(clusters):
     ]) for c in clusters]
 
 
-CASES = ["random", "edges", "identical", "singletons", "mixed"]
+CASES = ["random", "edges", "identical", "singletons", "mixed",
+         "peakless_members", "all_peakless"]
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -312,6 +334,30 @@ def test_medoid_indices_match_jax_and_oracle(case, rng):
         assert got == [0]
     if case == "singletons":
         assert got == [0, 0, 0]
+
+
+@pytest.mark.parametrize("case", ["peakless_members", "all_peakless"])
+def test_medoid_peakless_reps_match_jax_and_oracle(case, rng):
+    """Clusters with peakless members and an all-peakless cluster: the
+    representatives (``run_medoid``) are the same members, with the same
+    peak counts, on the port's CPU path, the JAX bucketized path, the JAX
+    default route and the numpy oracle."""
+    clusters = _case(case, rng)
+    jclusters = _as_jax(clusters)
+    got = TorchBackend(device="cpu").run_medoid(clusters)
+    refs = [
+        jnb.run_medoid(jclusters),
+        TpuBackend(layout="bucketized",
+                   medoid_device_select=False).run_medoid(jclusters),
+        TpuBackend().run_medoid(jclusters),
+    ]
+    titles = [r.title for r in got]
+    counts = [r.n_peaks for r in got]
+    if case == "all_peakless":
+        assert counts[1] == 0
+    for ref in refs:
+        assert [r.title for r in ref] == titles
+        assert [r.n_peaks for r in ref] == counts
 
 
 @pytest.mark.parametrize("grid", [64 * 1024 * 1024, 3000, 1])

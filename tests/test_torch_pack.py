@@ -134,8 +134,9 @@ def test_jax_packed_chunk_through_port_dispatch():
     jclusters = _jax_clusters(6)
     (jbatch,) = jpacked.pack_flat_bin_mean(jclusters, JaxBinMeanConfig())
     batch = packed.flat_batch_from_arrays(dataclasses.asdict(jbatch))
-    got, aux = TorchBackend(device="cpu")._flat_chunk_dispatch(
-        batch, BinMeanConfig()
+    backend = TorchBackend(device="cpu")
+    got, aux = backend._flat_chunk_dispatch(
+        batch, backend._flat_chunk_host_args(batch, BinMeanConfig())
     )
     want, jaux = TpuBackend(layout="flat")._flat_chunk_dispatch(
         jbatch, JaxBinMeanConfig()

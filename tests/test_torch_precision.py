@@ -199,8 +199,9 @@ def test_jax_reduced_chunk_through_port_dispatch(precision):
     m/z, intensity means of the codes within rtol 1e-5."""
     jbatch, _, _, _ = _jax_flat_args(precision, seed=10)
     batch = packed.flat_batch_from_arrays(dataclasses.asdict(jbatch))
-    got, aux = TorchBackend(device="cpu")._flat_chunk_dispatch(
-        batch, BinMeanConfig()
+    backend = TorchBackend(device="cpu")
+    got, aux = backend._flat_chunk_dispatch(
+        batch, backend._flat_chunk_host_args(batch, BinMeanConfig())
     )
     want, jaux = TpuBackend(layout="flat", precision=precision)\
         ._flat_chunk_dispatch(jbatch, JaxBinMeanConfig())
