@@ -6,7 +6,8 @@ NVIDIA GPU:
 
 1. prints the card and its power limit, builds the CUDA kernels from
    ``specpride_tpu_torch/ops/csrc`` with nvcc (sm_90a, one nvcc per
-   source, side by side);
+   source, side by side); the host library (the sort, the MGF parser and
+   formatter) builds with g++ at its first use;
 2. kernel phase: ``seg_mean`` against ``seg_mean_plain`` on the card
    (nv = 1 and 2, N = 16,777,216 and a ragged N, runs of 1-20, one run
    across many tiles, masked slots, a -1 tail), and times the kernel, the
@@ -57,13 +58,21 @@ NVIDIA GPU:
    ``--prefetch 0``, the defaults, ``--h2d-buffer 2`` and ``--pack-workers
    0``, the bytes of output, manifest and QC report identical, one
    ``seg_mean`` and five ``seg_scan`` launches per chunk; medoid, gap f32
-   and bin-mean int8 through it at the defaults; kill phase: the CLI on
-   the 2,000-cluster MGF killed (SIGKILL) after its first committed chunk
-   and resumed, its output and QC report the bytes of an uninterrupted
-   run;
+   and bin-mean int8 through it at the defaults; files phase: the same
+   clusters as a clustered MGF written by the native writer (its first
+   2,000 clusters also by the numpy writer, the same bytes) and parsed
+   back by the native parser (the head also by the Python parser), the
+   spectra written bit for bit; ``consensus --qc-report`` on the file as
+   a subprocess, its output and report the executor's bytes; ``evaluate``
+   (five ``seg_scan`` launches per cosine chunk, no ``seg_mean``) against
+   the slice's cosines and, on the head, a ``--device cpu`` run;
+   ``consensus --single`` and ``convert`` against the CPU; kill phase:
+   the CLI on the 2,000-cluster MGF killed (SIGKILL) after its first
+   committed chunk and resumed, its output and QC report the bytes of an
+   uninterrupted run;
 5. prints a ``{"kernels": [...]}`` line (launches: the executor's runs at
-   the defaults) and, last, the
-   ``{"ok": true, "device": {...}}`` line.
+   the defaults and the files phase's consensus and evaluate) and, last,
+   the ``{"ok": true, "device": {...}}`` line.
 
 Every comparison of a kernel with its plain version prints its largest
 relative error beside the tolerance.
@@ -1425,6 +1434,7 @@ def executor_phase(kernels, clusters, slice_cos, medoid_picks) -> dict:
         res[what] = run
     print("compare executor: medoid = medoid phase picks; gap f32 and "
           "bin-mean int8 = their --prefetch 0 runs", flush=True)
+    res["bytes"] = first
     return res
 
 
@@ -1445,17 +1455,7 @@ def cli_phase() -> dict:
         for path in (dst, qc):
             if os.path.exists(path):
                 os.remove(path)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "specpride_tpu_torch", command, source,
-             dst, *flags],
-            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
-            capture_output=True, text=True, timeout=600,
-        )
-        if proc.returncode != 0:
-            raise AssertionError(f"CLI {flags} exited {proc.returncode}:\n"
-                                 f"{proc.stderr}")
-        return time.perf_counter() - t0
+        return run_cli(command, source, dst, *flags)[0]
 
     def qc_cosines(what: str, ref_cos) -> dict:
         with open(qc) as fh:
@@ -1502,6 +1502,270 @@ def cli_phase() -> dict:
         res[what] = same_as_cpu_select(golden, dst, qc, flags, work, what)
     print(f"cli {json.dumps(res)}", flush=True)
     return res
+
+
+FILES_CHECK_CLUSTERS = 2_000  # the head of files-20k held to plain / CPU
+
+
+def same_spectra(got, want, what: str) -> None:
+    """Parsed spectra equal to written ones: titles, headers and the
+    float64 bit patterns of every peak."""
+    def key(s):
+        return (s.title, s.precursor_mz, s.precursor_charge, s.rt, s.extra,
+                s.mz.tobytes(), s.intensity.tobytes())
+
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} vs {len(want)} spectra")
+    for g, w in zip(got, want):
+        if key(g) != key(w):
+            raise AssertionError(f"{what}: {w.title} differs")
+
+
+def run_cli(*argv) -> tuple[float, dict | None]:
+    """``python -m specpride_tpu_torch ARGV`` in a subprocess: its wall
+    and the run summary it prints last on stderr (None when there is
+    none)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "specpride_tpu_torch", *argv], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=600,
+    )
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI {argv} exited {proc.returncode}:\n"
+                             f"{proc.stderr}")
+    lines = proc.stderr.strip().splitlines()
+    return wall, (json.loads(lines[-1]) if lines else None)
+
+
+def files_phase(kernels, clusters, slice_cos, cos_chunks: int,
+                exec_bytes: dict) -> dict:
+    """files-20k, the file-to-file path on slice-20k's clusters, in a
+    temporary directory: the clustered MGF written by the native writer
+    (its first FILES_CHECK_CLUSTERS clusters also by the numpy writer: the
+    same bytes) and parsed back by the native parser (the head also by
+    the Python parser: the spectra written, bit for bit); ``consensus
+    --qc-report`` on the file as a user runs it, its output and report
+    the executor phase's bytes; ``evaluate`` in process, launch counts
+    zeroed just before (five ``seg_scan`` launches per cosine chunk, no
+    ``seg_mean``), its cosines the slice phase's, its head against a
+    ``--device cpu`` run; then ``consensus --single`` (bin-mean without
+    the quorum, and gap-average) on the head's charge-2 spectra and
+    ``convert`` of a small mzML, each against the CPU."""
+    import tempfile
+
+    import torch
+
+    from specpride_tpu_torch import cli
+    from specpride_tpu_torch.backends.torch_backend import TorchBackend
+    from specpride_tpu_torch.io import mgf
+
+    head_clusters = clusters[:FILES_CHECK_CLUSTERS]
+    spectra = [s for c in clusters for s in c.members]
+    head = [s for c in head_clusters for s in c.members]
+    res = {"clusters": len(clusters), "spectra": len(spectra),
+           "peaks": sum(s.n_peaks for s in spectra),
+           "head_clusters": len(head_clusters)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_files") as work:
+        def path(name):
+            return os.path.join(work, name)
+
+        # 1. the writers: numpy and native bytes identical on the head
+        t0 = time.perf_counter()
+        with open(path("head_plain.mgf"), "w", encoding="utf-8") as fh:
+            for s in head:
+                fh.write(mgf.format_spectrum_plain(s))
+        res["head_write_plain_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mgf.write_mgf(head, path("head.mgf"))
+        res["head_write_native_s"] = time.perf_counter() - t0
+        with open(path("head_plain.mgf"), "rb") as a, \
+                open(path("head.mgf"), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError("files: native and numpy writers differ")
+        t0 = time.perf_counter()
+        mgf.write_mgf(spectra, path("in.mgf"))
+        res["write_s"] = time.perf_counter() - t0
+        res["bytes"] = {n: os.path.getsize(path(n))
+                        for n in ("in.mgf", "head.mgf")}
+        print(f"compare files writer: native = numpy bytes over "
+              f"{len(head)} spectra ({res['bytes']['head.mgf']} bytes)",
+              flush=True)
+
+        # 2. the parsers: native on the whole file, Python on the head
+        t0 = time.perf_counter()
+        parsed = mgf.read_mgf(path("in.mgf"))
+        res["parse_s"] = time.perf_counter() - t0
+        same_spectra(parsed, spectra, "files native parse")
+        del parsed
+        t0 = time.perf_counter()
+        head_native = mgf.read_mgf(path("head.mgf"))
+        res["head_parse_native_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with open(path("head.mgf"), encoding="utf-8") as fh:
+            head_plain = list(mgf.parse_mgf_stream(fh))
+        res["head_parse_plain_s"] = time.perf_counter() - t0
+        same_spectra(head_native, head, "files native parse (head)")
+        same_spectra(head_plain, head, "files plain parse (head)")
+        del head_native, head_plain
+        print(f"compare files parsers: native (all {len(spectra)}) and "
+              f"plain (head) = the spectra written", flush=True)
+
+        # 3. consensus from the file, as a user runs it
+        res["consensus_wall_s"], summary = run_cli(
+            "consensus", path("in.mgf"), path("out.mgf"), "--method",
+            "bin-mean", "--qc-report", path("qc.json"))
+        res["consensus_summary"] = summary
+        for name, key in (("out.mgf", "mgf"), ("qc.json", "qc.json")):
+            with open(path(name), "rb") as fh:
+                if fh.read() != exec_bytes[key]:
+                    raise AssertionError(f"files consensus: {name} differs "
+                                         "from the executor phase's")
+        n_chunks = -(-len(clusters) // EXEC_EVERY)
+        launches = summary["backend"]["launches"]
+        if launches != {"seg_mean": n_chunks, "seg_mean_heads": 0,
+                        "seg_scan": 5 * n_chunks}:
+            raise AssertionError(f"files consensus: launches {launches}")
+        res["consensus_launches"] = launches
+        print("compare files consensus: output and QC report = the executor "
+              "phase's bytes", flush=True)
+
+        # 4. evaluate on the card, in process
+        args = cli.build_parser().parse_args(
+            ["evaluate", path("out.mgf"), path("in.mgf"), "--report",
+             path("eval.json")])
+        backend = TorchBackend(device=DEV)
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        summary = cli.run_evaluate(args, backend)
+        torch.cuda.synchronize()
+        res["evaluate_wall_s"] = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        if (backend.cos_chunks != cos_chunks
+                or launches != {"seg_mean": 0, "seg_mean_heads": 0,
+                                "seg_scan": 5 * cos_chunks}):
+            raise AssertionError(f"files evaluate: {backend.cos_chunks} "
+                                 f"cosine chunks, launches {launches}")
+        res["evaluate_launches"] = launches
+        res["evaluate_phase_s"] = backend.phase_seconds
+        res["evaluate_summary"] = summary
+        with open(path("eval.json")) as fh:
+            rows = json.load(fh)["clusters"]
+        res["evaluate_cosine_err"] = check_cosines(
+            [r["avg_cosine"] for r in rows], slice_cos,
+            "files evaluate vs slice QC")
+        reps = mgf.read_mgf(path("out.mgf"))
+        mgf.write_mgf(reps[:FILES_CHECK_CLUSTERS], path("head_out.mgf"))
+        del reps
+        cpu_args = cli.build_parser().parse_args(
+            ["evaluate", path("head_out.mgf"), path("head.mgf"), "--report",
+             path("eval_cpu.json"), "--device", "cpu"])
+        cli.run_evaluate(cpu_args, TorchBackend(device="cpu"))
+        with open(path("eval_cpu.json")) as fh:
+            cpu_rows = json.load(fh)["clusters"]
+        exact = ("cluster_id", "n_members", "n_peaks", "by_fraction")
+        if ([[r[k] for k in exact] for r in rows[:FILES_CHECK_CLUSTERS]]
+                != [[r[k] for k in exact] for r in cpu_rows]):
+            raise AssertionError("files evaluate: head differs from the CPU")
+        res["evaluate_head_cosine_err"] = check_cosines(
+            [r["avg_cosine"] for r in rows[:FILES_CHECK_CLUSTERS]],
+            [r["avg_cosine"] for r in cpu_rows], "files evaluate head vs cpu")
+        print(f"files evaluate {json.dumps(summary)}", flush=True)
+
+        # 5. --single on the head's charge-2 clusters (a consensus refuses
+        # members of mixed charge), and convert
+        z2 = [s for s in head if s.precursor_charge == 2]
+        mgf.write_mgf(z2, path("head_z2.mgf"))
+        res["single_spectra"] = len(z2)
+        res["single_peaks"] = sum(s.n_peaks for s in z2)
+        for method, check, flags in (
+                ("bin-mean", check_same, ("--no-quorum",)),
+                ("gap-average", check_gap_same, ())):
+            single = path("single.mgf")
+            argv = ["consensus", path("head_z2.mgf"), single, "--single",
+                    "--method", method, *flags]
+            wall, _ = run_cli(*argv)
+            got = mgf.read_mgf(single)
+            if cli.main([*argv, "--device", "cpu"]) != 0:
+                raise AssertionError(f"files --single {method} on the CPU")
+            check(got, mgf.read_mgf(single), f"files --single {method}")
+            res[f"single {method}"] = {"wall_s": wall,
+                                       "peaks_out": got[0].n_peaks}
+        res["convert"] = convert_check(head_clusters[:60], work)
+        print("compare files --single (bin-mean, gap-average) and convert "
+              "(mzML to MGF) vs cpu: same", flush=True)
+    print(f"files {json.dumps(res)}", flush=True)
+    return res
+
+
+def convert_check(clusters, work: str) -> dict:
+    """``convert`` of an mzML of ``clusters``' spectra with a MaRaCluster
+    TSV and an msms.txt naming peptides for two spectra of three: the MGF
+    the numpy writer makes of the expected spectra; then consensus with
+    QC and ``evaluate`` (b/y fractions from the peptides) on it, the card
+    against the CPU."""
+    from specpride_tpu_torch import cli
+    from specpride_tpu_torch.data.peaks import Spectrum, build_title
+    from specpride_tpu_torch.io import mgf
+    from specpride_tpu_torch.io.mzml import write_mzml
+
+    peptides = ("PEPTIDEK", "VLHPLEGAVVIIFK", "SAMPLER")
+    scans, tsv, msms, want = [], [], ["\t".join(
+        ["Raw file", "Scan number", "c2", "c3", "c4", "c5", "c6",
+         "Modified sequence", "Score"])], []
+    scan = 1000
+    for i, c in enumerate(clusters):
+        for s in c.members:
+            scan += 1
+            scans.append((scan, s, {}))
+            tsv.append(f"run9.raw\t{scan}\t0.9")
+            if scan % 3:
+                pep = peptides[i % 3]
+                msms.append("\t".join(["run9", str(scan), *"xxxxx",
+                                       f"_{pep}_", "50"]))
+                want.append(Spectrum(
+                    s.mz, s.intensity, s.precursor_mz, s.precursor_charge,
+                    s.rt, build_title(f"cluster-{i + 1}", "PXD004732",
+                                      "run9", scan, pep,
+                                      s.precursor_charge)))
+        tsv.append("")
+    src = os.path.join(work, "run9.mzML")
+    write_mzml(scans, src)
+    paths = {k: os.path.join(work, k) for k in
+             ("c.tsv", "msms.txt", "conv.mgf", "conv_out.mgf",
+              "conv_qc.json", "conv_eval.json", "conv_eval_cpu.json")}
+    with open(paths["c.tsv"], "w") as fh:
+        fh.write("\n".join(tsv))
+    with open(paths["msms.txt"], "w") as fh:
+        fh.write("\n".join(msms) + "\n")
+    wall, _ = run_cli("convert", src, paths["conv.mgf"], "--msms",
+                      paths["msms.txt"], "--clusters", paths["c.tsv"])
+    with open(paths["conv.mgf"]) as fh:
+        if fh.read() != "".join(mgf.format_spectrum_plain(s) for s in want):
+            raise AssertionError("files convert: output differs")
+    run_cli("consensus", paths["conv.mgf"], paths["conv_out.mgf"],
+            "--qc-report", paths["conv_qc.json"])
+    rows = {}
+    for device, report in (("cuda", "conv_eval.json"),
+                           ("cpu", "conv_eval_cpu.json")):
+        args = ["evaluate", paths["conv_out.mgf"], paths["conv.mgf"],
+                "--report", paths[report], "--device", device]
+        if cli.main(args) != 0:
+            raise AssertionError(f"files convert: evaluate on {device}")
+        with open(paths[report]) as fh:
+            rows[device] = json.load(fh)["clusters"]
+    exact = ("cluster_id", "n_members", "n_peaks", "by_fraction")
+    if ([[r[k] for k in exact] for r in rows["cuda"]]
+            != [[r[k] for k in exact] for r in rows["cpu"]]
+            or any(r["by_fraction"] is None for r in rows["cuda"])):
+        raise AssertionError("files convert: evaluate differs from the CPU")
+    err = check_cosines([r["avg_cosine"] for r in rows["cuda"]],
+                        [r["avg_cosine"] for r in rows["cpu"]],
+                        "files convert evaluate vs cpu")
+    return {"spectra_in": len(scans), "spectra_out": len(want),
+            "wall_s": wall, "clusters": len(rows["cuda"]),
+            "cosine_err": err}
 
 
 KILL_EVERY = 128
@@ -1675,6 +1939,8 @@ def main() -> int:
     selres = select_phase(kernels, clusters, picks)
     sortres = sort_split_phase(clusters, slice_reps)
     exres = executor_phase(kernels, clusters, slice_cos, picks)
+    fres = files_phase(kernels, clusters, slice_cos, sres["cos_chunks"],
+                       exres.pop("bytes"))
     del clusters, slice_reps
     pres = path_scan_phase(kernels, sres.pop("scan_shapes"))
     cres = cli_phase()
@@ -1686,7 +1952,7 @@ def main() -> int:
     (heads_case,) = [c for c in hres["cases"] if c["case"] == HEAD_MAIN]
     # launches: the main path's runs, through the CLI's chunked executor
     # at its defaults (bin-mean with QC, select medoid with QC, gap f32
-    # and bin-mean int8)
+    # and bin-mean int8), and the files phase's consensus and evaluate
     main_run = exres["defaults"]["launches"]
     heads_launches = sum(exres[what]["launches"]["seg_mean_heads"]
                          for what in ("gap f32", "bin-mean int8"))
@@ -1695,7 +1961,8 @@ def main() -> int:
         "route": "cuda",
         "source": "specpride_tpu_torch/ops/csrc/seg_mean.cu",
         "replaces": "specpride_tpu/ops/pallas_kernels.py:187",
-        "launches": main_run["seg_mean"],
+        "launches": (main_run["seg_mean"]
+                     + fres["consensus_launches"]["seg_mean"]),
         "max_abs_err": max(c["max_abs_err"] for c in mres["cases"]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -1720,7 +1987,9 @@ def main() -> int:
         "source": "specpride_tpu_torch/ops/csrc/seg_scan.cu",
         "replaces": "specpride_tpu/ops/pallas_kernels.py:148",
         "launches": (main_run["seg_scan"]
-                     + exres["medoid"]["launches"]["seg_scan"]),
+                     + exres["medoid"]["launches"]["seg_scan"]
+                     + fres["consensus_launches"]["seg_scan"]
+                     + fres["evaluate_launches"]["seg_scan"]),
         "max_abs_err": max(
             c["max_abs_err"] for c in kres["cases"] + pres["cases"]
         ),
@@ -1740,7 +2009,7 @@ def main() -> int:
                    "precision": qres, "gap": gres, "medoid": dres,
                    "select": selres, "path_scan": pres,
                    "host_sorts": sortres, "executor": exres,
-                   "cli": cres, "kill_resume": killres,
+                   "files": fres, "cli": cres, "kill_resume": killres,
                    "build": info.get("seconds"),
                    "wall_s": time.perf_counter() - start}, fh, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)

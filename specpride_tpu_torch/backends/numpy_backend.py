@@ -1,5 +1,6 @@
 """Pure-numpy helpers of the port: the reference's binned cosine of two
-spectra (which the precision gate scores with), the gap-average's
+spectra (which the precision gate scores with) and its mean over a
+cluster (``metrics.evaluate(backend="numpy")``), the gap-average's
 precursor mass and RT estimators, and the medoid and best-spectrum
 selections per cluster (the oracle the tests and the smoke hold the
 card's picks to; ``run_best_spectrum`` is also the port's only
@@ -57,6 +58,20 @@ def binned_cosine(
     if na == 0.0 or nb == 0.0:
         return 0.0
     return float(va @ vb) / np.sqrt(na * nb)
+
+
+def average_cosine(
+    representative: Spectrum,
+    members: list[Spectrum],
+    config: CosineConfig = CosineConfig(),
+) -> float:
+    """Mean binned cosine of a representative to the cluster members
+    (ref src/benchmark.py:31-38); empty member list scores 0."""
+    if not members:
+        return 0.0
+    return float(
+        np.mean([binned_cosine(representative, m, config) for m in members])
+    )
 
 
 # --- precursor-mass / RT estimators

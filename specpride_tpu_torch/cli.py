@@ -6,13 +6,19 @@
     python -m specpride_tpu_torch select IN OUT [--method medoid|best] \
         [--msms msms.txt | --psms psms.tsv] [--precision f32|bf16|int8] \
         [--qc-report QC.json] [--checkpoint CK.json] [executor flags]
+    python -m specpride_tpu_torch evaluate REPS CLUSTERED \
+        [--report R.json] [--format json|csv] [--normalization ...]
+    python -m specpride_tpu_torch convert IN OUT --msms msms.txt \
+        --clusters clusters.tsv [--raw-name NAME] [--px-accession PXD]
 
-Both read the clustered MGF and group it into clusters.  ``consensus``
-runs the binned-mean or gap-average consensus on the card (``--device
-cpu`` for the CPU) and writes one consensus spectrum per cluster;
-``select`` writes one member per cluster: the medoid (shared-bin counts on
-the card) or the best-scored member (a host join; clusters without a
-score are dropped).  With ``--qc-report`` each representative is also
+``consensus`` and ``select`` read the clustered MGF (or, with
+``--clusters``, an mzML file and a MaRaCluster TSV) and group it into
+clusters; ``consensus --single`` takes the whole file as one cluster.
+``consensus`` runs the binned-mean or gap-average consensus on the card
+(``--device cpu`` for the CPU) and writes one consensus spectrum per
+cluster; ``select`` writes one member per cluster: the medoid (shared-bin
+counts on the card) or the best-scored member (a host join; clusters
+without a score are dropped).  With ``--qc-report`` each representative is also
 scored by its mean binned cosine to the cluster's members (always in f32,
 on the card) and the per-cluster QC report written.  A consensus or
 medoid run at a reduced ``--precision`` must pass the precision gate
@@ -28,6 +34,12 @@ one on the card, an optional lane copies them to the card ahead
 (``--h2d-buffer``) and a write lane commits finished chunks in order
 (``--async-write``).  Every setting writes the same bytes.  The run
 summary goes to stderr as one JSON line.
+
+``evaluate`` scores representatives against their clusters (the mean
+binned cosine on the card, the b/y-ion fraction on the host) and prints
+the summary on stdout; ``convert`` builds the clustered MGF (or mzML)
+from raw spectra, MaxQuant peptides and MaRaCluster clusters.  Every MGF
+is read and written through the host library (``io/native.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +56,7 @@ import threading
 import time
 from collections import defaultdict
 
+from specpride_tpu_torch import convert, metrics
 from specpride_tpu_torch.backends import numpy_backend
 from specpride_tpu_torch.backends.torch_backend import TorchBackend
 from specpride_tpu_torch.config import (
@@ -53,13 +66,20 @@ from specpride_tpu_torch.config import (
     GapAverageConfig,
     MedoidConfig,
 )
-from specpride_tpu_torch.data.peaks import group_into_clusters
+from specpride_tpu_torch.data.peaks import (
+    Cluster,
+    build_title,
+    group_into_clusters,
+)
+from specpride_tpu_torch.io.maracluster import scan_to_cluster
 from specpride_tpu_torch.io.maxquant import (
+    read_msms_peptides,
     read_msms_scores,
     read_percolator_scores,
 )
 from specpride_tpu_torch.io.mgf import read_mgf, truncate_tail, write_mgf
-from specpride_tpu_torch.ops import quantize
+from specpride_tpu_torch.io.mzml import read_mzml_scans
+from specpride_tpu_torch.ops import kernels, quantize
 from specpride_tpu_torch.robustness.integrity import (
     OutputIntegrity,
     manifest_payload,
@@ -102,6 +122,19 @@ def build_parser() -> argparse.ArgumentParser:
                     default="lower_median")
     pc.add_argument("--rt", choices=["median", "mass_lower_median"],
                     default="median")
+    pc.add_argument("--single", action="store_true",
+                    help="treat the whole input file as one cluster "
+                         "(ref average_spectrum_clustering.py:172-176)")
+    pc.add_argument(
+        "--clusters",
+        help="MaRaCluster TSV: consume a raw .mzML input directly, no "
+        "convert step (ref binning.py:33-118)",
+    )
+    pc.add_argument("--msms", help="MaxQuant msms.txt for peptide titles "
+                                   "(direct .mzML input; optional)")
+    pc.add_argument("--raw-name", help="raw file name for USIs "
+                                       "(direct .mzML input)")
+    pc.add_argument("--px-accession", default="PXD004732")
     _add_common(pc, "consensus spectrum")
 
     ps = sub.add_parser("select", help="pick an existing member per cluster")
@@ -117,7 +150,34 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--px-accession", default="PXD004732")
     ps.add_argument("--xcorr-bin", type=float, default=0.1,
                     help="medoid occupancy-grid bin width in Da")
+    ps.add_argument(
+        "--clusters",
+        help="MaRaCluster TSV: consume a raw .mzML input directly, no "
+        "convert step (--msms then also provides peptide titles)",
+    )
     _add_common(ps, "representative")
+
+    pv = sub.add_parser("convert",
+                        help="build the clustered-MGF interchange file")
+    pv.add_argument("input", help="raw spectra (.mgf or .mzML)")
+    pv.add_argument("output")
+    pv.add_argument("--msms", required=True, help="MaxQuant msms.txt")
+    pv.add_argument("--clusters", required=True, help="MaRaCluster TSV")
+    pv.add_argument("--raw-name", help="raw file name for USIs")
+    pv.add_argument("--px-accession", default="PXD004732")
+
+    pe = sub.add_parser("evaluate",
+                        help="quality metrics for representatives")
+    pe.add_argument("representatives")
+    pe.add_argument("clustered")
+    pe.add_argument("--report", help="write per-cluster report to this path")
+    pe.add_argument(
+        "--normalization", choices=["none", "sqrt", "log"], default="none",
+        help="intensity transform for the cosine metric",
+    )
+    pe.add_argument("--format", choices=["json", "csv"], default="json")
+    pe.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where the cosines run (default: the GPU)")
     return ap
 
 
@@ -1037,13 +1097,58 @@ def _checkpointed_run(backend: TorchBackend, method: str, clusters, args,
     return resumed_ids, list(failed), list(qc_failed)
 
 
+def _is_mzml(path: str) -> bool:
+    return path.lower().endswith((".mzml", ".mzml.gz"))
+
+
+def _clusters_from_mzml(path: str, args) -> list[Cluster]:
+    """Direct mzML + MaRaCluster input (ref src/binning.py:33-118): read
+    the cluster list, read exactly the clustered scans, title them
+    ``cluster;usi`` (with the peptide when ``--msms`` gives one) and
+    group them, as the JAX CLI's ``_clusters_from_mzml`` does."""
+    if not args.clusters:
+        raise SystemExit(
+            "an .mzML input needs --clusters <MaRaCluster TSV> (or run "
+            "`specpride convert` first)"
+        )
+    cluster_of = scan_to_cluster(args.clusters)
+    spectra = read_mzml_scans(path, scans=set(cluster_of))
+    peptides = read_msms_peptides(args.msms) if args.msms else {}
+    raw = args.raw_name or os.path.basename(path).split(".")[0]
+    out = []
+    for scan in sorted(spectra):
+        s = spectra[scan]
+        s.title = build_title(
+            cluster_of[scan], args.px_accession, raw, scan,
+            peptides.get(scan),
+            s.precursor_charge if peptides.get(scan) else None,
+        )
+        out.append(s)
+    return group_into_clusters(out)
+
+
+def load_clusters(args) -> list[Cluster]:
+    """The clusters of a consensus or select run: an MGF through the C++
+    parser, or an mzML with ``--clusters``; ``consensus --single`` makes
+    the whole input one cluster titled with the output path (ref
+    average_spectrum_clustering.py:203-205), and no spectra no cluster."""
+    if _is_mzml(args.input):
+        clusters = _clusters_from_mzml(args.input, args)
+    else:
+        clusters = group_into_clusters(read_mgf(args.input))
+    if args.command == "consensus" and args.single:
+        spectra = [s for c in clusters for s in c.members]
+        clusters = [Cluster(args.output, spectra)] if spectra else []
+    return clusters
+
+
 def _run_pipeline_command(args, backend: TorchBackend) -> dict:
     """THE consensus/select body: parse, the chunked run, the QC report,
     then the precision gate (after the outputs, so a breach leaves them on
     disk to diagnose).  Returns the run summary."""
     stats = RunStats()
     with stats.phase("parse"):
-        clusters = group_into_clusters(read_mgf(args.input))
+        clusters = load_clusters(args)
     scores = load_scores(args) if args.method == "best" else None
     qc = [] if args.qc_report is not None else None
     resumed, failed, qc_failed = _checkpointed_run(
@@ -1062,18 +1167,64 @@ def _run_pipeline_command(args, backend: TorchBackend) -> dict:
             "phase_s": {k: round(v, 6)
                         for k, v in backend.phase_seconds.items()},
             "h2d_bytes": backend.h2d_bytes, "d2h_bytes": backend.d2h_bytes,
+            # this process's kernel launches
+            "launches": dict(kernels.launches),
         },
         **({"precision_gate": gate} if gate else {}),
     }
 
 
+def run_convert(args) -> dict:
+    """``convert``: an mzML input through ``convert_mzml``, else the MGF
+    through ``convert_mgf``.  Returns the run summary."""
+    stats = RunStats()
+    config = BestSpectrumConfig(px_accession=args.px_accession)
+    with stats.phase("convert"):
+        if _is_mzml(args.input):
+            n = convert.convert_mzml(args.input, args.msms, args.clusters,
+                                     args.output, args.raw_name, config)
+        else:
+            n = convert.convert_mgf(
+                args.input, args.msms, args.clusters, args.output,
+                args.raw_name
+                or os.path.basename(args.input).rsplit(".", 1)[0],
+                config,
+            )
+    stats.count("spectra_out", n)
+    return stats.summary()
+
+
+def run_evaluate(args, backend: TorchBackend) -> dict:
+    """``evaluate``: each cluster of ``args.clustered`` with a
+    representative in ``args.representatives`` scored on ``backend``; the
+    per-cluster report written if asked.  Returns the summary."""
+    reps = {s.cluster_id: s for s in read_mgf(args.representatives)}
+    clusters = group_into_clusters(read_mgf(args.clustered))
+    pairs = [(reps[c.cluster_id], c) for c in clusters
+             if c.cluster_id in reps]
+    results = metrics.evaluate(
+        [r for r, _ in pairs], [c for _, c in pairs], backend,
+        cosine_config=CosineConfig(normalization=args.normalization),
+    )
+    if args.report:
+        metrics.write_report(results, args.report, args.format)
+    return metrics.summarize(results)
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.command == "convert":
+        print(json.dumps(run_convert(args)), file=sys.stderr)
+        return 0
     try:
-        backend = TorchBackend(device=args.device, precision=args.precision)
+        backend = TorchBackend(device=args.device,
+                               precision=getattr(args, "precision", "f32"))
     except RuntimeError as exc:  # no CUDA for the default --device cuda
         ap.error(f"{exc} (here: --device cpu)")
+    if args.command == "evaluate":
+        print(json.dumps(run_evaluate(args, backend)))
+        return 0
     # the run summary: one JSON line on stderr
     print(json.dumps(_run_pipeline_command(args, backend)), file=sys.stderr)
     return 0

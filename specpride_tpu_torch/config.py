@@ -1,10 +1,11 @@
 """Configuration of the binned-mean and gap-average consensus, the medoid
-and best-spectrum selection, the bucketized packing and the QC cosine.
+and best-spectrum selection, the bucketized packing, the QC cosine and
+the b/y-ion annotation of ``evaluate``.
 
 The port's own copies of ``BinMeanConfig``, ``GapAverageConfig``,
 ``MedoidConfig``, ``BestSpectrumConfig``, ``CosineConfig``,
-``BatchConfig`` and the ppm grid formula.  The field names match the JAX
-package's, so a config converts with
+``FragmentConfig``, ``BatchConfig`` and the ppm grid formula.  The
+field names match the JAX package's, so a config converts with
 ``BinMeanConfig(**dataclasses.asdict(other))``.
 """
 
@@ -144,3 +145,18 @@ class CosineConfig:
     @property
     def mz_space(self) -> float:
         return self.mz_unit * self.mz_space_factor
+
+
+@dataclasses.dataclass(frozen=True)
+class FragmentConfig:
+    """b/y-ion annotation (ref src/benchmark.py:40-61 fraction_of_by).
+
+    50 ppm tolerance and the [100, 1400] m/z preprocessing window reproduce
+    ref src/benchmark.py:47-52.
+    """
+
+    tol: float = 50.0
+    tol_mode: Literal["ppm", "Da"] = "ppm"
+    min_mz: float = 100.0
+    max_mz: float = 1400.0
+    ion_types: str = "by"

@@ -37,6 +37,30 @@ def build_title(
     return f"{cluster_id};{usi}"
 
 
+def scan_from_usi(usi: str) -> int | None:
+    """Extract the scan number from a USI, or None if absent."""
+    parts = usi.split(":")
+    for i, part in enumerate(parts):
+        if part == "scan" and i + 1 < len(parts):
+            try:
+                return int(parts[i + 1])
+            except ValueError:
+                return None
+    return None
+
+
+def peptide_from_usi(usi: str) -> tuple[str | None, int | None]:
+    """Extract (peptide, charge) from a USI interpretation suffix, if any."""
+    parts = usi.split(":")
+    if len(parts) >= 6 and "/" in parts[-1]:
+        pep, _, z = parts[-1].rpartition("/")
+        try:
+            return pep, int(z)
+        except ValueError:
+            return None, None
+    return None, None
+
+
 @dataclasses.dataclass
 class Spectrum:
     """One MS/MS spectrum: parallel m/z / intensity arrays + precursor info."""

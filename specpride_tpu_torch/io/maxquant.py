@@ -1,7 +1,8 @@
 """PSM score sources for ``select --method best``: MaxQuant ``msms.txt``
 (ref src/best_spectrum.py:43-64 get_scores) and crux/percolator PSM
 tables, both read header-aware with ``csv`` (no pandas) into one
-USI → score dict.
+USI → score dict; and the scan → peptide map of ``msms.txt`` that
+``convert`` and direct mzML input title spectra with.
 """
 
 from __future__ import annotations
@@ -91,3 +92,23 @@ def read_percolator_scores(
             "supported; re-export via crux percolator)."
         )
     return scores
+
+
+def read_msms_peptides(path: str | os.PathLike) -> dict[int, str]:
+    """Scan number → (modified) peptide sequence.
+
+    Positional parity with ref src/convert_mgf_cluster.py:21-30: column 1 is
+    the scan, column 7 the sequence with its first and last characters
+    stripped.  Later rows overwrite earlier ones for the same scan, as the
+    reference dict assignment does.
+    """
+    peptides: dict[int, str] = {}
+    with open(path) as fh:
+        next(fh)  # header
+        for line in fh:
+            words = line.rstrip("\n").split("\t")
+            if len(words) <= 7:
+                continue
+            scan = int(words[1])
+            peptides[scan] = words[7][1:-1]
+    return peptides

@@ -1,10 +1,13 @@
-"""MGF (Mascot Generic Format) reading and writing, pure Python.
+"""MGF (Mascot Generic Format) reading and writing.
 
 Accepts the clustered-MGF interchange dialect: BEGIN IONS / TITLE= /
 PEPMASS= / CHARGE=N+ / RTINSECONDS= / other KEY=value headers / numeric
-peak lines "mz intensity" / END IONS.  Gzip-transparent.  The writer is
-byte-compatible with the JAX package's, so outputs of the two compare
-with ``cmp``.
+peak lines "mz intensity" / END IONS.  Gzip-transparent.  ``read_mgf``
+parses through the host library's C++ parser and the writer formats peak
+lines through its C++ formatter (``io/native.py``); ``parse_mgf_stream``
+and ``format_spectrum_plain`` are the pure-Python and numpy versions the
+tests hold them to.  The writer is byte-compatible with the JAX
+package's, so outputs of the two compare with ``cmp``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import IO, Iterator, Sequence
 import numpy as np
 
 from specpride_tpu_torch.data.peaks import Spectrum
+from specpride_tpu_torch.io import native
 
 
 def _open_text(path: str | os.PathLike) -> IO[str]:
@@ -90,17 +94,13 @@ def parse_mgf_stream(stream: IO[str]) -> Iterator[Spectrum]:
 
 
 def read_mgf(path: str | os.PathLike) -> list[Spectrum]:
-    """Read all spectra from an MGF file (``.gz`` transparently)."""
-    with _open_text(path) as fh:
-        return list(parse_mgf_stream(fh))
+    """Read all spectra from an MGF file (``.gz`` transparently) with the
+    C++ parser; a malformed number raises ``RuntimeError``."""
+    return native.read_mgf_native(path)
 
 
-def format_spectrum(spectrum: Spectrum) -> str:
-    """Format one spectrum as an MGF record.
-
-    Field order TITLE / PEPMASS / RTINSECONDS / CHARGE, then extra
-    headers in insertion order; NaN peaks are skipped as in the reference
-    writer (ref src/binning.py:242)."""
+def _header(spectrum: Spectrum) -> str:
+    """The record's lines up to its peaks, each ending in a newline."""
     lines = ["BEGIN IONS", f"TITLE={spectrum.title}"]
     lines.append(f"PEPMASS={spectrum.precursor_mz}")
     if spectrum.rt:
@@ -110,6 +110,25 @@ def format_spectrum(spectrum: Spectrum) -> str:
         lines.append(f"CHARGE={abs(z)}{'+' if z > 0 else '-'}")
     for key, value in spectrum.extra.items():
         lines.append(f"{key}={value}")
+    lines.append("")
+    return "\n".join(lines)
+
+
+def format_spectrum(spectrum: Spectrum) -> str:
+    """Format one spectrum as an MGF record.
+
+    Field order TITLE / PEPMASS / RTINSECONDS / CHARGE, then extra
+    headers in insertion order; NaN peaks are skipped as in the reference
+    writer (ref src/binning.py:242).  The peak lines come from the C++
+    formatter: the bytes of ``format_spectrum_plain``."""
+    return (_header(spectrum)
+            + native.format_peaks(spectrum.mz, spectrum.intensity)
+            + "END IONS\n\n")
+
+
+def format_spectrum_plain(spectrum: Spectrum) -> str:
+    """numpy version of ``format_spectrum``, the JAX package's writer."""
+    lines = [_header(spectrum)[:-1]]
     # float64 -> 'U32' is the same shortest repr as str(), vectorized
     mz = np.asarray(spectrum.mz, dtype=np.float64)
     inten = np.asarray(spectrum.intensity, dtype=np.float64)
@@ -144,15 +163,55 @@ def truncate_tail(path: str | os.PathLike, offset: int) -> bool:
     return tail.rstrip().endswith(b"END IONS")
 
 
+# spectra formatted per call of the C++ formatter: a bound on the text
+# held in memory, not on the records written
+WRITE_BATCH_PEAKS = 1 << 20
+
+
+def _write_records(fh: IO[str], spectra) -> int:
+    """Stream records into an open text sink, the peak lines of a batch of
+    spectra formatted in one threaded call; returns the record count."""
+    n = 0
+    batch: list[Spectrum] = []
+    peaks = 0
+
+    def flush() -> None:
+        texts = native.format_peaks_many([s.mz for s in batch],
+                                         [s.intensity for s in batch])
+        fh.write("".join(
+            f"{_header(s)}{t}END IONS\n\n" for s, t in zip(batch, texts)
+        ))
+        batch.clear()
+
+    for s in spectra:
+        batch.append(s)
+        peaks += s.n_peaks
+        n += 1
+        if peaks >= WRITE_BATCH_PEAKS:
+            flush()
+            peaks = 0
+    if batch:
+        flush()
+    return n
+
+
 def write_mgf(
     spectra: Sequence[Spectrum] | Iterator[Spectrum],
-    path: str | os.PathLike,
+    path_or_file: str | os.PathLike | IO[str] | None,
     append: bool = False,
-) -> None:
-    """Write spectra to an MGF file, one record at a time; ``append`` adds
-    them after what the file holds (ref
-    src/average_spectrum_clustering.py:183-184,198)."""
-    with open(os.fspath(path), "a" if append else "w",
+) -> str | None:
+    """Write spectra to an MGF file, an open text file or (``None``) a
+    string, which is returned.  ``append`` adds them after what the file
+    at a path holds (ref src/average_spectrum_clustering.py:183-184,198);
+    an open file is written where it stands."""
+    if path_or_file is None:
+        buf = io.StringIO()
+        _write_records(buf, spectra)
+        return buf.getvalue()
+    if hasattr(path_or_file, "write"):
+        _write_records(path_or_file, spectra)
+        return None
+    with open(os.fspath(path_or_file), "a" if append else "w",
               encoding="utf-8") as fh:
-        for s in spectra:
-            fh.write(format_spectrum(s))
+        _write_records(fh, spectra)
+    return None

@@ -1,0 +1,157 @@
+"""The MGF parser and peak formatter of the port's host library
+(``ops/csrc/mgf_parser.cpp`` and ``ops/csrc/mgf_format.cpp``, built by
+``ops/_build.load_host``; ctypes releases the interpreter lock for each
+call).
+
+``read_mgf_native`` gives the ``Spectrum``s of the pure-Python parser
+(``io/mgf.py::parse_mgf_stream``): the same titles, headers and float64
+bit patterns.  ``format_peaks`` and ``format_peaks_many`` give the peak
+lines of the numpy writer (``io/mgf.py::format_spectrum_plain``) byte for
+byte.  A failed build raises: nothing here falls back to the Python
+versions, which only the tests run."""
+
+from __future__ import annotations
+
+import ctypes
+import gzip
+import os
+
+import numpy as np
+
+from specpride_tpu_torch.data.peaks import Spectrum
+from specpride_tpu_torch.ops import _build
+
+_PD = ctypes.POINTER(ctypes.c_double)
+_P64 = ctypes.POINTER(ctypes.c_int64)
+# a peak line is at most two 24-byte reprs, a space and a newline
+MAX_LINE = 50
+
+
+def _column(ptr, n: int, dtype) -> np.ndarray:
+    """A copy of the n-element column at ``ptr``."""
+    if n == 0:
+        return np.zeros(0, dtype=dtype)
+    return np.ctypeslib.as_array(ptr, shape=(n,)).astype(dtype, copy=True)
+
+
+def _split(buf: bytes, offsets: np.ndarray) -> list[str]:
+    """The UTF-8 strings ``buf[offsets[i]:offsets[i+1]]``."""
+    text = buf.decode("utf-8")
+    bounds = offsets.tolist()
+    if len(text) != len(buf):  # not ASCII: byte offsets are not str's
+        return [buf[a:b].decode("utf-8")
+                for a, b in zip(bounds[:-1], bounds[1:])]
+    return [text[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def _spectra(lib, handle) -> list[Spectrum]:
+    n = int(lib.mgf_n_spectra(handle))
+    n_peaks = int(lib.mgf_n_peaks(handle))
+    mz = _column(lib.mgf_mz(handle), n_peaks, np.float64)
+    intensity = _column(lib.mgf_intensity(handle), n_peaks, np.float64)
+    peak_off = _column(lib.mgf_peak_offsets(handle), n + 1, np.int64)
+    prec_mz = _column(lib.mgf_precursor_mz(handle), n, np.float64).tolist()
+    charge = _column(lib.mgf_charge(handle), n, np.int32).tolist()
+    rt = _column(lib.mgf_rt(handle), n, np.float64).tolist()
+    title_off = _column(lib.mgf_title_offsets(handle), n + 1, np.int64)
+    extra_off = _column(lib.mgf_extra_offsets(handle), n + 1, np.int64)
+    titles = _split(ctypes.string_at(lib.mgf_titles(handle),
+                                     int(title_off[-1])), title_off)
+    extras = _split(ctypes.string_at(lib.mgf_extras(handle),
+                                     int(extra_off[-1])), extra_off)
+    bounds = peak_off.tolist()
+    spectra = []
+    for i in range(n):
+        lo, hi = bounds[i], bounds[i + 1]
+        extra: dict[str, str] = {}
+        # "KEY=VALUE\n" per header; a value holds no "\n" (lines end there)
+        for line in extras[i].split("\n")[:-1]:
+            key, _, value = line.partition("=")
+            extra[key] = value
+        spectra.append(Spectrum(
+            mz=mz[lo:hi], intensity=intensity[lo:hi],
+            precursor_mz=prec_mz[i], precursor_charge=charge[i], rt=rt[i],
+            title=titles[i], extra=extra,
+        ))
+    return spectra
+
+
+def _parsed(lib, handle, errbuf, what: str) -> list[Spectrum]:
+    if not handle:
+        raise RuntimeError(f"MGF parse of {what} failed: "
+                           f"{errbuf.value.decode(errors='replace')}")
+    try:
+        return _spectra(lib, handle)
+    finally:
+        lib.mgf_free(handle)
+
+
+def parse_mgf_bytes(data: bytes, threads: int = 0) -> list[Spectrum]:
+    """Spectra of the MGF text ``data``; ``threads`` <= 0 uses one parse
+    thread per hardware thread (records split at ``BEGIN IONS`` lines)."""
+    lib = _build.load_host()
+    errbuf = ctypes.create_string_buffer(256)
+    handle = lib.mgf_parse_buffer(data, len(data), threads, errbuf,
+                                  len(errbuf))
+    return _parsed(lib, handle, errbuf, "a buffer")
+
+
+def read_mgf_native(path: str | os.PathLike) -> list[Spectrum]:
+    """Spectra of the MGF file at ``path``; a ``.gz`` file is decompressed
+    here (Python's gzip) and parsed from memory.  A malformed number
+    raises ``RuntimeError`` with its line."""
+    path = os.fspath(path)
+    if path.endswith(".gz"):
+        with gzip.open(path, "rb") as fh:
+            return parse_mgf_bytes(fh.read())
+    lib = _build.load_host()
+    errbuf = ctypes.create_string_buffer(256)
+    handle = lib.mgf_parse(path.encode(), errbuf, len(errbuf))
+    return _parsed(lib, handle, errbuf, path)
+
+
+def _f64(a) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.float64)
+
+
+def format_peaks(mz, intensity) -> str:
+    """``"<mz> <intensity>\\n"`` per pair without NaN, each value as
+    Python's ``repr`` writes it."""
+    mz, intensity = _f64(mz), _f64(intensity)
+    if mz.shape != intensity.shape or mz.ndim != 1:
+        raise ValueError("mz and intensity must be 1-D and of equal length")
+    cap = MAX_LINE * mz.size
+    out = ctypes.create_string_buffer(max(cap, 1))
+    n = _build.load_host().mgf_format_peaks(
+        mz.ctypes.data_as(_PD), intensity.ctypes.data_as(_PD), mz.size,
+        out, cap,
+    )
+    if n < 0:
+        raise RuntimeError("mgf_format_peaks: output buffer too small")
+    return out.raw[:n].decode("ascii")
+
+
+def format_peaks_many(spectra_mz, spectra_intensity) -> list[str]:
+    """``format_peaks`` of many spectra in one threaded call."""
+    counts = np.array([np.size(m) for m in spectra_mz], dtype=np.int64)
+    if [np.size(i) for i in spectra_intensity] != counts.tolist():
+        raise ValueError("mz and intensity must be of equal length")
+    offsets = np.zeros(counts.size + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    if counts.size == 0:
+        return []
+    mz = _f64(np.concatenate(spectra_mz))
+    intensity = _f64(np.concatenate(spectra_intensity))
+    cap = MAX_LINE * mz.size
+    out = np.empty(max(cap, 1), dtype=np.uint8)
+    out_offsets = np.empty(counts.size + 1, dtype=np.int64)
+    n = _build.load_host().mgf_format_batch(
+        mz.ctypes.data_as(_PD), intensity.ctypes.data_as(_PD),
+        offsets.ctypes.data_as(_P64), counts.size, out.ctypes.data, cap,
+        out_offsets.ctypes.data_as(_P64), 0,
+    )
+    if n < 0:
+        raise RuntimeError("mgf_format_batch: output buffer too small")
+    text = out[:n].tobytes().decode("ascii")
+    bounds = out_offsets.tolist()
+    return [text[a:b] for a, b in zip(bounds[:-1], bounds[1:])]

@@ -189,15 +189,45 @@ def _declare_host(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.searchsorted_right_i32.argtypes = [p32, ctypes.c_int64, p32,
                                            ctypes.c_int64, p64, ctypes.c_int]
     lib.searchsorted_right_i32.restype = ctypes.c_int
+    # the MGF parser: a handle (c_void_p) and its columns.  Titles and
+    # extras are length-delimited buffers, so c_void_p: c_char_p would cut
+    # them at a NUL byte.  Every pointer argument is declared, or ctypes
+    # passes it as a 32-bit int.
+    vp, pd = ctypes.c_void_p, ctypes.POINTER(ctypes.c_double)
+    lib.mgf_parse.argtypes = [ctypes.c_char_p, vp, ctypes.c_int]
+    lib.mgf_parse_buffer.argtypes = [vp, ctypes.c_int64, ctypes.c_int, vp,
+                                     ctypes.c_int]
+    for fn in (lib.mgf_parse, lib.mgf_parse_buffer):
+        fn.restype = vp
+    for name, restype in (
+        ("mgf_n_spectra", ctypes.c_int64), ("mgf_n_peaks", ctypes.c_int64),
+        ("mgf_mz", pd), ("mgf_intensity", pd), ("mgf_peak_offsets", p64),
+        ("mgf_precursor_mz", pd), ("mgf_charge", p32), ("mgf_rt", pd),
+        ("mgf_titles", vp), ("mgf_title_offsets", p64),
+        ("mgf_extras", vp), ("mgf_extra_offsets", p64),
+    ):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp]
+        fn.restype = restype
+    lib.mgf_free.argtypes = [vp]
+    lib.mgf_free.restype = None
+    # the MGF peak-line formatter
+    lib.mgf_format_peaks.argtypes = [pd, pd, ctypes.c_int64, vp,
+                                     ctypes.c_int64]
+    lib.mgf_format_batch.argtypes = [pd, pd, p64, ctypes.c_int64, vp,
+                                     ctypes.c_int64, p64, ctypes.c_int]
+    for fn in (lib.mgf_format_peaks, lib.mgf_format_batch):
+        fn.restype = ctypes.c_int64
     return lib
 
 
 def load_host() -> ctypes.CDLL:
     """The host library (``ops/csrc/*.cpp``: the segmented sort and the
-    search), built first with the host C++ compiler if its sources
-    changed.  Processes that build at once serialize on a file lock in
-    the build directory (released by the kernel if a holder dies), and
-    each writes its own temporary library before renaming it into place.
+    search, the MGF parser and the MGF peak formatter), built first with
+    the host C++ compiler if its sources changed.  Processes that build
+    at once serialize on a file lock in the build directory (released by
+    the kernel if a holder dies), and each writes its own temporary
+    library before renaming it into place.
     A failed build raises with the compiler's output."""
     global _host_lib
     if _host_lib is not None:

@@ -148,11 +148,19 @@ def test_import_and_help_load_no_jax():
         "import specpride_tpu_torch.data.packed\n"
         "import specpride_tpu_torch.ops.segsort\n"
         "import specpride_tpu_torch.robustness.integrity\n"
+        "import specpride_tpu_torch.io.native\n"
+        "import specpride_tpu_torch.io.mzml\n"
+        "import specpride_tpu_torch.io.maracluster\n"
+        "import specpride_tpu_torch.convert\n"
+        "import specpride_tpu_torch.metrics\n"
+        "import specpride_tpu_torch.ops.fragments\n"
         "import numpy\n"
         "from specpride_tpu_torch.ops.segsort import seg_argsort\n"
         "seg_argsort(numpy.arange(3), numpy.array([0, 3]))\n"
+        "from specpride_tpu_torch.io.native import parse_mgf_bytes\n"
+        "parse_mgf_bytes(b'BEGIN IONS\\n1.0 2.0\\nEND IONS\\n')\n"
         "from specpride_tpu_torch.cli import main\n"
-        "for cmd in ('consensus', 'select'):\n"
+        "for cmd in ('consensus', 'select', 'evaluate', 'convert'):\n"
         "    try:\n"
         "        main([cmd, '--help'])\n"
         "    except SystemExit:\n"
@@ -178,7 +186,10 @@ def test_import_and_help_load_no_jax():
                  "--async-write", "--on-error"):
         assert proc.stdout.count(flag) >= 2, flag
     assert proc.stdout.count("--qc-report") >= 2
-    assert proc.stdout.count("--device") >= 2
+    assert proc.stdout.count("--device") >= 3
+    for flag in ("--single", "--report", "--format", "--normalization"):
+        assert flag in proc.stdout
+    assert proc.stdout.count("--clusters") >= 3
     assert "LOADED []" in proc.stdout
 
 
@@ -207,7 +218,9 @@ def test_package_source_imports_no_jax():
     assert {"backends/numpy_backend.py", "ops/gap_average.py",
             "ops/quantize.py", "data/packed.py", "io/maxquant.py",
             "ops/similarity.py", "config.py", "ops/segsort.py",
-            "ops/_build.py", "robustness/integrity.py", "cli.py"} <= scanned
+            "ops/_build.py", "robustness/integrity.py", "cli.py",
+            "io/native.py", "io/mzml.py", "io/maracluster.py", "convert.py",
+            "metrics.py", "ops/fragments.py"} <= scanned
     assert len(files) > 10
     # the port builds its own host library: none of the JAX package's
     # native libraries (native/lib*.so) is named, let alone loaded

@@ -360,6 +360,35 @@ def test_medoid_peakless_reps_match_jax_and_oracle(case, rng):
         assert [r.n_peaks for r in ref] == counts
 
 
+@pytest.mark.parametrize("case", ["peakless_members", "all_peakless"])
+def test_peakless_consensus_and_cosines_match_jax(case, rng):
+    """The same peakless cases through the consensus methods and the QC
+    cosine: bin-mean and gap-average peak counts equal to the JAX flat
+    path's, the default route's and the oracle's, and the medoid
+    representatives' mean cosines (``average_cosines``) within the
+    cosine tolerance of the JAX device path and the oracle."""
+    clusters = _case(case, rng)
+    jclusters = _as_jax(clusters)
+    port = TorchBackend(device="cpu")
+    for method in ("run_bin_mean", "run_gap_average"):
+        counts = [r.n_peaks for r in getattr(port, method)(clusters)]
+        for ref in (TpuBackend(layout="flat"), TpuBackend(), jnb):
+            assert [r.n_peaks for r in getattr(ref, method)(
+                jclusters)] == counts, (method, ref)
+    reps = port.run_medoid(clusters)
+    jreps = _as_jax([Cluster(r.cluster_id, [r]) for r in reps])
+    got = port.average_cosines(reps, clusters)
+    oracle = [jnb.average_cosine(r.members[0], c.members)
+              for r, c in zip(jreps, jclusters)]
+    np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(
+        got, TpuBackend().average_cosines([r.members[0] for r in jreps],
+                                          jclusters),
+        rtol=1e-5, atol=1e-6)
+    if case == "all_peakless":
+        assert got[1] == 0.0
+
+
 @pytest.mark.parametrize("grid", [64 * 1024 * 1024, 3000, 1])
 def test_medoid_chunking_keeps_picks(grid, rng):
     """Small ``max_grid_elements`` cut each batch into several chunks (one
