@@ -70,9 +70,25 @@ NVIDIA GPU:
    the CLI on the 2,000-cluster MGF killed (SIGKILL) after its first
    committed chunk and resumed, its output and QC report the bytes of an
    uninterrupted run;
-5. prints a ``{"kernels": [...]}`` line (launches: the executor's runs at
-   the defaults and the files phase's consensus and evaluate) and, last,
-   the ``{"ok": true, "device": {...}}`` line.
+5. robustness: stream phase (inside the files phase): ``consensus
+   --qc-report --checkpoint`` on the 1.0 GB file at the default
+   ``--stream-clusters auto`` (it streams), ``off`` and ``512``, the
+   executor's bytes each, with each run's wall, phases and peak RSS, and
+   the host library's byte index timed and held to the Python scan;
+   quarantine phase: CLI-2k with a truncated and an unparseable block
+   under ``--on-error skip``, eager and streamed (the same output and
+   quarantine file), and under ``abort`` (a non-zero exit, no file);
+   chaos phase: ``select --method medoid --qc-report`` and the main path
+   with a fault at every site (I/O, an OOM split, a hang the watchdog
+   breaks), the clean run's bytes, and the main path's OOM split held to
+   the clean run at the tolerances; real OOM phase: a genuine
+   ``torch.OutOfMemoryError`` under a capped allocator splits an int8
+   consensus chunk to the clean bytes, and the kernels match their plain
+   versions afterwards;
+6. prints a ``{"kernels": [...]}`` line (launches: the executor's runs at
+   the defaults, the files phase's consensus runs and evaluate, the chaos
+   and real OOM runs) and, last, the ``{"ok": true, "device": {...}}``
+   line.
 
 Every comparison of a kernel with its plain version prints its largest
 relative error beside the tolerance.
@@ -153,7 +169,7 @@ def kernel_inputs(n: int, nv: int, seed: int):
     return keys.astype(np.int32), w, values
 
 
-PROFILE_TRIES = 3
+PROFILE_TRIES = 10
 SPIN_CYCLES = 2_000_000  # ~1 ms of the card's clock: outlasts any enqueue
 
 
@@ -207,9 +223,11 @@ def device_split(fn, calls: int = PROFILE_CALLS):
     host_us = (time.perf_counter() - t0) / calls * 1e6
     torch.cuda.synchronize()
     # The profiler has returned none or only some of a step's device events
-    # on the H100: a warm-up step of the same calls comes first, and a try
-    # that saw fewer kernels than calls is taken again.  A lost event can
-    # only lower the count, so one over it ends the tries.
+    # on the H100 (in a full smoke, never in a short process profiling one
+    # case; a try may lose the same number again in the next run, and three
+    # tries in a row have lost some): a warm-up step of the same calls comes
+    # first, and a try that saw fewer kernels than calls is taken again.  A
+    # lost event can only lower the count, so one over it ends the tries.
     names, counts = set(), []
     for _ in range(PROFILE_TRIES):
         split = {}
@@ -1350,7 +1368,8 @@ def executor_run(kernels, clusters, name: str, command: str, flags=(),
            "cos_chunks": backend.cos_chunks, "pipeline": stats.pipeline,
            "phase_s": ph, "cli_phases_s": dict(stats.phases),
            "h2d_bytes": backend.h2d_bytes,
-           "output_bytes": len(got["mgf"])}
+           "output_bytes": len(got["mgf"]),
+           "robustness": stats.robustness}
     if not stats.pipeline:
         # the card's share of the wall, from the CUDA events around each
         # kernel: only a serial run's, since with other lanes running the
@@ -1539,6 +1558,153 @@ def run_cli(*argv) -> tuple[float, dict | None]:
     return wall, (json.loads(lines[-1]) if lines else None)
 
 
+# The launcher: a small Python process started before this script imports
+# torch.  It runs each CLI command it is sent and reaps it with os.wait4.
+# A child's ru_maxrss counts the resident set of the process it was forked
+# from (Linux keeps the pre-exec high-water mark), so a child of this
+# script, which holds gigabytes by then, would report this script's size;
+# a child of the launcher starts from the launcher's few MiB.
+LAUNCHER = r"""
+import json, os, subprocess, sys, tempfile, time
+for line in sys.stdin:
+    job = json.loads(line)
+    with tempfile.TemporaryFile() as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(job["argv"], cwd=job["cwd"], env=job["env"],
+                                stdout=subprocess.DEVNULL, stderr=err)
+        _, status, usage = os.wait4(proc.pid, 0)
+        wall = time.perf_counter() - t0
+        err.seek(0)
+        text = err.read().decode(errors="replace")
+    print(json.dumps({"rc": os.waitstatus_to_exitcode(status),
+                      "wall_s": wall, "maxrss_kib": usage.ru_maxrss,
+                      "stderr": text}), flush=True)
+"""
+_launcher: subprocess.Popen | None = None
+
+
+def start_launcher() -> None:
+    global _launcher
+    _launcher = subprocess.Popen([sys.executable, "-c", LAUNCHER],
+                                 stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                 text=True)
+
+
+def stop_launcher() -> None:
+    global _launcher
+    if _launcher is not None:
+        _launcher.stdin.close()
+        try:
+            _launcher.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            _launcher.kill()
+            _launcher.wait()
+        _launcher = None
+
+
+def run_cli_rss(*argv, env=None, expect_ok: bool = True):
+    """``python -m specpride_tpu_torch ARGV`` run by the launcher: its wall,
+    exit code, the run summary it prints last on stderr (None when there
+    is none), its peak resident set (``ru_maxrss`` from ``os.wait4``, KiB)
+    and its stderr."""
+    _launcher.stdin.write(json.dumps({
+        "argv": [sys.executable, "-m", "specpride_tpu_torch", *argv],
+        "cwd": ROOT, "env": dict(env or os.environ, PYTHONPATH=ROOT),
+    }) + "\n")
+    _launcher.stdin.flush()
+    line = _launcher.stdout.readline()
+    if not line:
+        raise AssertionError("the launcher died")
+    res = json.loads(line)
+    if expect_ok and res["rc"] != 0:
+        raise AssertionError(f"CLI {argv} exited {res['rc']}:\n"
+                             f"{res['stderr']}")
+    res["summary"] = None
+    lines = res["stderr"].strip().splitlines()
+    if lines and lines[-1].startswith("{"):
+        res["summary"] = json.loads(lines[-1])
+    return res
+
+
+STREAM_MODES = (("auto", ()), ("off", ("--stream-clusters", "off")),
+                ("512", ("--stream-clusters", "512")))
+
+
+def stream_phase(src: str, head: str, work: str, exec_bytes: dict,
+                 n_chunks: int) -> dict:
+    """stream (files-20k): ``consensus --qc-report --checkpoint`` on the
+    1.0 GB file as a subprocess at the default ``--stream-clusters auto``
+    (over 256 MB: it streams), ``off`` and ``512``: output, QC report and
+    manifest identical across the three and the executor phase's bytes,
+    ``n_chunks`` ``seg_mean`` and five times as many ``seg_scan``
+    launches each; each run's wall, phases and peak resident set; the
+    host library's byte index of the whole file timed, and on the
+    2,000-cluster head held to the Python scan."""
+    from specpride_tpu_torch.io import mgf, native
+
+    res = {}
+    # the resident set of a run on a 3-cluster file: the process, torch
+    # and the CUDA context, which every run below carries too
+    golden = os.path.join(ROOT, "tests", "data", "golden_clustered.mgf")
+    base = run_cli_rss("consensus", golden, os.path.join(work, "base.mgf"),
+                       "--qc-report", os.path.join(work, "base.qc.json"))
+    res["baseline"] = {"wall_s": base["wall_s"],
+                       "maxrss_kib": base["maxrss_kib"]}
+    t0 = time.perf_counter()
+    records, spans = native.index_mgf(src)
+    res["index_s"] = time.perf_counter() - t0
+    res["index_records"] = len(records)
+    if spans:
+        raise AssertionError(f"stream: the index found truncated {spans}")
+    del records
+    t0 = time.perf_counter()
+    head_native = native.index_mgf(head)
+    res["head_index_native_s"] = time.perf_counter() - t0
+    view = mgf.StreamedClusters(head, window=512)
+    t0 = time.perf_counter()
+    head_plain = (view._scan_plain(), view.malformed_spans)
+    res["head_index_plain_s"] = time.perf_counter() - t0
+    if head_native != head_plain:
+        raise AssertionError("stream: native index differs from the Python "
+                             "scan on the head")
+    res["head_index_records"] = len(head_native[0])
+    print(f"compare stream index: native = Python scan on the head "
+          f"({res['head_index_records']} records)", flush=True)
+    for mode, flags in STREAM_MODES:
+        paths = {k: os.path.join(work, f"stream_{mode}.{k}")
+                 for k in ("mgf", "ck.json", "qc.json")}
+        run = run_cli_rss(
+            "consensus", src, paths["mgf"], "--qc-report", paths["qc.json"],
+            "--checkpoint", paths["ck.json"], "--checkpoint-every",
+            str(EXEC_EVERY), *flags)
+        for key, path in paths.items():
+            with open(path, "rb") as fh:
+                if fh.read() != exec_bytes[key]:
+                    raise AssertionError(f"stream {mode}: {key} differs "
+                                         "from the executor phase's")
+            os.remove(path)
+        summary = run["summary"]
+        launches = summary["backend"]["launches"]
+        if launches != {"seg_mean": n_chunks, "seg_mean_heads": 0,
+                        "seg_scan": 5 * n_chunks}:
+            raise AssertionError(f"stream {mode}: launches {launches}")
+        res[mode] = {"wall_s": run["wall_s"],
+                     "maxrss_kib": run["maxrss_kib"],
+                     "phases_s": summary["phases_s"],
+                     "pipeline": summary.get("pipeline"),
+                     "launches": launches}
+        print(f"stream {mode} {json.dumps(res[mode])}", flush=True)
+    if not res["auto"]["maxrss_kib"] < res["off"]["maxrss_kib"]:
+        raise AssertionError("stream: the streamed run's peak RSS is not "
+                             "below the eager run's")
+    print(f"compare stream: output, QC report and manifest identical at "
+          f"--stream-clusters auto, off and 512 (= the executor phase's); "
+          f"peak RSS {res['auto']['maxrss_kib']} / {res['off']['maxrss_kib']}"
+          f" / {res['512']['maxrss_kib']} KiB (a 3-cluster run: "
+          f"{res['baseline']['maxrss_kib']})", flush=True)
+    return res
+
+
 def files_phase(kernels, clusters, slice_cos, cos_chunks: int,
                 exec_bytes: dict) -> dict:
     """files-20k, the file-to-file path on slice-20k's clusters, in a
@@ -1546,8 +1712,9 @@ def files_phase(kernels, clusters, slice_cos, cos_chunks: int,
     (its first FILES_CHECK_CLUSTERS clusters also by the numpy writer: the
     same bytes) and parsed back by the native parser (the head also by
     the Python parser: the spectra written, bit for bit); ``consensus
-    --qc-report`` on the file as a user runs it, its output and report
-    the executor phase's bytes; ``evaluate`` in process, launch counts
+    --qc-report`` on the file as a user runs it, streamed and eager
+    (``stream_phase``), its output, report and manifest the executor
+    phase's bytes; ``evaluate`` in process, launch counts
     zeroed just before (five ``seg_scan`` launches per cosine chunk, no
     ``seg_mean``), its cosines the slice phase's, its head against a
     ``--device cpu`` run; then ``consensus --single`` (bin-mean without
@@ -1612,24 +1779,19 @@ def files_phase(kernels, clusters, slice_cos, cos_chunks: int,
         print(f"compare files parsers: native (all {len(spectra)}) and "
               f"plain (head) = the spectra written", flush=True)
 
-        # 3. consensus from the file, as a user runs it
-        res["consensus_wall_s"], summary = run_cli(
-            "consensus", path("in.mgf"), path("out.mgf"), "--method",
-            "bin-mean", "--qc-report", path("qc.json"))
-        res["consensus_summary"] = summary
-        for name, key in (("out.mgf", "mgf"), ("qc.json", "qc.json")):
-            with open(path(name), "rb") as fh:
-                if fh.read() != exec_bytes[key]:
-                    raise AssertionError(f"files consensus: {name} differs "
-                                         "from the executor phase's")
+        # 3. consensus from the file, as a user runs it: streamed at the
+        # default, eager and in windows of 512
         n_chunks = -(-len(clusters) // EXEC_EVERY)
-        launches = summary["backend"]["launches"]
-        if launches != {"seg_mean": n_chunks, "seg_mean_heads": 0,
-                        "seg_scan": 5 * n_chunks}:
-            raise AssertionError(f"files consensus: launches {launches}")
-        res["consensus_launches"] = launches
-        print("compare files consensus: output and QC report = the executor "
-              "phase's bytes", flush=True)
+        res["stream"] = stream_phase(path("in.mgf"), path("head.mgf"), work,
+                                     exec_bytes, n_chunks)
+        # the user's run: the default
+        res["consensus_wall_s"] = res["stream"]["auto"]["wall_s"]
+        res["consensus_launches"] = {
+            k: sum(res["stream"][m]["launches"][k] for m, _ in STREAM_MODES)
+            for k in kernels.launches}
+        # the executor's output, for evaluate below
+        with open(path("out.mgf"), "wb") as fh:
+            fh.write(exec_bytes["mgf"])
 
         # 4. evaluate on the card, in process
         args = cli.build_parser().parse_args(
@@ -1858,6 +2020,330 @@ def kill_resume_phase(src: str) -> dict:
     return res
 
 
+def dirty_copy(src: str, dst: str) -> None:
+    """``src`` with a truncated block (no END IONS) after its 100th record
+    and, after its 1,000th, an unparseable record (a peak intensity that
+    is no number) of that record's cluster: the cluster keeps its other
+    members, so the eager and the streamed run chunk the same clusters (a
+    cluster whose only record is damaged stays in a streamed run's index,
+    empty, and is skipped; the eager run never sees it)."""
+    with open(src, encoding="utf-8") as fh:
+        blocks = fh.read().split("\n\n")
+    cid = blocks[999].split("TITLE=", 1)[1].split(";", 1)[0]
+    blocks.insert(1000, f"BEGIN IONS\nTITLE={cid};mzspec:PXD1:r:scan:999999"
+                        "\nPEPMASS=500.0\nCHARGE=2+\n123.4 banana\n"
+                        "END IONS")
+    blocks.insert(100, "BEGIN IONS\nTITLE=cluster-trunc;mzspec:PXD1:r:scan:"
+                       "8\nPEPMASS=500.0\n123.4 10.0")
+    with open(dst, "w", encoding="utf-8") as fh:
+        fh.write("\n\n".join(blocks))
+
+
+def run_main(*argv) -> dict:
+    """``cli.main(ARGV)`` in this process, as a caller of the package
+    runs it, the launch counts zeroed just before (its summary's
+    ``launches`` are then this run's): its exit code (1 for an exception,
+    SystemExit's code), wall, stderr and the run summary it prints last
+    there (None when there is none)."""
+    import contextlib
+    import io
+    import logging
+
+    from specpride_tpu_torch import cli
+    from specpride_tpu_torch.ops import kernels
+
+    err = io.StringIO()
+    handler = logging.StreamHandler(err)
+    log = logging.getLogger("specpride_tpu_torch")
+    log.addHandler(handler)
+    zero_launches(kernels)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(list(argv))
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else 1
+    except Exception as e:  # noqa: BLE001 - the run's failure, reported
+        rc = 1
+        err.write(f"{type(e).__name__}: {e}\n")
+    finally:
+        log.removeHandler(handler)
+    wall = time.perf_counter() - t0
+    text = err.getvalue()
+    lines = [ln for ln in text.strip().splitlines() if ln.startswith("{")]
+    return {"rc": rc, "wall_s": wall, "stderr": text,
+            "summary": json.loads(lines[-1]) if lines else None}
+
+
+def quarantine_phase(src: str) -> dict:
+    """quarantine (CLI-2k with one truncated and one unparseable block,
+    ``dirty_copy``): ``consensus --on-error skip`` in process, eager and
+    streamed in windows of 256: the same output and quarantine file
+    bytes, 2 quarantined, every cluster written; under ``--on-error
+    abort`` the run fails and leaves no quarantine file."""
+    from specpride_tpu_torch.io import mgf
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "quarantine")
+    os.makedirs(work, exist_ok=True)
+    dirty = os.path.join(work, "dirty.mgf")
+    dirty_copy(src, dirty)
+    res, got = {}, {}
+    for mode in ("off", "256"):
+        out = os.path.join(work, f"q_{mode}.mgf")
+        run = run_main("consensus", dirty, out, "--on-error", "skip",
+                       "--stream-clusters", mode, "--qc-report",
+                       out + ".qc.json")
+        if run["rc"] != 0:
+            raise AssertionError(f"quarantine {mode}: {run['stderr']}")
+        rb = run["summary"].get("robustness") or {}
+        if rb.get("quarantined") != 2:
+            raise AssertionError(f"quarantine {mode}: summary {rb}")
+        with open(out, "rb") as a, open(out + ".quarantine.mgf", "rb") as b:
+            got[mode] = (a.read(), b.read())
+        res[mode] = {"wall_s": run["wall_s"], "robustness": rb,
+                     "skipped": run["summary"].get("skipped_cluster_ids"),
+                     "quarantine_bytes": len(got[mode][1])}
+    if got["off"] != got["256"]:
+        bad = [what for what, a, b in zip(("output", "quarantine file"),
+                                          got["off"], got["256"]) if a != b]
+        raise AssertionError(f"quarantine: the eager and streamed runs' "
+                             f"{bad} differ")
+    text = got["off"][1].decode()
+    if "cluster-trunc" not in text or "banana" not in text:
+        raise AssertionError("quarantine: a damaged block is missing")
+    n_out = len(mgf.read_mgf(os.path.join(work, "q_off.mgf")))
+    if n_out != CLI_CLUSTERS:
+        raise AssertionError(f"quarantine: {n_out} of {CLI_CLUSTERS} "
+                             "clusters written")
+    out = os.path.join(work, "abort.mgf")
+    if os.path.exists(out + ".quarantine.mgf"):
+        os.remove(out + ".quarantine.mgf")
+    run = run_main("consensus", dirty, out)
+    if run["rc"] == 0 or os.path.exists(out + ".quarantine.mgf"):
+        raise AssertionError(f"quarantine abort: exit {run['rc']}")
+    res["abort"] = {"rc": run["rc"],
+                    "error": run["stderr"].strip().splitlines()[-1]}
+    print(f"compare quarantine: eager = streamed output and quarantine file "
+          f"({len(got['off'][1])} bytes, 2 blocks); abort fails "
+          f"({res['abort']['error']}) with no quarantine file", flush=True)
+    print(f"quarantine {json.dumps(res)}", flush=True)
+    return res
+
+
+CHAOS_FLAGS = ("--prefetch", "4", "--pack-workers", "3", "--retries", "3",
+               "--retry-backoff", "0.01", "--watchdog-timeout", "0.3")
+CHAOS_FAULTS = ("parse:io:1,pack:io:1:1,prepare:io:1:1,dispatch:oom:1:1,"
+                "d2h:io:1:1,qc:io:1:1,write:io:1:1,checkpoint_write:io:1:1,"
+                "dispatch:hang:1:2")
+CHAOS_EVERY = 128
+CHAOS_RUNS = (
+    # (name, command and flags, the fault plan, sites that must fire)
+    ("select medoid", ("select", "--method", "medoid"), CHAOS_FAULTS,
+     ("parse", "pack", "prepare", "dispatch", "d2h", "qc", "write",
+      "checkpoint_write")),
+    # the main path, every site but the split (the fused QC has no
+    # separate pass, so its `qc` site is never visited, as in the JAX
+    # package)
+    ("consensus bin-mean", ("consensus",),
+     CHAOS_FAULTS.replace("dispatch:oom:1:1", "dispatch:io:1:1"),
+     ("parse", "pack", "prepare", "dispatch", "d2h", "write",
+      "checkpoint_write")),
+)
+
+
+def chaos_phase(src: str) -> dict:
+    """chaos (CLI-2k, ``cli.main`` in process): ``select --method medoid
+    --qc-report`` with CHAOS_FLAGS and the fault plan CHAOS_FAULTS (an I/O
+    fault at every site, an OOM at the second dispatch, a hang at the
+    third), and the main path (``consensus --qc-report``) with the same
+    plan but an I/O fault for the OOM: output, manifest and QC report the
+    bytes of a clean run with the same flags; every site fired and was
+    recovered; the medoid run split a chunk and its watchdog broke the
+    hang; no reroute.  Then the main path with only the OOM: the split
+    chunk's halves run on the card at new flat layouts, and the output and
+    QC report are held to the clean run's at TOL and COS_TOL, their byte
+    differences counted."""
+    from specpride_tpu_torch.io import mgf
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "chaos")
+    os.makedirs(work, exist_ok=True)
+
+    def run(name, argv, *flags):
+        paths = {k: os.path.join(work, f"{name}.{k}")
+                 for k in ("mgf", "ck.json", "qc.json")}
+        for path in paths.values():
+            if os.path.exists(path):
+                os.remove(path)
+        r = run_main(argv[0], src, paths["mgf"], *argv[1:],
+                     "--qc-report", paths["qc.json"], "--checkpoint",
+                     paths["ck.json"], "--checkpoint-every",
+                     str(CHAOS_EVERY), *CHAOS_FLAGS, *flags)
+        if r["rc"] != 0:
+            raise AssertionError(f"chaos {name}: {r['stderr']}")
+        got = {}
+        for key, path in paths.items():
+            with open(path, "rb") as fh:
+                got[key] = fh.read()
+        return r["summary"], got, r["wall_s"]
+
+    res = {"launches": dict.fromkeys(("seg_mean", "seg_mean_heads",
+                                      "seg_scan"), 0)}
+    cleans = {}
+    for name, argv, plan, sites in CHAOS_RUNS:
+        tag = name.replace(" ", "_")
+        _, clean, clean_s = cleans[name] = run(tag + "_clean", argv)
+        summary, got, wall = run(tag, argv, "--inject-faults", plan)
+        if got != clean:
+            bad = [k for k in got if got[k] != clean[k]]
+            raise AssertionError(f"chaos {name}: {bad} differ from the "
+                                 "clean run's")
+        rb = summary.get("robustness") or {}
+        fired = (rb.get("faults") or {}).get("fired_by_site", {})
+        if (sorted(fired) != sorted(sites) or "degrade_reroutes" in rb
+                or rb.get("retries", 0) < len(sites)):
+            raise AssertionError(f"chaos {name}: robustness {rb}")
+        if name.startswith("select") and (
+                rb.get("degrade_splits", 0) < 1
+                or rb.get("watchdog_stalls", 0) < 1):
+            raise AssertionError(f"chaos {name}: robustness {rb}")
+        for k, v in summary["backend"]["launches"].items():
+            res["launches"][k] += v
+        res[name] = {"wall_s": wall, "clean_wall_s": clean_s,
+                     "robustness": rb,
+                     "launches": summary["backend"]["launches"]}
+        print(f"compare chaos {name}: output, manifest and QC report = the "
+              f"clean run's; fired {sorted(fired)}", flush=True)
+        print(f"chaos {name} {json.dumps(res[name])}", flush=True)
+
+    # the main path's split: held at the tolerances, byte changes counted
+    argv = ("consensus",)
+    _, clean, _ = cleans["consensus bin-mean"]
+    summary, got, wall = run("split", argv, "--inject-faults",
+                             "dispatch:oom:1:1")
+    rb = summary.get("robustness") or {}
+    if rb.get("degrade_splits", 0) < 1:
+        raise AssertionError(f"chaos split: robustness {rb}")
+    reps = {k: mgf.read_mgf(os.path.join(work, f"{k}.mgf"))
+            for k in ("split", "consensus_bin-mean_clean")}
+    reps["split_clean"] = reps.pop("consensus_bin-mean_clean")
+    check_same(reps["split"], reps["split_clean"], "chaos split vs clean")
+    rows = {k: json.loads(v["qc.json"])["clusters"]
+            for k, v in (("split", got), ("split_clean", clean))}
+    err = check_cosines([r["avg_cosine"] for r in rows["split"]],
+                        [r["avg_cosine"] for r in rows["split_clean"]],
+                        "chaos split vs clean")
+    res["bin-mean split"] = {
+        "wall_s": wall, "robustness": rb, "cosine_err": err,
+        "same_bytes": {k: got[k] == clean[k] for k in got},
+        "spectra_differing": sum(
+            a.intensity.tobytes() != b.intensity.tobytes()
+            for a, b in zip(reps["split"], reps["split_clean"])),
+        "cosines_differing": sum(
+            a["avg_cosine"] != b["avg_cosine"]
+            for a, b in zip(rows["split"], rows["split_clean"])),
+    }
+    for k, v in summary["backend"]["launches"].items():
+        res["launches"][k] += v
+    print(f"chaos bin-mean split {json.dumps(res['bin-mean split'])}",
+          flush=True)
+    return res
+
+
+OOM_CLUSTERS = 8_000  # one chunk of them: --checkpoint-every 8000
+
+
+def real_oom_phase(kernels) -> dict:
+    """real OOM: ``consensus --precision int8`` through the in-process
+    executor, one chunk of OOM_CLUSTERS clusters (about 11M peaks, one
+    flat batch), first clean; then the allocator capped
+    (``torch.cuda.set_per_process_memory_fraction``) halfway between the
+    chunk's device peak and its halves', so the whole chunk raises
+    ``torch.OutOfMemoryError`` on the dispatch lane: the run splits,
+    writes the clean run's bytes and counts ``degrade_splits`` >= 1.  The
+    int8 consensus because its card sums are of integer codes, exact in
+    float32 in any order, so a split leaves the bytes as they were (f32
+    sums round by layout: the chaos phase's split); the medoid's device
+    peak does not fall with the chunk (it works in bucket batches capped
+    by ``max_grid_elements``).  The peaks and the cap are printed.  Then,
+    on the same process's workspaces, ``seg_mean`` and ``seg_scan``
+    against their plain versions (a launch after the OOM reads no stale
+    tickets)."""
+    import torch
+
+    from specpride_tpu_torch.backends.torch_backend import TorchBackend
+    from specpride_tpu_torch.config import BinMeanConfig
+
+    clusters = make_workload(OOM_CLUSTERS, seed=7)
+    flags = ("--precision", "int8", "--checkpoint-every", str(OOM_CLUSTERS))
+    res = {"clusters": len(clusters),
+           "peaks": sum(c.total_peaks for c in clusters)}
+
+    def peak(fn) -> int:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    backend = TorchBackend(device=DEV, precision="int8")
+    mid = (len(clusters) + 1) // 2
+    res["peak_whole_b"] = peak(lambda: backend.run_bin_mean(
+        clusters, BinMeanConfig()))
+    res["peak_half_b"] = max(
+        peak(lambda: backend.run_bin_mean(clusters[:mid], BinMeanConfig())),
+        peak(lambda: backend.run_bin_mean(clusters[mid:], BinMeanConfig())))
+    if res["peak_whole_b"] < 1.5 * res["peak_half_b"]:
+        raise AssertionError(f"real OOM: no cap splits the chunk: {res}")
+    clean, clean_bytes = executor_run(kernels, clusters, "oom_clean",
+                                      "consensus", flags, qc=False)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    # over what the process holds now (the workspaces, the allocator's
+    # own), halfway between the halves' peak and the whole chunk's
+    cap = torch.cuda.memory_reserved() + (
+        res["peak_half_b"] + res["peak_whole_b"]) // 2
+    res["cap_b"] = cap
+    res["total_b"] = total
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    try:
+        run, got = executor_run(kernels, clusters, "oom", "consensus",
+                                flags + ("--retry-backoff", "0.01"),
+                                qc=False)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+    if got != clean_bytes:
+        raise AssertionError("real OOM: bytes differ from the clean run's")
+    rb = run.get("robustness") or {}
+    if rb.get("degrade_splits", 0) < 1 or "degrade_reroutes" in rb:
+        raise AssertionError(f"real OOM: robustness {rb}")
+    res["robustness"] = rb
+    res["launches"] = run["launches"]
+    res["wall_s"], res["clean_wall_s"] = run["wall_s"], clean["wall_s"]
+    # the kernels after the OOM, on this process's workspaces
+    errs = []
+    for n, nv in ((KERNEL_N, 1), (PATH_N, 2)):
+        keys, w, values = kernel_inputs(n, nv, seed=nv)
+        args = [torch.from_numpy(a).to(DEV) for a in (keys, w, *values)]
+        errs.append(compare(kernels.seg_mean(*args),
+                            kernels.seg_mean_plain(*args),
+                            f"after OOM seg_mean n={n} nv={nv}", True))
+        heads = torch.ones(n, dtype=torch.bool, device=DEV)
+        heads[1:] = args[0][1:] != args[0][:-1]
+        errs.append(compare(kernels.seg_scan(heads, *args[2:]),
+                            kernels.seg_scan_plain(heads, *args[2:]),
+                            f"after OOM seg_scan n={n} nc={nv}", False))
+    res["after_oom_max_abs_err"] = [e for e, _ in errs]
+    print(f"compare real OOM: split run = clean bytes; kernels match their "
+          f"plain versions after it", flush=True)
+    print(f"real_oom {json.dumps(res)}", flush=True)
+    return res
+
+
+
 def same_as_cpu_select(golden, dst, qc, flags, work, what) -> dict:
     """The card's ``select`` output against the port's ``--device cpu``
     run with the same flags: the same bytes; a QC report with the same
@@ -1891,6 +2377,14 @@ def same_as_cpu_select(golden, dst, qc, flags, work, what) -> dict:
 
 
 def main() -> int:
+    start_launcher()  # before torch: see LAUNCHER
+    try:
+        return smoke()
+    finally:
+        stop_launcher()
+
+
+def smoke() -> int:
     import torch
 
     start = time.perf_counter()
@@ -1944,16 +2438,22 @@ def main() -> int:
     del clusters, slice_reps
     pres = path_scan_phase(kernels, sres.pop("scan_shapes"))
     cres = cli_phase()
-    killres = kill_resume_phase(
-        os.path.join(ROOT, "build", "chip_smoke", "in.mgf"))
+    cli_src = os.path.join(ROOT, "build", "chip_smoke", "in.mgf")
+    killres = kill_resume_phase(cli_src)
+    quarres = quarantine_phase(cli_src)
+    chaosres = chaos_phase(cli_src)
+    oomres = real_oom_phase(kernels)
 
     main_case = mres["cases"][0]
     path_case = pres["cases"][0]
     (heads_case,) = [c for c in hres["cases"] if c["case"] == HEAD_MAIN]
     # launches: the main path's runs, through the CLI's chunked executor
     # at its defaults (bin-mean with QC, select medoid with QC, gap f32
-    # and bin-mean int8), and the files phase's consensus and evaluate
+    # and bin-mean int8), the files phase's three consensus runs (streamed
+    # and eager) and evaluate, the chaos runs and the real OOM run
     main_run = exres["defaults"]["launches"]
+    robust = {k: chaosres["launches"][k] + oomres["launches"][k]
+              for k in main_run}
     heads_launches = sum(exres[what]["launches"]["seg_mean_heads"]
                          for what in ("gap f32", "bin-mean int8"))
     entries = [{
@@ -1962,7 +2462,8 @@ def main() -> int:
         "source": "specpride_tpu_torch/ops/csrc/seg_mean.cu",
         "replaces": "specpride_tpu/ops/pallas_kernels.py:187",
         "launches": (main_run["seg_mean"]
-                     + fres["consensus_launches"]["seg_mean"]),
+                     + fres["consensus_launches"]["seg_mean"]
+                     + robust["seg_mean"]),
         "max_abs_err": max(c["max_abs_err"] for c in mres["cases"]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -1974,7 +2475,7 @@ def main() -> int:
         "route": "cuda",
         "source": "specpride_tpu_torch/ops/csrc/seg_mean.cu",
         "replaces": "specpride_tpu/ops/pallas_kernels.py:187",
-        "launches": heads_launches,
+        "launches": heads_launches + robust["seg_mean_heads"],
         "max_abs_err": max(c["max_abs_err"] for c in hres["cases"]),
         "ms": heads_case["ms"],
         "plain_ms": heads_case["plain_ms"],
@@ -1989,7 +2490,8 @@ def main() -> int:
         "launches": (main_run["seg_scan"]
                      + exres["medoid"]["launches"]["seg_scan"]
                      + fres["consensus_launches"]["seg_scan"]
-                     + fres["evaluate_launches"]["seg_scan"]),
+                     + fres["evaluate_launches"]["seg_scan"]
+                     + robust["seg_scan"]),
         "max_abs_err": max(
             c["max_abs_err"] for c in kres["cases"] + pres["cases"]
         ),
@@ -2010,6 +2512,8 @@ def main() -> int:
                    "select": selres, "path_scan": pres,
                    "host_sorts": sortres, "executor": exres,
                    "files": fres, "cli": cres, "kill_resume": killres,
+                   "quarantine": quarres, "chaos": chaosres,
+                   "real_oom": oomres,
                    "build": info.get("seconds"),
                    "wall_s": time.perf_counter() - start}, fh, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -62,6 +62,7 @@ from specpride_tpu_torch.data.packed import (
 )
 from specpride_tpu_torch.data.peaks import Cluster, Spectrum
 from specpride_tpu_torch.ops import binning, gap_average, quantize, similarity
+from specpride_tpu_torch.robustness import faults
 from specpride_tpu_torch.ops.segsort import (
     searchsorted_right_i32,
     seg_argsort,
@@ -177,9 +178,15 @@ class TorchBackend:
         ``SpectraTable``.  No device call and no write to the backend, so
         pack workers may call it side by side on distinct chunks.  Its
         seconds go to ``phases`` (default: a new dict), kept as the
-        chunk's ``phases``.  None for a method without a pack stage."""
+        chunk's ``phases``.  None for a method without a pack stage.
+        The ``prepare`` fault site."""
         if not self.supports_prepare(method):
             return None
+        faults.check("prepare")
+        return self._prepare(method, clusters, config, cos_config, phases)
+
+    def _prepare(self, method, clusters, config, cos_config=None,
+                 phases=None) -> PreparedChunk:
         prepared = PreparedChunk(method, clusters, config, cos_config,
                                  phases={} if phases is None else phases)
         if method == "bin-mean":
@@ -195,7 +202,12 @@ class TorchBackend:
     ) -> tuple[list[Spectrum], np.ndarray | None]:
         """Phase 2, on the dispatch lane: the chunk's device work and
         finalize.  Returns ``(representatives, cosines or None)``; cosines
-        for bin-mean prepared with a ``cos_config``."""
+        for bin-mean prepared with a ``cos_config``.  The ``dispatch``
+        fault site."""
+        faults.check("dispatch")
+        return self._run_prepared(prepared)
+
+    def _run_prepared(self, prepared: PreparedChunk):
         self._merge_prepared(prepared)
         if prepared.method == "bin-mean":
             return self._finish_bin_mean(prepared)
@@ -262,8 +274,14 @@ class TorchBackend:
     ) -> list[Spectrum]:
         """One consensus spectrum per cluster, in input order (ref
         src/binning.py:291-297)."""
-        return self.run_prepared(
-            self.prepare_chunk("bin-mean", clusters, config))[0]
+        return self._one_shot("bin-mean", clusters, config)[0]
+
+    def _one_shot(self, method: str, clusters, config, cos_config=None):
+        """A one-shot entry: one ``dispatch`` fault-site visit (as the
+        JAX package's ``run_*``), then both phases."""
+        faults.check("dispatch")
+        return self._run_prepared(
+            self._prepare(method, clusters, config, cos_config))
 
     def _prepare_bin_mean(self, prepared: PreparedChunk) -> None:
         """The flat pack and each chunk's host run pass and host tensors;
@@ -323,7 +341,9 @@ class TorchBackend:
 
     def _fetch(self, phase: str, t: torch.Tensor) -> np.ndarray:
         """``t`` copied to the host; the time goes to
-        ``phase_seconds[phase]`` and the bytes to ``d2h_bytes[phase]``."""
+        ``phase_seconds[phase]`` and the bytes to ``d2h_bytes[phase]``.
+        The ``d2h`` fault site."""
+        faults.check("d2h")
         t0 = time.perf_counter()
         out = t.cpu().numpy()
         self.phase_seconds[phase] += time.perf_counter() - t0
@@ -455,8 +475,7 @@ class TorchBackend:
         the host in float64, their means, quorum and dynamic-range floor on
         the card; precursor m/z, charge and RT from the configured
         estimators."""
-        return self.run_prepared(
-            self.prepare_chunk("gap-average", clusters, config))[0]
+        return self._one_shot("gap-average", clusters, config)[0]
 
     def _prepare_gap_average(self, prepared: PreparedChunk) -> None:
         check_no_empty(prepared.clusters)
@@ -525,7 +544,7 @@ class TorchBackend:
         host in float64 (``medoid_finalize``), so ties go to the lowest
         index as in the oracle.  A batch is cut into chunks whose (rows, R,
         M) float32 occupancy stays within ``max_grid_elements``."""
-        prepared = self.prepare_chunk("medoid", clusters, config)
+        prepared = self._prepare("medoid", clusters, config)
         self._merge_prepared(prepared)
         return self._finish_medoid(prepared)
 
@@ -611,8 +630,7 @@ class TorchBackend:
         self, clusters: list[Cluster], config: MedoidConfig = MedoidConfig()
     ) -> list[Spectrum]:
         """The medoid member of each cluster, in input order."""
-        return self.run_prepared(
-            self.prepare_chunk("medoid", clusters, config))[0]
+        return self._one_shot("medoid", clusters, config)[0]
 
     def run_best_spectrum(
         self,
@@ -635,8 +653,7 @@ class TorchBackend:
         """Consensus and QC: the bin-mean representatives and each one's
         mean binned cosine to its cluster's members, the QC member prep on
         the consensus pack's ``SpectraTable``."""
-        return self.run_prepared(self.prepare_chunk(
-            "bin-mean", clusters, bin_config, cos_config))
+        return self._one_shot("bin-mean", clusters, bin_config, cos_config)
 
     def average_cosines(
         self,

@@ -77,13 +77,21 @@ from specpride_tpu_torch.io.maxquant import (
     read_msms_scores,
     read_percolator_scores,
 )
-from specpride_tpu_torch.io.mgf import read_mgf, truncate_tail, write_mgf
+from specpride_tpu_torch.io.mgf import (
+    StreamedClusters,
+    read_mgf,
+    truncate_tail,
+    write_mgf,
+)
 from specpride_tpu_torch.io.mzml import read_mzml_scans
 from specpride_tpu_torch.ops import kernels, quantize
+from specpride_tpu_torch.robustness import errors, faults
+from specpride_tpu_torch.robustness.harness import Harness
 from specpride_tpu_torch.robustness.integrity import (
     OutputIntegrity,
     manifest_payload,
 )
+from specpride_tpu_torch.robustness.quarantine import Quarantine
 
 logger = logging.getLogger("specpride_tpu_torch")
 
@@ -234,17 +242,65 @@ def _add_common(p: argparse.ArgumentParser, what: str) -> None:
         "--on-error", choices=["abort", "skip"], default="abort",
         help="a failed chunk aborts the run, or (skip) is retried cluster "
         "by cluster and the failing clusters are recorded and skipped (a "
-        "failed QC pass then omits its rows from the report)",
+        "failed QC pass then omits its rows from the report); skip also "
+        "diverts malformed MGF records to <output>.quarantine.mgf",
     )
+    p.add_argument(
+        "--stream-clusters", default="auto", metavar="N|auto|off",
+        help="bounded-memory ingest: parse member spectra in windows of N "
+        "clusters off a byte index instead of loading the whole MGF "
+        "(default auto: streams inputs over 256 MB)",
+    )
+    p.add_argument(
+        "--retries", type=int, default=2, metavar="N",
+        help="retry transient failures (I/O errors, device memory "
+        "pressure, lane hangs) up to N times per stage with exponential "
+        "backoff + deterministic jitter; permanent errors (malformed "
+        "input, sticky CUDA errors) never retry (default 2; 0 disables)",
+    )
+    p.add_argument(
+        "--retry-backoff", type=float, default=0.05, metavar="BASE",
+        help="base backoff seconds: retry i sleeps BASE * 2^i * "
+        "(1 + jitter) (default 0.05)",
+    )
+    p.add_argument(
+        "--no-degrade", action="store_true",
+        help="disable graceful degradation: without it a device OOM "
+        "splits the chunk in half and re-dispatches (floor 1 cluster)",
+    )
+    p.add_argument(
+        "--watchdog-timeout", type=float, default=0.0, metavar="S",
+        help="per-lane stall watchdog: a lane section (pack / dispatch / "
+        "write) busy longer than S seconds is counted and logged, and "
+        "breaks injected hangs so the retry policy recovers them "
+        "(default 0 = off)",
+    )
+    p.add_argument(
+        "--inject-faults", metavar="SPEC",
+        help="deterministic fault injection for chaos testing: "
+        "comma list of SITE:KIND:RATE[:AFTER[:MAX]] — sites "
+        f"{{{','.join(faults.SITES)}}}, kinds "
+        f"{{{','.join(faults.KINDS)}}}; the run summary counts "
+        "every fired fault (the SPECPRIDE_FAULTS env var arms a child "
+        "process instead)",
+    )
+    p.add_argument(
+        "--fault-seed", type=int, default=0, metavar="N",
+        help="seed for --inject-faults firing decisions and retry "
+        "jitter: same plan + seed fires at the same visits every run",
+    )
+
+
+def _host_cores() -> int:
+    try:
+        return len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):
+        return os.cpu_count() or 1
 
 
 def _default_pack_workers() -> int:
     """Default ``--pack-workers``: min(4, cores/4), at least 1."""
-    try:
-        cores = len(os.sched_getaffinity(0))
-    except (AttributeError, OSError):
-        cores = os.cpu_count() or 1
-    return max(1, min(4, cores // 4))
+    return max(1, min(4, _host_cores() // 4))
 
 
 class RunStats:
@@ -257,6 +313,8 @@ class RunStats:
         self.phases: dict[str, float] = defaultdict(float)
         # the executor's lane summary (``_checkpointed_run``), or None
         self.pipeline: dict | None = None
+        # the robustness layer's counts (``Harness.summary``), or None
+        self.robustness: dict | None = None
         self._start = time.perf_counter()
 
     def count(self, name: str, n: int = 1) -> None:
@@ -294,6 +352,7 @@ class RunStats:
             "counters": dict(self.counters),
             "phases_s": {k: round(v, 3) for k, v in self.phases.items()},
             **({"pipeline": self.pipeline} if self.pipeline else {}),
+            **({"robustness": self.robustness} if self.robustness else {}),
         }
 
 
@@ -387,6 +446,14 @@ def _cosine_config(args) -> CosineConfig:
     return CosineConfig(normalization=args.qc_normalization)
 
 
+def _cluster_ids(clusters) -> list[str]:
+    """The ids in order: off a streamed input's byte index (nothing
+    parsed), else from the clusters."""
+    if isinstance(clusters, StreamedClusters):
+        return clusters.cluster_ids
+    return [c.cluster_id for c in clusters]
+
+
 def _append_qc_rows(qc: list, clusters, cosines) -> None:
     qc.extend(
         {"cluster_id": c.cluster_id, "n_members": c.n_members,
@@ -429,15 +496,16 @@ def _write_qc_report(args, backend: TorchBackend, clusters, qc: list,
     (scoreless best-spectrum, ``--on-error skip``) are no reason to
     re-read the output."""
     have = {row["cluster_id"] for row in qc}
-    ids = [c.cluster_id for c in clusters]
-    missing = [c for c in clusters
-               if c.cluster_id in resumed_ids and c.cluster_id not in have]
+    ids = _cluster_ids(clusters)
+    # by index: a streamed input parses only the windows it needs
+    missing = [i for i, cid in enumerate(ids)
+               if cid in resumed_ids and cid not in have]
     if missing:
         reps_by_id = {s.cluster_id: s for s in read_mgf(args.output)}
         w = args.checkpoint_every if args.checkpoint else len(missing)
         for b0 in range(0, len(missing), w):
-            pairs = [(reps_by_id[c.cluster_id], c)
-                     for c in missing[b0 : b0 + w]
+            batch = [clusters[i] for i in missing[b0 : b0 + w]]
+            pairs = [(reps_by_id[c.cluster_id], c) for c in batch
                      if c.cluster_id in reps_by_id and c.n_members > 0]
             if pairs:
                 kept = [c for _, c in pairs]
@@ -498,21 +566,33 @@ def _serial_chunks(clusters, worklist):
 
 
 def _pack_chunk(clusters, chunk_index: int, idxs: list, prepare,
-                method: str, config, cos_config):
+                method: str, config, cos_config, harness: Harness):
     """THE pack stage, the one copy every pack worker runs: the chunk's
-    clusters and the backend's host pack
-    (``prepare_chunk``) into a private RunStats.  An exception is kept on
-    the item for the dispatch lane's ``--on-error`` policy.  Returns
-    ``(item, busy seconds)``."""
+    clusters (on a streamed input, the MGF window parse) and the backend's
+    host pack (``prepare_chunk``) into a private RunStats, retried whole
+    at ``pack`` on a transient error (both halves are pure functions of
+    the chunk).  The ``parse`` site fires before the clusters are made,
+    ``pack`` before the backend's pack, ``prepare`` inside it.  An error
+    that outlives the retries is kept on the item for the dispatch lane's
+    ``--on-error`` policy.  Returns ``(item, busy seconds)``."""
     item = _ChunkItem(chunk_index, idxs)
     item.pack_stats = RunStats()
     t0 = time.perf_counter()
+
+    def _stage() -> None:
+        # the watchdog section covers one attempt: the backoff between
+        # attempts is no stall
+        with harness.section("pack"):
+            faults.check("parse")
+            item.part = [clusters[i] for i in idxs]
+            faults.check("pack")
+            if prepare is not None and item.part:
+                item.prepared = prepare(method, item.part, config,
+                                        cos_config=cos_config,
+                                        phases=item.pack_stats.phases)
+
     try:
-        item.part = [clusters[i] for i in idxs]
-        if prepare is not None and item.part:
-            item.prepared = prepare(method, item.part, config,
-                                    cos_config=cos_config,
-                                    phases=item.pack_stats.phases)
+        harness.retry_call("pack", _stage)
     except Exception as e:  # noqa: BLE001 - raised on the dispatch lane
         item.error = e
     return item, time.perf_counter() - t0
@@ -544,7 +624,8 @@ def _bounded_put(q: queue.Queue, stop: threading.Event, obj) -> bool:
 
 
 def _pooled_chunks(clusters, worklist, backend, method, args, prefetch: int,
-                   want_qc: bool, n_workers: int, lanes: dict):
+                   want_qc: bool, n_workers: int, lanes: dict,
+                   harness: Harness):
     """``--prefetch P --pack-workers N``, the counterpart of both the JAX
     package's ``_pipelined_chunks`` (its ``--pack-workers 0``, run here as
     one worker) and its ``_pooled_chunks``: N threads pack distinct chunks
@@ -558,6 +639,12 @@ def _pooled_chunks(clusters, worklist, backend, method, args, prefetch: int,
     prepare, config, cos_config = _lane_inputs(backend, method, args,
                                                want_qc)
     n_workers = max(1, min(n_workers, len(worklist)))
+    if isinstance(clusters, StreamedClusters):
+        # one window slot per worker plus the dispatch lane's walk again
+        # under --on-error skip, so the workers' lookahead never thrashes;
+        # and the host's cores shared among the workers' window parses
+        clusters.cache_slots = max(clusters.cache_slots, n_workers + 1)
+        clusters.parse_threads = max(1, _host_cores() // n_workers)
     admit = threading.Semaphore(max(prefetch, n_workers))
     stop = threading.Event()
     cond = threading.Condition()
@@ -582,7 +669,7 @@ def _pooled_chunks(clusters, worklist, backend, method, args, prefetch: int,
                 chunk_index, idxs = worklist[seq]
                 item, elapsed = _pack_chunk(clusters, chunk_index, idxs,
                                             prepare, method, config,
-                                            cos_config)
+                                            cos_config, harness)
                 busy[wid] += elapsed
                 with cond:
                     buf[seq] = item
@@ -727,16 +814,34 @@ class _CommitItem:
 
 def _commit_chunk(item: _CommitItem, args, stats: RunStats, qc: list,
                   done: set, first_write: bool,
-                  integrity: OutputIntegrity) -> None:
+                  integrity: OutputIntegrity, harness: Harness) -> None:
     """THE commit protocol, the one copy the inline tail of
     ``_checkpointed_run`` and the ``_Committer`` lane run: the QC rows,
     the MGF append, the counters, then (with a checkpoint) the atomic
     schema-2 manifest replace, strictly after the append: a kill between
-    the two leaves output past the manifest, which a resume truncates."""
+    the two leaves output past the manifest, which a resume truncates.
+    The append retries at ``write``, each retry after truncating a
+    partial append back to the offset before it (so no record is written
+    twice); the manifest replace retries at ``checkpoint_write``."""
     if item.qc_rows:
         qc.extend(item.qc_rows)
-    with stats.phase("write"):
-        write_mgf(item.reps, args.output, append=not first_write)
+    pre_bytes = (os.path.getsize(args.output)
+                 if not first_write and os.path.exists(args.output) else 0)
+
+    def _append() -> None:
+        with harness.section("write"):
+            faults.check("write")
+            with stats.phase("write"):
+                write_mgf(item.reps, args.output, append=not first_write)
+
+    def _undo_partial_append() -> None:
+        # a first write reopens with mode "w": its truncation is built in
+        if (not first_write and os.path.exists(args.output)
+                and os.path.getsize(args.output) > pre_bytes):
+            with open(args.output, "r+b") as fh:
+                fh.truncate(pre_bytes)
+
+    harness.retry_call("write", _append, before_retry=_undo_partial_append)
     output_bytes = os.path.getsize(args.output)
     if first_write:
         integrity.reset()
@@ -745,11 +850,16 @@ def _commit_chunk(item: _CommitItem, args, stats: RunStats, qc: list,
     stats.count("representatives", len(item.reps))
     done.update(item.part_ids)
     if args.checkpoint:
-        tmp = args.checkpoint + ".tmp"
-        with open(tmp, "w") as fh:
-            json.dump(manifest_payload(done, output_bytes, integrity,
-                                       failed=item.failed), fh)
-        os.replace(tmp, args.checkpoint)
+        def _replace_manifest() -> None:
+            with harness.section("write"):
+                faults.check("checkpoint_write")
+                tmp = args.checkpoint + ".tmp"
+                with open(tmp, "w") as fh:
+                    json.dump(manifest_payload(done, output_bytes, integrity,
+                                               failed=item.failed), fh)
+                os.replace(tmp, args.checkpoint)
+
+        harness.retry_call("checkpoint_write", _replace_manifest)
 
 
 class _Committer:
@@ -763,8 +873,9 @@ class _Committer:
     keeps draining its queue after one."""
 
     def __init__(self, args, qc: list, done: set, first_write: bool,
-                 depth: int, integrity: OutputIntegrity):
+                 depth: int, integrity: OutputIntegrity, harness: Harness):
         self._args = args
+        self._harness = harness
         self._qc = qc
         self._done = done
         self._first_write = first_write
@@ -795,7 +906,7 @@ class _Committer:
             try:
                 _commit_chunk(item, self._args, self.stats, self._qc,
                               self._done, self._first_write,
-                              self._integrity)
+                              self._integrity, self._harness)
                 self._first_write = False
             except BaseException as e:  # noqa: BLE001 - re-raised on submit
                 self.error = e
@@ -820,26 +931,77 @@ class _Committer:
 
 
 def _dispatch_chunk(backend: TorchBackend, method: str, item: _ChunkItem,
-                    part, args, stats: RunStats, scores, chunk_qc):
+                    part, args, stats: RunStats, scores, chunk_qc,
+                    harness: Harness):
     """The chunk's device work on the dispatch lane: ``run_prepared`` of
-    what the pack lane prepared, else the one-shot method."""
+    what the pack lane prepared, else the one-shot method, under the
+    recovery ladder (steps 1, 2 and 4 of the JAX package's), per
+    (sub-)chunk:
+
+    1. **Split on OOM**: a device allocation failure on a chunk of several
+       clusters halves it and dispatches each half through the one-shot
+       path (every method is per cluster), down to single clusters.
+    2. **Retry with backoff**: a transient error (I/O, a hang the watchdog
+       broke, an OOM that cannot be split) runs the same dispatch again,
+       up to ``--retries`` times.
+    3. **Surface**: anything else, and what outlives the retries, goes to
+       ``--on-error``; a permanent error (malformed input, a sticky CUDA
+       error) skips the ladder.
+
+    ``--no-degrade`` turns off step 1.  Nothing reroutes a chunk off the
+    card (the JAX package's step 3 runs it in numpy)."""
+    policy = harness.policy
+    config, cos_config = method_config(args), _cosine_config(args)
+
+    def _run_parts(sub_part, prepared):
+        attempt = 0
+        while True:
+            split = None
+            try:
+                with harness.section("dispatch"):
+                    if prepared is not None:
+                        reps, cosines = backend.run_prepared(prepared)
+                        if chunk_qc is not None and cosines is not None:
+                            _append_qc_rows(chunk_qc, sub_part, cosines)
+                        return reps
+                    return _run_method(backend, method, sub_part, config,
+                                       scores, chunk_qc, cos_config)
+            except Exception as e:  # noqa: BLE001 - the ladder classifies
+                if (harness.degrade and errors.is_oom(e)
+                        and len(sub_part) > 1):
+                    split = f"{type(e).__name__}: {e}"
+                elif attempt < policy.retries and errors.is_transient(e):
+                    wait = policy.backoff_s("dispatch", attempt)
+                    policy.note_retry("dispatch", attempt, e, wait)
+                else:
+                    raise
+            # out of the except block: the error's traceback, and with it
+            # the failed attempt's tensors, is released before the card is
+            # asked for memory again
+            if split is not None:
+                harness.note_degrade("split", split, item.index,
+                                     len(sub_part))
+                logger.warning("device OOM on a %d-cluster chunk (%s); "
+                               "splitting in half", len(sub_part), split)
+                mid = (len(sub_part) + 1) // 2
+                return (_run_parts(sub_part[:mid], None)
+                        + _run_parts(sub_part[mid:], None))
+            if wait > 0:
+                time.sleep(wait)
+            attempt += 1
+
     with stats.phase("compute"):
-        if item.prepared is not None:
-            reps, cosines = backend.run_prepared(item.prepared)
-            if chunk_qc is not None and cosines is not None:
-                _append_qc_rows(chunk_qc, part, cosines)
-            return reps
-        return _run_method(backend, method, part, method_config(args),
-                           scores, chunk_qc, _cosine_config(args))
+        return _run_parts(part, item.prepared)
 
 
-def _read_manifest(args, integ: OutputIntegrity):
+def _read_manifest(args, integ: OutputIntegrity, harness: Harness):
     """The resume state of ``args.checkpoint``: ``(done, output_bytes,
     restarted, prior_failed)``, each unusable state repaired as the JAX
     package does: an unreadable manifest, a missing output, an output
     shorter than the manifest, a ragged boundary without a hash and a
-    sha256 mismatch restart; a torn tail is truncated back.  Seeds
-    ``integ`` with the committed prefix."""
+    sha256 mismatch restart; a torn tail is truncated back.  Each repair
+    the JAX package counts is counted on ``harness``.  Seeds ``integ``
+    with the committed prefix."""
     done: set[str] = set()
     output_bytes: int | None = None  # None: the manifest has no offset
     restarted = False
@@ -855,6 +1017,7 @@ def _read_manifest(args, integ: OutputIntegrity):
     except (ValueError, UnicodeDecodeError) as e:
         logger.warning("checkpoint %s is unreadable (%s); restarting from "
                        "scratch", args.checkpoint, e)
+        harness.note_repair()
         return set(), 0, True, []
     done = set(manifest.get("done", []))
     prior_failed = list(manifest.get("failed", []))
@@ -868,6 +1031,7 @@ def _read_manifest(args, integ: OutputIntegrity):
                        args.output)
         # no output on disk: nothing a redo could duplicate, so this
         # restart is safe even under --append
+        harness.note_repair()
         return set(), 0, restarted, []
     if output_bytes is not None and out_size is not None:
         if out_size < output_bytes:
@@ -876,11 +1040,13 @@ def _read_manifest(args, integ: OutputIntegrity):
             logger.warning("output %s is %d bytes but the manifest recorded "
                            "%d; restarting from scratch", args.output,
                            out_size, output_bytes)
+            harness.note_repair()
             return set(), 0, True, []
         if out_size > output_bytes:
             logger.info("dropping %d output bytes past the manifest "
                         "(interrupted chunk)", out_size - output_bytes)
             clean = truncate_tail(args.output, output_bytes)
+            harness.note_repair()
             if not clean and not manifest.get("sha256"):
                 logger.warning("truncated output does not end on a record "
                                "boundary and the manifest has no sha256; "
@@ -894,13 +1060,15 @@ def _read_manifest(args, integ: OutputIntegrity):
         if want and got != want:
             logger.warning("output %s fails the manifest's sha256 check; "
                            "restarting from scratch", args.output)
+            harness.note_repair()
             integ.reset()
             return set(), 0, True, []
     return done, output_bytes, restarted, prior_failed
 
 
 def _checkpointed_run(backend: TorchBackend, method: str, clusters, args,
-                      stats: RunStats, scores=None, qc: list | None = None):
+                      stats: RunStats, scores=None, qc: list | None = None,
+                      quarantine: Quarantine | None = None):
     """Chunked execution with a resume manifest.
 
     Each chunk appends to the output FIRST, then the manifest records
@@ -909,10 +1077,28 @@ def _checkpointed_run(backend: TorchBackend, method: str, clusters, args,
     resume truncates before appending, so no chunk is written twice.
     Chunks are consumed in order whatever the lanes, and every method is
     per cluster, so pipelined and serial runs write the same bytes.
-    Returns ``(resumed ids, failed ids, QC-failed ids)``."""
+
+    The run owns a robustness ``Harness`` (``--retries``,
+    ``--inject-faults``, ``--watchdog-timeout``, ``--no-degrade``): its
+    counts, with the ``quarantine``'s, go to ``stats.robustness`` however
+    the run ends, and it is closed (the fault plan disarmed) in a
+    ``finally``.  Returns ``(resumed ids, failed ids, QC-failed ids)``."""
+    harness = Harness.from_args(args)
+    try:
+        return _checkpointed_run_impl(backend, method, clusters, args, stats,
+                                      scores, qc, harness)
+    finally:
+        stats.robustness = harness.summary(
+            quarantined=quarantine.count if quarantine is not None else 0)
+        harness.close()
+
+
+def _checkpointed_run_impl(backend: TorchBackend, method: str, clusters,
+                           args, stats: RunStats, scores, qc, harness):
     integ = OutputIntegrity()
-    done, output_bytes, restarted, prior_failed = _read_manifest(args, integ)
-    ids = [c.cluster_id for c in clusters]
+    done, output_bytes, restarted, prior_failed = _read_manifest(
+        args, integ, harness)
+    ids = _cluster_ids(clusters)
     todo_idx = [i for i, cid in enumerate(ids) if cid not in done]
     resumed_ids = set(done)  # skipped this run (the QC recomputes these)
     stats.count("clusters_skipped_done", len(ids) - len(todo_idx))
@@ -935,12 +1121,18 @@ def _checkpointed_run(backend: TorchBackend, method: str, clusters, args,
         # the whole output
         integ.seed_file(args.output, output_bytes if output_bytes is not None
                         else os.path.getsize(args.output))
-    # chunk size: the checkpoint interval; without a checkpoint, the same
-    # when the executor can pack this method ahead, else one chunk
+    # chunk size: the checkpoint interval, with or without a checkpoint
+    # when the executor can pack this method ahead or the input is streamed
+    # (a streamed run stays bounded in memory), else one chunk.  Not the
+    # stream's window, as in the JAX package: the chunks set the flat
+    # layouts the card's float32 sums round by, so a streamed and a whole
+    # read of one input with the same flags chunk alike and write the same
+    # bytes.
     prefetch = max(int(args.prefetch or 0), 0)
     can_prepare = prefetch > 0 and backend.supports_prepare(method)
     chunk = (args.checkpoint_every if args.checkpoint or can_prepare
-             else 0) or len(todo_idx) or 1
+             or isinstance(clusters, StreamedClusters) else 0
+             ) or len(todo_idx) or 1
 
     if not todo_idx:
         # still produce an output file ('a' creates without truncating)
@@ -962,7 +1154,7 @@ def _checkpointed_run(backend: TorchBackend, method: str, clusters, args,
         # --pack-workers 0 (the JAX package's single packer) is one worker
         items = _pooled_chunks(clusters, worklist, backend, method, args,
                                prefetch, qc is not None, max(n_workers, 1),
-                               lanes)
+                               lanes, harness)
     else:
         items = _serial_chunks(clusters, worklist)
     h2d_slots = max(int(args.h2d_buffer or 0), 0)
@@ -971,7 +1163,7 @@ def _checkpointed_run(backend: TorchBackend, method: str, clusters, args,
         items = _h2d_staged_chunks(items, backend, h2d_slots, lanes)
     committer = (
         _Committer(args, qc if qc is not None else [], done, first_write,
-                   depth=max(prefetch, 1), integrity=integ)
+                   depth=max(prefetch, 1), integrity=integ, harness=harness)
         if worklist and (args.async_write == "on"
                          or (args.async_write == "auto" and pipelined))
         else None
@@ -992,16 +1184,21 @@ def _checkpointed_run(backend: TorchBackend, method: str, clusters, args,
                 if item.error is not None:
                     raise item.error
                 reps = _dispatch_chunk(backend, method, item, part, args,
-                                       stats, scores, chunk_qc)
+                                       stats, scores, chunk_qc, harness)
             except (ValueError, RuntimeError, OSError) as e:
                 # --on-error skip: retry the chunk cluster by cluster, so
                 # only the offending clusters are dropped, and record them
-                if args.on_error != "skip":
+                # (OSError here includes an I/O fault or a lane hang that
+                # outlived its retries); a sticky CUDA error always aborts:
+                # the context is dead, and every cluster would fail
+                if args.on_error != "skip" or errors.is_sticky(e):
                     raise
                 if part is None:
                     part = [clusters[i] for i in item.idxs]
                 logger.warning("chunk of %d clusters failed (%s); retrying "
                                "one by one", len(part), e)
+                if chunk_qc is not None:
+                    chunk_qc.clear()  # rows of halves that got through
                 reps, bad = [], []
                 with stats.phase("compute"):
                     for c in part:
@@ -1023,14 +1220,20 @@ def _checkpointed_run(backend: TorchBackend, method: str, clusters, args,
                 try:
                     by_id = {r.cluster_id: r for r in reps}
                     kept = [c for c in part if c.cluster_id in by_id]
-                    with stats.phase("compute"):
-                        _append_qc_rows(chunk_qc, kept,
-                                        backend.average_cosines(
-                                            [by_id[c.cluster_id]
-                                             for c in kept],
-                                            kept, _cosine_config(args)))
+
+                    def _qc_pass(kept=kept, by_id=by_id):
+                        with stats.phase("compute"):
+                            faults.check("qc")
+                            return backend.average_cosines(
+                                [by_id[c.cluster_id] for c in kept], kept,
+                                _cosine_config(args))
+
+                    # a transient QC failure retries like any lane; what
+                    # outlives the retries is handled below
+                    _append_qc_rows(chunk_qc, kept,
+                                    harness.retry_call("qc", _qc_pass))
                 except (ValueError, RuntimeError, OSError) as e:
-                    if args.on_error != "skip":
+                    if args.on_error != "skip" or errors.is_sticky(e):
                         raise
                     logger.warning("QC cosines failed for a %d-cluster chunk "
                                    "(%s); their rows are omitted from the "
@@ -1045,7 +1248,7 @@ def _checkpointed_run(backend: TorchBackend, method: str, clusters, args,
             else:
                 _commit_chunk(commit_item, args, stats,
                               qc if qc is not None else [], done,
-                              first_write, integ)
+                              first_write, integ, harness)
                 first_write = False
         if committer is not None:
             # flush before the lane summary, so the write lane's time is
@@ -1127,15 +1330,55 @@ def _clusters_from_mzml(path: str, args) -> list[Cluster]:
     return group_into_clusters(out)
 
 
-def load_clusters(args) -> list[Cluster]:
-    """The clusters of a consensus or select run: an MGF through the C++
-    parser, or an mzML with ``--clusters``; ``consensus --single`` makes
-    the whole input one cluster titled with the output path (ref
-    average_spectrum_clustering.py:203-205), and no spectra no cluster."""
+# --stream-clusters auto streams an input larger than this
+_STREAM_AUTO_BYTES = 256 * 1024 * 1024
+
+
+def _load_mgf_clusters(path: str, stream: str,
+                       quarantine: Quarantine | None):
+    """The clusters of a clustered MGF: a list (the C++ parser), or a
+    bounded-memory ``StreamedClusters`` view (``--stream-clusters``:
+    "off", "auto" = only for inputs over ``_STREAM_AUTO_BYTES``, or a
+    window of N clusters).  A ``.gz`` input has no byte index and loads
+    whole, with a warning.
+
+    With a ``quarantine`` (``--on-error skip``) malformed records go to
+    ``<output>.quarantine.mgf`` instead of stopping the run: a whole read
+    goes through the tolerant Python parser; a streamed one hands over the
+    index's truncated spans once here, and its window parses hand over
+    every record they reject."""
+    mode = (stream or "off").lower()
+    window = int(mode) if mode not in ("off", "auto") else 0
+    eager = window <= 0 and (mode == "off"
+                             or os.path.getsize(path) < _STREAM_AUTO_BYTES)
+    if not eager and path.endswith(".gz"):
+        logger.warning("--stream-clusters needs a plain MGF (gz has no byte "
+                       "index); loading eagerly")
+        eager = True
+    if eager:
+        return group_into_clusters(read_mgf(
+            path, malformed=quarantine.add if quarantine is not None
+            else None))
+    clusters = StreamedClusters(path, window=window or 512)
+    if quarantine is not None:
+        clusters.on_malformed = quarantine.add
+        clusters.drain_malformed(quarantine.add)
+    logger.info("streaming %d clusters (%d spectra) in windows of %d",
+                len(clusters), clusters.n_spectra, clusters.window)
+    return clusters
+
+
+def load_clusters(args, quarantine: Quarantine | None = None):
+    """The clusters of a consensus or select run: an MGF (whole, or
+    streamed by ``--stream-clusters``), or an mzML with ``--clusters``;
+    ``consensus --single`` makes the whole input one cluster titled with
+    the output path (ref average_spectrum_clustering.py:203-205), and no
+    spectra no cluster."""
     if _is_mzml(args.input):
         clusters = _clusters_from_mzml(args.input, args)
     else:
-        clusters = group_into_clusters(read_mgf(args.input))
+        clusters = _load_mgf_clusters(args.input, args.stream_clusters,
+                                      quarantine)
     if args.command == "consensus" and args.single:
         spectra = [s for c in clusters for s in c.members]
         clusters = [Cluster(args.output, spectra)] if spectra else []
@@ -1147,17 +1390,25 @@ def _run_pipeline_command(args, backend: TorchBackend) -> dict:
     then the precision gate (after the outputs, so a breach leaves them on
     disk to diagnose).  Returns the run summary."""
     stats = RunStats()
-    with stats.phase("parse"):
-        clusters = load_clusters(args)
-    scores = load_scores(args) if args.method == "best" else None
-    qc = [] if args.qc_report is not None else None
-    resumed, failed, qc_failed = _checkpointed_run(
-        backend, args.method, clusters, args, stats, scores, qc=qc)
-    if qc is not None:
-        _write_qc_report(args, backend, clusters, qc, resumed, failed,
-                         qc_failed)
-    gate = precision_gate(backend, args.method, clusters, method_config(args),
-                          _cosine_config(args))
+    # --on-error skip arms the quarantine: fresh for each run
+    quarantine = (Quarantine(args.output + ".quarantine.mgf")
+                  if args.on_error == "skip" else None)
+    try:
+        with stats.phase("parse"):
+            clusters = load_clusters(args, quarantine)
+        scores = load_scores(args) if args.method == "best" else None
+        qc = [] if args.qc_report is not None else None
+        resumed, failed, qc_failed = _checkpointed_run(
+            backend, args.method, clusters, args, stats, scores, qc=qc,
+            quarantine=quarantine)
+        if qc is not None:
+            _write_qc_report(args, backend, clusters, qc, resumed, failed,
+                             qc_failed)
+        gate = precision_gate(backend, args.method, clusters,
+                              method_config(args), _cosine_config(args))
+    finally:
+        if quarantine is not None:
+            quarantine.close()
     return {
         **stats.summary(),
         "clusters_per_sec": round(stats.throughput("clusters"), 3),
@@ -1171,6 +1422,7 @@ def _run_pipeline_command(args, backend: TorchBackend) -> dict:
             "launches": dict(kernels.launches),
         },
         **({"precision_gate": gate} if gate else {}),
+        **({"skipped_cluster_ids": sorted(failed)} if failed else {}),
     }
 
 

@@ -15,11 +15,12 @@ from __future__ import annotations
 import gzip
 import io
 import os
+import threading
 from typing import IO, Iterator, Sequence
 
 import numpy as np
 
-from specpride_tpu_torch.data.peaks import Spectrum
+from specpride_tpu_torch.data.peaks import Cluster, Spectrum, parse_title
 from specpride_tpu_torch.io import native
 
 
@@ -60,8 +61,78 @@ def _finish_spectrum(
     )
 
 
-def parse_mgf_stream(stream: IO[str]) -> Iterator[Spectrum]:
-    """Yield spectra from an MGF text stream; a malformed number raises."""
+def _ingest_line(line: str, headers: dict[str, str], mzs: list[float],
+                 intensities: list[float]) -> None:
+    """Fold one stripped in-record line into the record being read: the
+    one copy of the peak and header grammar both Python parsers run."""
+    if line[0].isdigit() or line[0] in "+-.":
+        fields = line.split()
+        if len(fields) >= 2:
+            mzs.append(float(fields[0]))
+            intensities.append(float(fields[1]))
+        elif len(fields) == 1:
+            mzs.append(float(fields[0]))
+            intensities.append(0.0)
+    else:
+        key, sep, value = line.partition("=")
+        if sep:
+            headers[key.strip().upper()] = value.strip()
+
+
+def _parse_block(lines: list[str]) -> Spectrum:
+    """One buffered record's lines, between BEGIN IONS and END IONS."""
+    headers: dict[str, str] = {}
+    mzs: list[float] = []
+    intensities: list[float] = []
+    for line in lines:
+        _ingest_line(line, headers, mzs, intensities)
+    return _finish_spectrum(headers, mzs, intensities)
+
+
+def _parse_mgf_quarantining(stream: IO[str], malformed) -> Iterator[Spectrum]:
+    """The tolerant parse: each record is buffered, and one that does not
+    parse, or is truncated (a BEGIN IONS inside an open record, EOF
+    before END IONS), goes to ``malformed(raw, reason)`` as its stripped
+    lines instead of ending the stream.  The strict parsers cannot even
+    see a truncated record: a BEGIN resets them."""
+    block: list[str] = []
+    in_ions = False
+    for line in stream:
+        line = line.strip()
+        if not line:
+            continue
+        if line == "BEGIN IONS":
+            if in_ions:
+                malformed("\n".join(block),
+                          "truncated record (BEGIN IONS inside an open "
+                          "record)")
+            block = [line]
+            in_ions = True
+        elif line == "END IONS":
+            if in_ions:
+                try:
+                    spectrum = _parse_block(block[1:])
+                except (ValueError, OverflowError) as e:
+                    malformed("\n".join(block + [line]),
+                              f"unparseable record ({e})")
+                else:
+                    yield spectrum
+            in_ions = False
+            block = []
+        elif in_ions:
+            block.append(line)
+    if in_ions and block:
+        malformed("\n".join(block), "truncated record (EOF before END IONS)")
+
+
+def parse_mgf_stream(stream: IO[str], malformed=None) -> Iterator[Spectrum]:
+    """Yield spectra from an MGF text stream; a malformed number raises.
+    With ``malformed`` (``callable(raw_block, reason)``) a damaged record
+    goes there instead and the stream goes on (``--on-error skip``'s
+    quarantine)."""
+    if malformed is not None:
+        yield from _parse_mgf_quarantining(stream, malformed)
+        return
     headers: dict[str, str] = {}
     mzs: list[float] = []
     intensities: list[float] = []
@@ -77,26 +148,265 @@ def parse_mgf_stream(stream: IO[str]) -> Iterator[Spectrum]:
             if in_ions:
                 yield _finish_spectrum(headers, mzs, intensities)
             in_ions = False
-        elif not in_ions:
-            continue
-        elif line[0].isdigit() or line[0] in "+-.":
-            fields = line.split()
-            if len(fields) >= 2:
-                mzs.append(float(fields[0]))
-                intensities.append(float(fields[1]))
-            elif len(fields) == 1:
-                mzs.append(float(fields[0]))
-                intensities.append(0.0)
-        else:
-            key, sep, value = line.partition("=")
-            if sep:
-                headers[key.strip().upper()] = value.strip()
+        elif in_ions:
+            _ingest_line(line, headers, mzs, intensities)
 
 
-def read_mgf(path: str | os.PathLike) -> list[Spectrum]:
+def read_mgf(path: str | os.PathLike, malformed=None) -> list[Spectrum]:
     """Read all spectra from an MGF file (``.gz`` transparently) with the
-    C++ parser; a malformed number raises ``RuntimeError``."""
+    C++ parser; a malformed number raises ``RuntimeError``.
+
+    ``malformed`` (the quarantine) reads through the tolerant Python
+    parser instead, as the JAX package does: the C++ parser stops at a
+    damaged record and cannot see a truncated one (a BEGIN resets it),
+    and the quarantine exists to make both auditable.  Eager reads stay
+    under the 256 MB streaming threshold, which bounds the cost."""
+    if malformed is not None:
+        with _open_text(path) as fh:
+            return list(parse_mgf_stream(fh, malformed=malformed))
     return native.read_mgf_native(path)
+
+
+class IndexedMGF:
+    """Random access to an MGF file by TITLE (pyteomics ``IndexedMGF`` as
+    ref src/average_spectrum_clustering.py:156-160 uses it): the in-file
+    title order and fetches by title, off one byte-offset index pass (the
+    host library's ``index_mgf``).  A ``.gz`` file is read whole."""
+
+    def __init__(self, path: str | os.PathLike):
+        self.path = os.fspath(path)
+        self._offsets: dict[str, tuple[int, int]] = {}
+        self._titles: list[str] = []
+        self._spectra: dict[str, Spectrum] | None = None
+        if self.path.endswith(".gz"):
+            self._spectra = {s.title: s for s in read_mgf(self.path)}
+            self._titles = list(self._spectra)
+            return
+        records, _ = native.index_mgf(self.path)
+        for title, begin, end in records:
+            self._offsets[title] = (begin, end)
+            self._titles.append(title)
+
+    @property
+    def titles(self) -> list[str]:
+        return list(self._titles)
+
+    def __len__(self) -> int:
+        return len(self._titles)
+
+    def __getitem__(self, key: str | Sequence[str]):
+        if isinstance(key, str):
+            return self._get_one(key)
+        return [self._get_one(k) for k in key]
+
+    def _get_one(self, title: str) -> Spectrum:
+        if self._spectra is not None:
+            return self._spectra[title]
+        begin, end = self._offsets[title]
+        with open(self.path, "rb") as fh:
+            fh.seek(begin)
+            chunk = fh.read(end - begin)
+        return native.parse_mgf_bytes(chunk, threads=1)[0]
+
+
+class StreamedClusters:
+    """Bounded-memory, list-like access to the clusters of a clustered MGF
+    (the reference streams clusters off an indexed MGF, ref
+    src/average_spectrum_clustering.py:151-160).  One pass of the host
+    library's byte index records every record's (title, byte range)
+    without parsing a peak; member spectra are parsed later, in windows of
+    ``window`` clusters, and only ``cache_slots`` windows stay cached, so
+    host memory is the index plus a few windows whatever the file's size.
+
+    The order of ``read_mgf`` + ``group_into_clusters``: first-seen
+    cluster order and in-file member order (a cluster's members may be
+    scattered through the file).  An integer index parses the window that
+    holds the cluster; a slice is a sub-view sharing the index.  Plain
+    files only (the CLI reads a ``.gz`` eagerly)."""
+
+    def __init__(self, path: str | os.PathLike, window: int = 512,
+                 _groups=None, _begins=None):
+        self.path = os.fspath(path)
+        self.window = max(int(window), 1)
+        # the byte ranges of truncated records the index found (never
+        # indexed: without the quarantine they would vanish silently), and
+        # the per-record malformed callback of the window parses, set by
+        # the CLI when --on-error skip arms the quarantine (thread-safe:
+        # pack workers parse windows at once)
+        self.malformed_spans: list[tuple[int, int]] = []
+        self.on_malformed = None
+        # host threads per window parse: 0 is one per hardware thread.  The
+        # CLI's pack pool sets it to cores / workers, so its workers parsing
+        # windows at once never run more parse threads than the host has
+        # cores.
+        self.parse_threads = 0
+        # windows parsed so far (a cache miss each)
+        self.windows_parsed = 0
+        if _groups is not None:
+            self._groups, self._begins = _groups, _begins
+        else:
+            records, self.malformed_spans = native.index_mgf(self.path)
+            # every record's first byte, in file order: two records of a
+            # window with no record between them parse as one span
+            self._begins = np.fromiter((b for _, b, _ in records),
+                                       dtype=np.int64, count=len(records))
+            by_id: dict[str, list[tuple[int, int]]] = {}
+            for title, begin, end in records:
+                cid, _ = parse_title(title)
+                by_id.setdefault(cid, []).append((begin, end))
+            self._groups = list(by_id.items())
+        # an LRU of windows keyed by window start, not one slot: a pack
+        # worker parses window W+1 ahead while the dispatch lane may walk
+        # window W again cluster by cluster (--on-error skip), and one
+        # slot would parse a whole window per index.  The pack pool raises
+        # ``cache_slots`` to workers + 1, so workers on distinct windows
+        # never evict each other's.  The lock covers the cache only.
+        self.cache_slots = 2
+        self._windows: dict[int, list[Cluster]] = {}
+        self._cache_lock = threading.RLock()
+
+    def _scan_plain(self) -> list[tuple[str, int, int]]:
+        """The JAX package's Python scan (``StreamedClusters._scan``): the
+        records and the truncated spans (into ``malformed_spans``) that
+        the host library's ``index_mgf`` must give; the tests' plain
+        version."""
+        records = []
+        spans = []
+        with open(self.path, "rb") as fh:
+            offset = 0
+            begin = -1
+            title = None
+            for line in fh:
+                stripped = line.strip()
+                if stripped == b"BEGIN IONS":
+                    if begin >= 0:
+                        spans.append((begin, offset))
+                    begin = offset
+                    title = None
+                elif stripped.startswith(b"TITLE="):
+                    title = stripped[6:].decode("utf-8")
+                elif stripped == b"END IONS" and begin >= 0:
+                    records.append((
+                        title if title is not None
+                        else f"index={len(records)}",
+                        begin, offset + len(line),
+                    ))
+                    begin = -1
+                offset += len(line)
+            if begin >= 0:
+                spans.append((begin, offset))
+        self.malformed_spans = spans
+        return records
+
+    def drain_malformed(self, malformed) -> int:
+        """Hand every truncated block the index found to ``malformed(raw,
+        reason)`` and forget them; returns their count."""
+        with self._cache_lock:
+            spans, self.malformed_spans = self.malformed_spans, []
+        with open(self.path, "rb") as fh:
+            for begin, end in spans:
+                fh.seek(begin)
+                raw = fh.read(end - begin).decode("utf-8", errors="replace")
+                malformed(raw.strip(), "truncated record (no END IONS)")
+        return len(spans)
+
+    @property
+    def cluster_ids(self) -> list[str]:
+        return [cid for cid, _ in self._groups]
+
+    @property
+    def n_spectra(self) -> int:
+        return sum(len(r) for _, r in self._groups)
+
+    def __len__(self) -> int:
+        return len(self._groups)
+
+    def __getitem__(self, key):
+        if isinstance(key, slice):
+            sub = StreamedClusters(self.path, self.window,
+                                   _groups=self._groups[key],
+                                   _begins=self._begins)
+            # a sub-view quarantines per-record damage too; the index's
+            # truncated spans stay with the parent (drained once)
+            sub.on_malformed = self.on_malformed
+            sub.parse_threads = self.parse_threads
+            return sub
+        i = int(key)
+        if i < 0:
+            i += len(self._groups)
+        if not 0 <= i < len(self._groups):
+            raise IndexError(key)
+        lo = (i // self.window) * self.window
+        with self._cache_lock:
+            cached = self._windows.get(lo)
+            if cached is not None:
+                # LRU touch: a window walked again must not be the one the
+                # workers' lookahead evicts
+                self._windows.pop(lo)
+                self._windows[lo] = cached
+                return cached[i - lo]
+        # parse outside the lock, so the other lanes' cache hits never wait
+        # on a whole window's parse; two threads racing on one cold window
+        # parse it twice and keep one copy
+        parsed = self._materialize(self._groups[lo : lo + self.window])
+        with self._cache_lock:
+            self.windows_parsed += 1
+            cached = self._windows.pop(lo, parsed)
+            slots = max(int(self.cache_slots), 1)
+            while len(self._windows) >= slots:  # evict least recently used
+                self._windows.pop(next(iter(self._windows)))
+            self._windows[lo] = cached
+            return cached[i - lo]
+
+    def __iter__(self):
+        for i in range(len(self._groups)):
+            yield self[i]
+
+    def _materialize(self, groups) -> list[Cluster]:
+        """The window's clusters, each span of its records parsed once: by
+        the host library's parser, or by the tolerant Python parser when
+        ``on_malformed`` is set.  For the host parser a span runs on over
+        the bytes between two of the window's records when no record lies
+        there (blank lines; a truncated block, which the host parser drops
+        as it does in a whole read), so a cluster-contiguous file parses
+        as a few large spans.  The tolerant parser takes only records that
+        touch (the JAX package's spans): the bytes between them may hold a
+        truncated block the index already quarantined."""
+        ranges = sorted((begin, end) for _, recs in groups
+                        for begin, end in recs)
+        spans: list[list[int]] = []
+        if self.on_malformed is None and ranges:
+            ranks = np.searchsorted(self._begins, [b for b, _ in ranges])
+            prev = -2
+            for (begin, end), rank in zip(ranges, ranks.tolist()):
+                if rank == prev + 1:
+                    spans[-1][1] = end
+                else:
+                    spans.append([begin, end])
+                prev = rank
+        else:
+            for begin, end in ranges:
+                if spans and begin == spans[-1][1]:
+                    spans[-1][1] = end
+                else:
+                    spans.append([begin, end])
+        members: dict[str, list[Spectrum]] = {cid: [] for cid, _ in groups}
+        with open(self.path, "rb") as fh:
+            for begin, end in spans:
+                fh.seek(begin)
+                chunk = fh.read(end - begin)
+                if self.on_malformed is None:
+                    spectra = native.parse_mgf_bytes(
+                        chunk, threads=self.parse_threads)
+                else:
+                    spectra = parse_mgf_stream(
+                        io.StringIO(chunk.decode("utf-8")),
+                        malformed=self.on_malformed)
+                for s in spectra:
+                    got = members.get(s.cluster_id)
+                    if got is not None:
+                        got.append(s)
+        return [Cluster(cid, members[cid]) for cid, _ in groups]
 
 
 def _header(spectrum: Spectrum) -> str:

@@ -1,7 +1,7 @@
-"""The MGF parser and peak formatter of the port's host library
-(``ops/csrc/mgf_parser.cpp`` and ``ops/csrc/mgf_format.cpp``, built by
-``ops/_build.load_host``; ctypes releases the interpreter lock for each
-call).
+"""The MGF parser, byte index and peak formatter of the port's host
+library (``ops/csrc/mgf_parser.cpp`` and ``ops/csrc/mgf_format.cpp``,
+built by ``ops/_build.load_host``; ctypes releases the interpreter lock
+for each call).
 
 ``read_mgf_native`` gives the ``Spectrum``s of the pure-Python parser
 (``io/mgf.py::parse_mgf_stream``): the same titles, headers and float64
@@ -108,6 +108,45 @@ def read_mgf_native(path: str | os.PathLike) -> list[Spectrum]:
     errbuf = ctypes.create_string_buffer(256)
     handle = lib.mgf_parse(path.encode(), errbuf, len(errbuf))
     return _parsed(lib, handle, errbuf, path)
+
+
+def index_mgf(path: str | os.PathLike):
+    """The byte index of the plain MGF file at ``path``, in one pass:
+    ``(records, spans)``, each record ``(title, begin, end)`` (a record
+    without a title named ``index=N``, N its place among the records) and
+    each span ``(begin, end)`` a truncated block (a ``BEGIN IONS`` inside
+    an open record, or one open at EOF).  The records and spans of
+    ``io/mgf.py::StreamedClusters._scan_plain``; a title that is not
+    UTF-8 raises ``UnicodeDecodeError`` as there."""
+    lib = _build.load_host()
+    errbuf = ctypes.create_string_buffer(256)
+    handle = lib.mgf_index(os.fspath(path).encode(), errbuf, len(errbuf))
+    if not handle:
+        raise OSError(f"MGF index of {os.fspath(path)} failed: "
+                      f"{errbuf.value.decode(errors='replace')}")
+    try:
+        n = int(lib.mgf_index_n_records(handle))
+        begin = _column(lib.mgf_index_begin(handle), n, np.int64).tolist()
+        end = _column(lib.mgf_index_end(handle), n, np.int64).tolist()
+        has_title = _column(lib.mgf_index_has_title(handle), n,
+                            np.uint8).tolist()
+        title_off = _column(lib.mgf_index_title_offsets(handle), n + 1,
+                            np.int64)
+        titles = _split(ctypes.string_at(lib.mgf_index_titles(handle),
+                                         int(title_off[-1])), title_off)
+        n_spans = int(lib.mgf_index_n_spans(handle))
+        spans = list(zip(
+            _column(lib.mgf_index_span_begin(handle), n_spans,
+                    np.int64).tolist(),
+            _column(lib.mgf_index_span_end(handle), n_spans,
+                    np.int64).tolist(),
+        ))
+    finally:
+        lib.mgf_index_free(handle)
+    records = [(t if h else f"index={i}", b, e)
+               for i, (t, h, b, e) in enumerate(zip(titles, has_title,
+                                                    begin, end))]
+    return records, spans
 
 
 def _f64(a) -> np.ndarray:

@@ -211,6 +211,22 @@ def _declare_host(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = restype
     lib.mgf_free.argtypes = [vp]
     lib.mgf_free.restype = None
+    # the byte index of a streamed MGF: a handle and its columns
+    lib.mgf_index.argtypes = [ctypes.c_char_p, vp, ctypes.c_int]
+    lib.mgf_index.restype = vp
+    for name, restype in (
+        ("mgf_index_n_records", ctypes.c_int64),
+        ("mgf_index_begin", p64), ("mgf_index_end", p64),
+        ("mgf_index_has_title", ctypes.POINTER(ctypes.c_uint8)),
+        ("mgf_index_titles", vp), ("mgf_index_title_offsets", p64),
+        ("mgf_index_n_spans", ctypes.c_int64),
+        ("mgf_index_span_begin", p64), ("mgf_index_span_end", p64),
+    ):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp]
+        fn.restype = restype
+    lib.mgf_index_free.argtypes = [vp]
+    lib.mgf_index_free.restype = None
     # the MGF peak-line formatter
     lib.mgf_format_peaks.argtypes = [pd, pd, ctypes.c_int64, vp,
                                      ctypes.c_int64]
@@ -223,8 +239,9 @@ def _declare_host(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def load_host() -> ctypes.CDLL:
     """The host library (``ops/csrc/*.cpp``: the segmented sort and the
-    search, the MGF parser and the MGF peak formatter), built first with
-    the host C++ compiler if its sources changed.  Processes that build
+    search, the MGF parser and byte index, and the MGF peak formatter),
+    built first with the host C++ compiler if its sources changed.
+    Processes that build
     at once serialize on a file lock in the build directory (released by
     the kernel if a holder dies), and each writes its own temporary
     library before renaming it into place.

@@ -15,7 +15,8 @@
 //   * other record lines are KEY=VALUE headers; KEY is uppercased;
 //     TITLE / PEPMASS (first field) / CHARGE (N+, N-, N) / RTINSECONDS are
 //     extracted, everything else is kept verbatim as per-spectrum extras
-//   * a record yields a spectrum only on END IONS
+//   * a record yields a spectrum only on END IONS; the peaks of a record
+//     that a BEGIN IONS or the end of the input cuts short are dropped
 // Numbers are parsed with std::from_chars (correctly rounded, as Python's
 // float()), so both parsers give the same float64 bit patterns.
 
@@ -128,6 +129,13 @@ bool parse_charge(const char* p, const char* end, int32_t& out) {
   return true;
 }
 
+// The peaks read since the last finished record belong to no spectrum.
+void discard_open_peaks(Columns& c) {
+  size_t done = static_cast<size_t>(c.peak_offsets.back());
+  c.mz.resize(done);
+  c.intensity.resize(done);
+}
+
 bool parse_range(const char* p, const char* file_end, int64_t line_base,
                  Columns& c, std::string& err) {
   // reserve from a size heuristic (~18 bytes per peak line) to avoid
@@ -140,7 +148,6 @@ bool parse_range(const char* p, const char* file_end, int64_t line_base,
   std::string title, extras_cur;
   double pepmass = 0.0, rtsec = 0.0;
   int32_t z = 0;
-  int64_t peaks_start = 0;
   int64_t line_no = line_base;
 
   c.peak_offsets.push_back(0);
@@ -165,7 +172,9 @@ bool parse_range(const char* p, const char* file_end, int64_t line_base,
       pepmass = 0.0;
       rtsec = 0.0;
       z = 0;
-      peaks_start = static_cast<int64_t>(c.mz.size());
+      // drop the peaks of a record left open (truncated: no END IONS), as
+      // the Python parser does, or they would open this record's peaks
+      discard_open_peaks(c);
       continue;
     }
     if (len == 8 && std::memcmp(s, "END IONS", 8) == 0) {
@@ -267,7 +276,7 @@ bool parse_range(const char* p, const char* file_end, int64_t line_base,
       extras_cur.push_back('\n');
     }
   }
-  (void)peaks_start;
+  discard_open_peaks(c);  // a record still open at the end
   return true;
 }
 
@@ -414,6 +423,124 @@ MgfFile* guarded(Parse parse, char* errbuf, int errlen) {
   return nullptr;
 }
 
+
+// ---- the byte index of a streamed input (io/mgf.py::StreamedClusters) ----
+//
+// One pass over the file in blocks, never holding more than a block and
+// the line that crosses its end.  Mirrors the Python scan line for line
+// (io/mgf.py::StreamedClusters._scan_plain, the JAX package's _scan):
+//   * lines end at '\n' (kept in the line's length); a line is compared
+//     after bytes.strip(), which drops ' ', '\t', '\n', '\r', '\v', '\f'
+//     at both ends;
+//   * "BEGIN IONS" opens a record at the line's offset; one that opens
+//     while a record is open closes the open one as a truncated span
+//     [its begin, this line's offset);
+//   * a stripped line starting "TITLE=" sets the title (the last one
+//     wins; a BEGIN clears it);
+//   * "END IONS" inside a record ends it at the offset past its line;
+//   * a record still open at EOF is a truncated span [begin, EOF).
+// Titles are handed back as raw bytes: the caller decodes them as UTF-8
+// and names a record without a title "index=N".
+
+struct MgfIndex {
+  std::vector<int64_t> begin, end;
+  std::vector<uint8_t> has_title;
+  std::string titles;
+  std::vector<int64_t> title_offsets{0};
+  std::vector<int64_t> span_begin, span_end;
+  std::string error;
+};
+
+inline bool py_space(char c) {
+  return c == ' ' || c == '\t' || c == '\n' || c == '\r' || c == '\v' ||
+         c == '\f';
+}
+
+struct IndexScan {
+  MgfIndex& x;
+  int64_t begin = -1;
+  bool has_title = false;
+  std::string title;
+
+  void line(const char* p, size_t len, int64_t offset) {
+    const char* s = p;
+    const char* e = p + len;
+    while (s < e && py_space(*s)) ++s;
+    while (e > s && py_space(e[-1])) --e;
+    size_t n = static_cast<size_t>(e - s);
+    if (n == 10 && std::memcmp(s, "BEGIN IONS", 10) == 0) {
+      if (begin >= 0) {
+        x.span_begin.push_back(begin);
+        x.span_end.push_back(offset);
+      }
+      begin = offset;
+      has_title = false;
+      title.clear();
+    } else if (n >= 6 && std::memcmp(s, "TITLE=", 6) == 0) {
+      title.assign(s + 6, n - 6);
+      has_title = true;
+    } else if (n == 8 && std::memcmp(s, "END IONS", 8) == 0 && begin >= 0) {
+      x.begin.push_back(begin);
+      x.end.push_back(offset + static_cast<int64_t>(len));
+      x.has_title.push_back(has_title ? 1 : 0);
+      if (has_title) x.titles.append(title);
+      x.title_offsets.push_back(static_cast<int64_t>(x.titles.size()));
+      begin = -1;
+    }
+  }
+};
+
+bool index_file(const char* path, MgfIndex& x, std::string& err) {
+  FILE* f = std::fopen(path, "rb");
+  if (!f) {
+    err = std::string("cannot open ") + path;
+    return false;
+  }
+  IndexScan scan{x};
+  std::vector<char> buf(16 << 20);
+  std::string carry;  // the start of a line that crosses a block's end
+  int64_t offset = 0;  // the file offset of the next line's first byte
+  size_t got;
+  while ((got = std::fread(buf.data(), 1, buf.size(), f)) > 0) {
+    const char* p = buf.data();
+    const char* end = p + got;
+    while (p < end) {
+      const char* nl = static_cast<const char*>(
+          std::memchr(p, '\n', static_cast<size_t>(end - p)));
+      if (!nl) {
+        carry.append(p, static_cast<size_t>(end - p));
+        break;
+      }
+      size_t len = static_cast<size_t>(nl + 1 - p);
+      if (carry.empty()) {
+        scan.line(p, len, offset);
+        offset += static_cast<int64_t>(len);
+      } else {
+        carry.append(p, len);
+        scan.line(carry.data(), carry.size(), offset);
+        offset += static_cast<int64_t>(carry.size());
+        carry.clear();
+      }
+      p = nl + 1;
+    }
+  }
+  bool read_error = std::ferror(f) != 0;
+  std::fclose(f);
+  if (read_error) {
+    err = std::string("read error on ") + path;
+    return false;
+  }
+  if (!carry.empty()) {  // a last line without '\n'
+    scan.line(carry.data(), carry.size(), offset);
+    offset += static_cast<int64_t>(carry.size());
+  }
+  if (scan.begin >= 0) {
+    x.span_begin.push_back(scan.begin);
+    x.span_end.push_back(offset);
+  }
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -467,5 +594,48 @@ const int64_t* mgf_extra_offsets(const MgfFile* f) {
   return f->c.extra_offsets.data();
 }
 void mgf_free(MgfFile* f) { delete f; }
+
+// The byte index of the MGF file at path (see index_file), or nullptr
+// with the error in errbuf.
+MgfIndex* mgf_index(const char* path, char* errbuf, int errlen) {
+  MgfIndex* x = nullptr;
+  try {
+    x = new MgfIndex();
+    if (index_file(path, *x, x->error)) return x;
+    if (errbuf && errlen > 0)
+      std::snprintf(errbuf, static_cast<size_t>(errlen), "%s",
+                    x->error.c_str());
+  } catch (const std::exception& e) {
+    if (errbuf && errlen > 0)
+      std::snprintf(errbuf, static_cast<size_t>(errlen), "%s", e.what());
+  } catch (...) {
+    if (errbuf && errlen > 0)
+      std::snprintf(errbuf, static_cast<size_t>(errlen), "unknown error");
+  }
+  delete x;
+  return nullptr;
+}
+int64_t mgf_index_n_records(const MgfIndex* x) {
+  return static_cast<int64_t>(x->begin.size());
+}
+const int64_t* mgf_index_begin(const MgfIndex* x) { return x->begin.data(); }
+const int64_t* mgf_index_end(const MgfIndex* x) { return x->end.data(); }
+const uint8_t* mgf_index_has_title(const MgfIndex* x) {
+  return x->has_title.data();
+}
+const char* mgf_index_titles(const MgfIndex* x) { return x->titles.data(); }
+const int64_t* mgf_index_title_offsets(const MgfIndex* x) {
+  return x->title_offsets.data();
+}
+int64_t mgf_index_n_spans(const MgfIndex* x) {
+  return static_cast<int64_t>(x->span_begin.size());
+}
+const int64_t* mgf_index_span_begin(const MgfIndex* x) {
+  return x->span_begin.data();
+}
+const int64_t* mgf_index_span_end(const MgfIndex* x) {
+  return x->span_end.data();
+}
+void mgf_index_free(MgfIndex* x) { delete x; }
 
 }  // extern "C"

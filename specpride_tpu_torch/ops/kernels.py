@@ -86,6 +86,11 @@ def _launch(name, entry, lib, runs, ins, outs, count: int) -> None:
         rc = entry(runs.data_ptr(), *ins, *outs, n, count,
                    ws.buf.data_ptr(), ws.base, dev.index, stream)
         if rc != 0:
+            # blocks of the failed launch may have taken tickets already,
+            # so the device counter can stand past ``base``: drop the
+            # workspace, and the next launch on this stream starts from a
+            # zeroed one at base 0 instead of reading tiles of another range
+            workspaces.pop((dev.index, stream), None)
             raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
         ws.base += tiles
         launches[name] += 1

@@ -154,6 +154,10 @@ def test_import_and_help_load_no_jax():
         "import specpride_tpu_torch.convert\n"
         "import specpride_tpu_torch.metrics\n"
         "import specpride_tpu_torch.ops.fragments\n"
+        "import specpride_tpu_torch.robustness.harness\n"
+        "import specpride_tpu_torch.robustness.quarantine\n"
+        "import specpride_tpu_torch.robustness.errors\n"
+        "from specpride_tpu_torch.io.mgf import StreamedClusters\n"
         "import numpy\n"
         "from specpride_tpu_torch.ops.segsort import seg_argsort\n"
         "seg_argsort(numpy.arange(3), numpy.array([0, 3]))\n"
@@ -183,7 +187,9 @@ def test_import_and_help_load_no_jax():
         assert flag in proc.stdout
     for flag in ("--append", "--checkpoint", "--checkpoint-every",
                  "--prefetch", "--pack-workers", "--h2d-buffer",
-                 "--async-write", "--on-error"):
+                 "--async-write", "--on-error", "--stream-clusters",
+                 "--retries", "--retry-backoff", "--no-degrade",
+                 "--watchdog-timeout", "--inject-faults", "--fault-seed"):
         assert proc.stdout.count(flag) >= 2, flag
     assert proc.stdout.count("--qc-report") >= 2
     assert proc.stdout.count("--device") >= 3
@@ -220,16 +226,26 @@ def test_package_source_imports_no_jax():
             "ops/similarity.py", "config.py", "ops/segsort.py",
             "ops/_build.py", "robustness/integrity.py", "cli.py",
             "io/native.py", "io/mzml.py", "io/maracluster.py", "convert.py",
-            "metrics.py", "ops/fragments.py"} <= scanned
+            "metrics.py", "ops/fragments.py", "robustness/errors.py",
+            "robustness/faults.py", "robustness/retry.py",
+            "robustness/watchdog.py", "robustness/quarantine.py",
+            "robustness/harness.py", "io/mgf.py"} <= scanned
     assert len(files) > 10
     # the port builds its own host library: none of the JAX package's
-    # native libraries (native/lib*.so) is named, let alone loaded
+    # native libraries (native/lib*.so) is named, let alone loaded, and no
+    # environment variable of the JAX package is read but the fault plan's
+    # two (robustness/faults.py arms a child process through them)
     for f in files:
         with open(f) as fh:
             text = fh.read()
+        for allowed in FAULT_PLAN_ENV:
+            text = text.replace(allowed, "")
         for name in ("libsegsort", "libmedoid", "libcosine",
                      "libgap_average", "libmgf_parser", "SPECPRIDE_"):
             assert name not in text, (os.path.relpath(f, REPO), name)
+
+
+FAULT_PLAN_ENV = ("SPECPRIDE_FAULTS", "SPECPRIDE_FAULT_SEED")
 
 
 def _port_cli(*args):

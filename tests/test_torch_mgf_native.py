@@ -124,6 +124,11 @@ def _write_case(case, tmp_path):
         path.write_text(ODDITIES)
     elif case == "unterminated":
         path.write_text("BEGIN IONS\nTITLE=c1;u\n100.0 1.0\n")
+    elif case == "truncated":
+        # a record cut short by the next BEGIN IONS, and one by the end
+        path.write_text("BEGIN IONS\nTITLE=c0;u\n123.4 10.0\n\nBEGIN IONS\n"
+                        "TITLE=c1;u\n100.0 1.0\nEND IONS\nBEGIN IONS\n"
+                        "TITLE=c2;u\n7.0 8.0\n")
     elif case == "charge_plus":
         path.write_text(
             "BEGIN IONS\nTITLE=c1;u\nCHARGE=+2\n100.0 1.0\nEND IONS\n")
@@ -136,7 +141,7 @@ def _write_case(case, tmp_path):
 
 @pytest.mark.parametrize("case", [
     "random", "gzip", "oddities", "unterminated", "charge_plus",
-    *(f"malformed-{i}" for i in range(len(MALFORMED))),
+    "truncated", *(f"malformed-{i}" for i in range(len(MALFORMED))),
 ])
 def test_dialect_cases_match_plain_and_jax(case, tmp_path):
     path = _write_case(case, tmp_path)
@@ -153,6 +158,10 @@ def test_dialect_cases_match_plain_and_jax(case, tmp_path):
                       jmgf.read_mgf(path, use_native=False))
     if case == "unterminated":
         assert got == []
+    if case == "truncated":
+        # the peaks of the cut-short records belong to no spectrum
+        assert [s.title for s in got] == ["c1;u"]
+        np.testing.assert_array_equal(got[0].mz, [100.0])
     if case == "charge_plus":
         assert got[0].precursor_charge == 2
     if case == "oddities":
@@ -162,6 +171,24 @@ def test_dialect_cases_match_plain_and_jax(case, tmp_path):
         np.testing.assert_array_equal(got[0].intensity,
                                       [200.25, 0.0, 7.0, 8.0])
         assert (got[1].precursor_mz, got[1].precursor_charge) == (0.0, -3)
+
+
+def test_truncated_records_drop_their_peaks_in_every_thread():
+    """Records cut short by the next BEGIN IONS, spread through a buffer
+    that four parse threads split: the Python parser's spectra, none with
+    a peak of a truncated record (the JAX package's C++ parser, which this
+    one was copied from, kept such peaks at the head of the next
+    record)."""
+    spectra = _random_spectra(np.random.default_rng(5), n=4000)
+    blocks = mgf.write_mgf(spectra, None).split("\n\n")
+    for i in range(3990, 0, -997):
+        blocks.insert(i, "BEGIN IONS\nTITLE=cut;u\n123.4 10.0\n55.5 1.0")
+    text = "\n\n".join(blocks) + "BEGIN IONS\nTITLE=cut;u\n9.0 9.0\n"
+    assert len(text) > 16 << 20  # four threads' worth of 4 MB
+    got = native.parse_mgf_bytes(text.encode(), threads=4)
+    _assert_identical(got, list(mgf.parse_mgf_stream(io.StringIO(text))))
+    assert _fields(got[0]) == _fields(spectra[0])
+    assert all(123.4 not in s.mz for s in got)
 
 
 def test_threaded_split_ignores_begin_ions_prefix():
