@@ -85,10 +85,23 @@ NVIDIA GPU:
    ``torch.OutOfMemoryError`` under a capped allocator splits an int8
    consensus chunk to the clean bytes, and the kernels match their plain
    versions afterwards;
-6. prints a ``{"kernels": [...]}`` line (launches: the executor's runs at
+6. the bucketized layout and the cluster split: bucketized-20k phase:
+   slice-20k through ``TorchBackend(layout="bucketized")``, bin-mean with
+   QC, gap-average f32 and bin-mean int8, one ``seg_mean_heads`` launch
+   per consensus dispatch and four ``seg_scan`` per cosine dispatch, each
+   against the port's CPU run of the same layout, the bin-mean's peak
+   counts against the flat run's, with the padded and real peak slots
+   and the H2D bytes; mesh phase: the same bin-mean with QC over a
+   ``DeviceMesh`` of every visible card and of the one card twice (two
+   streams), the bucketized bytes exactly; ranks phase: CLI-2k as two
+   ``--coordinator`` ranks on the card joined by ``merge-parts``, against
+   the single-process ``--mesh`` run: the medoid and int8 bytes, the f32
+   bin-mean and its QC report at the tolerances with the changed bits
+   counted;
+7. prints a ``{"kernels": [...]}`` line (launches: the executor's runs at
    the defaults, the files phase's consensus runs and evaluate, the chaos
-   and real OOM runs) and, last, the ``{"ok": true, "device": {...}}``
-   line.
+   and real OOM runs, the bucketized, mesh and rank runs) and, last, the
+   ``{"ok": true, "device": {...}}`` line.
 
 Every comparison of a kernel with its plain version prints its largest
 relative error beside the tolerance.
@@ -2376,6 +2389,250 @@ def same_as_cpu_select(golden, dst, qc, flags, work, what) -> dict:
     return {"same_bytes": True, "cosine_err": err}
 
 
+BUCKET_TOL = dict(rtol=1e-5, atol=0.0)  # f32 means vs f64 plain prefixes
+
+
+def changed_bits(got, want) -> int:
+    """Values whose float64 bit patterns differ, over two runs' spectra
+    (m/z and intensity) of equal shapes."""
+    return sum(int((g.mz != w.mz).sum() + (g.intensity != w.intensity).sum())
+               for g, w in zip(got, want))
+
+
+def check_bucket_same(got, want, what: str) -> dict:
+    """Bucketized card run vs the port's CPU run of the same layout: the
+    same titles, precursors and peak counts (so the same float32 quorum
+    decisions), m/z and intensity within BUCKET_TOL (the card's float32
+    means against the CPU's float64 prefixes)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} vs {len(want)} spectra")
+    err = 0.0
+    for g, e in zip(got, want):
+        if (g.title, g.n_peaks, g.precursor_mz, g.precursor_charge) != (
+                e.title, e.n_peaks, e.precursor_mz, e.precursor_charge):
+            raise AssertionError(f"{what}: {g.title} differs in structure")
+        if not (np.isfinite(g.mz).all() and np.isfinite(g.intensity).all()):
+            raise AssertionError(f"{what}: {g.title} non-finite values")
+        np.testing.assert_allclose(g.mz, e.mz, **BUCKET_TOL, err_msg=what)
+        np.testing.assert_allclose(g.intensity, e.intensity, **BUCKET_TOL,
+                                   err_msg=what)
+        for a, b in ((g.mz, e.mz), (g.intensity, e.intensity)):
+            nz = b != 0
+            if nz.any():
+                err = max(err, float((np.abs(a - b)[nz] / np.abs(b[nz]))
+                                     .max()))
+    print(f"compare {what} vs cpu: peak counts equal, max_rel_err {err!r} "
+          f"(rtol {BUCKET_TOL['rtol']})", flush=True)
+    return {"max_rel_err": err, "changed_bits": changed_bits(got, want)}
+
+
+def bucket_launches(kernels, backend, what: str, qc: bool) -> dict:
+    """One ``seg_mean_heads`` launch per consensus dispatch, four
+    ``seg_scan`` per cosine dispatch with QC, no ``seg_mean``."""
+    launches = dict(kernels.launches)
+    want = {"seg_mean": 0, "seg_mean_heads": backend.chunks,
+            "seg_scan": 4 * backend.cos_chunks if qc else 0}
+    if launches != want or backend.chunks < 2 or (qc and
+                                                  backend.cos_chunks < 2):
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+    return launches
+
+
+def bucketized_phase(kernels, clusters, flat_reps) -> dict:
+    """bucketized-20k: slice-20k through ``layout="bucketized"`` on the
+    card, the launch counts zeroed just before each run: bin-mean with QC,
+    gap-average f32 and bin-mean int8, each against the port's CPU run of
+    the same layout; the bin-mean's peak counts against the flat run's
+    where the float32 and float64 quorums agree (all clusters at the
+    default fraction 0.25); padded and real peak slots, H2D bytes."""
+    import torch
+
+    from specpride_tpu_torch.backends.torch_backend import TorchBackend
+    from specpride_tpu_torch.config import BinMeanConfig
+
+    n_peaks = sum(c.total_peaks for c in clusters)
+    res = {}
+    runs = (("bin-mean QC", "f32"), ("gap f32", "f32"),
+            ("bin-mean int8", "int8"))
+    for what, precision in runs:
+        backend = TorchBackend(device=DEV, layout="bucketized",
+                               precision=precision)
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        cosines = None
+        if what == "bin-mean QC":
+            reps, cosines = backend.run_bin_mean_with_cosines(clusters)
+        elif what == "gap f32":
+            reps = backend.run_gap_average(clusters)
+        else:
+            reps = backend.run_bin_mean(clusters)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = bucket_launches(kernels, backend, f"bucketized {what}",
+                                   cosines is not None)
+        cpu = TorchBackend(device="cpu", layout="bucketized",
+                           precision=precision)
+        run = {"wall_s": wall, "clusters_per_s": len(clusters) / wall,
+               "chunks": backend.chunks, "cos_chunks": backend.cos_chunks,
+               "launches": launches, "phase_s": backend.phase_seconds,
+               "real_elements": backend.bucket_elements["real"],
+               "padded_elements": backend.bucket_elements["padded"],
+               "h2d_bytes": backend.h2d_bytes,
+               "h2d_bytes_per_peak": backend.h2d_bytes["h2d"] / n_peaks}
+        if what == "gap f32":
+            check_gap_same(reps, cpu.run_gap_average(clusters),
+                           "bucketized gap f32")
+        elif cosines is not None:
+            run["vs_cpu"] = check_bucket_same(reps, cpu.run_bin_mean(clusters),
+                                              "bucketized bin-mean QC")
+            # the CPU's cosines of the card's own representatives: m/z
+            # means from the card's float32 sums sit an ulp from the CPU's,
+            # enough to move a peak across a QC bin edge
+            run["cosine_err"] = check_cosines(
+                cosines, cpu.average_cosines(reps, clusters),
+                "bucketized bin-mean QC")
+            # the flat layout's host quorum int(n * 0.25) + 1 against the
+            # float32 device quorum: equal for every member count here
+            frac = BinMeanConfig().quorum_fraction
+            agree = [
+                int(np.floor(np.float32(c.n_members) * np.float32(frac)))
+                == int(c.n_members * frac) for c in clusters]
+            same = [i for i, ok in enumerate(agree) if ok]
+            if any(reps[i].n_peaks != flat_reps[i].n_peaks for i in same):
+                raise AssertionError("bucketized bin-mean: peak counts "
+                                     "differ from the flat layout's")
+            run["flat_compared"] = len(same)
+            res["reps"], res["cosines"] = reps, cosines
+        else:
+            run["vs_cpu"] = check_bucket_same(
+                reps, cpu.run_bin_mean(clusters), "bucketized bin-mean int8")
+        print(f"bucketized {what} {json.dumps(run)}", flush=True)
+        res[what] = run
+    return res
+
+
+def mesh_phase(kernels, clusters, reps, cosines) -> dict:
+    """mesh: slice-20k's bin-mean with QC through a ``DeviceMesh``: every
+    visible card (``--mesh``'s, one here) and the one card twice (two
+    streams, the rows split in two), the launch counts zeroed just before
+    each run; both must give the bucketized run's bytes."""
+    import torch
+
+    from specpride_tpu_torch.backends.torch_backend import TorchBackend
+    from specpride_tpu_torch.parallel.mesh import DeviceMesh
+
+    res = {}
+    for what, mesh in (("local", DeviceMesh.local("cuda")),
+                       ("two streams", DeviceMesh(["cuda:0", "cuda:0"]))):
+        backend = TorchBackend(device=DEV, mesh=mesh)
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        got, got_cos = backend.run_bin_mean_with_cosines(clusters)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = bucket_launches(kernels, backend, f"mesh {what}", True)
+        bits = changed_bits(got, reps)
+        cos_bits = int((np.asarray(got_cos) != np.asarray(cosines)).sum())
+        if [g.title for g in got] != [r.title for r in reps] or any(
+                g.n_peaks != r.n_peaks for g, r in zip(got, reps)) \
+                or bits or cos_bits:
+            raise AssertionError(f"mesh {what}: {bits} spectrum values and "
+                                 f"{cos_bits} cosines differ from the "
+                                 "bucketized run")
+        run = {"devices": [str(d) for d in mesh.devices], "wall_s": wall,
+               "chunks": backend.chunks, "cos_chunks": backend.cos_chunks,
+               "launches": launches, "same_bytes": True}
+        print(f"mesh {what} {json.dumps(run)}", flush=True)
+        res[what] = run
+    return res
+
+
+RANK_CONFIGS = (
+    ("bin-mean f32 QC", "consensus", ("--qc-report", "{qc}")),
+    ("medoid", "select", ("--method", "medoid")),
+    ("bin-mean int8", "consensus", ("--precision", "int8")),
+)
+
+
+def ranks_phase(src: str) -> dict:
+    """ranks: CLI-2k as two ``--coordinator`` ranks on the one card (two
+    processes, a port the OS picked), joined by ``merge-parts``, against
+    the single-process ``--mesh`` run in process: the medoid and int8
+    outputs byte for byte; the f32 bin-mean and its QC report held at the
+    tolerances with the changed bits counted."""
+    import socket
+
+    from specpride_tpu_torch.io.mgf import read_mgf
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "ranks")
+    os.makedirs(work, exist_ok=True)
+    res = {"launches": {"seg_mean": 0, "seg_mean_heads": 0, "seg_scan": 0}}
+    for what, command, flags in RANK_CONFIGS:
+        for f in os.listdir(work):
+            os.remove(os.path.join(work, f))
+        single, out = (os.path.join(work, n) for n in ("single.mgf",
+                                                        "out.mgf"))
+        sqc, qc = (os.path.join(work, n) for n in ("single.json", "qc.json"))
+        one = run_main(command, src, single, "--mesh",
+                       *(f.format(qc=sqc) for f in flags))
+        if one["rc"] != 0:
+            raise AssertionError(f"ranks {what}: the single run failed:\n"
+                                 f"{one['stderr'][-2000:]}")
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "specpride_tpu_torch", command, src, out,
+             "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+             "--process-id", str(i), *(f.format(qc=qc) for f in flags)],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+        ) for i in range(2)]
+        try:
+            errs = [p.communicate(timeout=600)[1] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for p, err in zip(procs, errs):
+            if p.returncode != 0:
+                raise AssertionError(f"ranks {what}: a rank exited "
+                                     f"{p.returncode}:\n{err[-2000:]}")
+            summary = json.loads(err.strip().splitlines()[-1])
+            for k, v in summary["backend"]["launches"].items():
+                res["launches"][k] += v
+        merge = run_main("merge-parts", out, "--num-processes", "2",
+                         *(("--qc-report", qc) if "{qc}" in flags else ()))
+        if merge["rc"] != 0:
+            raise AssertionError(f"ranks {what}: merge-parts failed:\n"
+                                 f"{merge['stderr'][-2000:]}")
+        with open(out, "rb") as a, open(single, "rb") as b:
+            same = a.read() == b.read()
+        run = {"ranks_wall_s": wall, "single_wall_s": one["wall_s"],
+               "same_bytes": same}
+        if what == "bin-mean f32 QC":
+            got, want = read_mgf(out), read_mgf(single)
+            run["vs_single"] = check_bucket_same(got, want,
+                                                 "ranks bin-mean f32")
+            with open(qc) as a, open(sqc) as b:
+                gq, wq = json.load(a), json.load(b)
+            gc = [r["avg_cosine"] for r in gq["clusters"]]
+            wc = [r["avg_cosine"] for r in wq["clusters"]]
+            run["cosine_err"] = check_cosines(gc, wc, "ranks bin-mean f32")
+            run["cosine_changed"] = int(sum(a != b for a, b in zip(gc, wc)))
+            with open(qc, "rb") as a, open(sqc, "rb") as b:
+                run["qc_same_bytes"] = a.read() == b.read()
+        elif not same:
+            raise AssertionError(f"ranks {what}: merged parts differ from "
+                                 "the single-process bytes")
+        print(f"ranks {what} {json.dumps(run)}", flush=True)
+        res[what] = run
+    return res
+
+
 def main() -> int:
     start_launcher()  # before torch: see LAUNCHER
     try:
@@ -2431,6 +2688,9 @@ def smoke() -> int:
     dres = medoid_phase(kernels, clusters)
     picks = dres.pop("picks")
     selres = select_phase(kernels, clusters, picks)
+    bres = bucketized_phase(kernels, clusters, slice_reps)
+    meshres = mesh_phase(kernels, clusters, bres.pop("reps"),
+                         bres.pop("cosines"))
     sortres = sort_split_phase(clusters, slice_reps)
     exres = executor_phase(kernels, clusters, slice_cos, picks)
     fres = files_phase(kernels, clusters, slice_cos, sres["cos_chunks"],
@@ -2443,6 +2703,7 @@ def smoke() -> int:
     quarres = quarantine_phase(cli_src)
     chaosres = chaos_phase(cli_src)
     oomres = real_oom_phase(kernels)
+    rankres = ranks_phase(cli_src)
 
     main_case = mres["cases"][0]
     path_case = pres["cases"][0]
@@ -2456,6 +2717,11 @@ def smoke() -> int:
               for k in main_run}
     heads_launches = sum(exres[what]["launches"]["seg_mean_heads"]
                          for what in ("gap f32", "bin-mean int8"))
+    # the bucketized path's runs: bucketized-20k, the mesh runs and the
+    # ranks (their processes' own counts)
+    bucket = {k: sum(r["launches"][k] for r in
+                     [*bres.values(), *meshres.values(), rankres])
+              for k in main_run}
     entries = [{
         "name": "seg_mean",
         "route": "cuda",
@@ -2463,7 +2729,7 @@ def smoke() -> int:
         "replaces": "specpride_tpu/ops/pallas_kernels.py:187",
         "launches": (main_run["seg_mean"]
                      + fres["consensus_launches"]["seg_mean"]
-                     + robust["seg_mean"]),
+                     + robust["seg_mean"] + bucket["seg_mean"]),
         "max_abs_err": max(c["max_abs_err"] for c in mres["cases"]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -2475,7 +2741,8 @@ def smoke() -> int:
         "route": "cuda",
         "source": "specpride_tpu_torch/ops/csrc/seg_mean.cu",
         "replaces": "specpride_tpu/ops/pallas_kernels.py:187",
-        "launches": heads_launches + robust["seg_mean_heads"],
+        "launches": (heads_launches + robust["seg_mean_heads"]
+                     + bucket["seg_mean_heads"]),
         "max_abs_err": max(c["max_abs_err"] for c in hres["cases"]),
         "ms": heads_case["ms"],
         "plain_ms": heads_case["plain_ms"],
@@ -2491,7 +2758,7 @@ def smoke() -> int:
                      + exres["medoid"]["launches"]["seg_scan"]
                      + fres["consensus_launches"]["seg_scan"]
                      + fres["evaluate_launches"]["seg_scan"]
-                     + robust["seg_scan"]),
+                     + robust["seg_scan"] + bucket["seg_scan"]),
         "max_abs_err": max(
             c["max_abs_err"] for c in kres["cases"] + pres["cases"]
         ),
@@ -2513,7 +2780,8 @@ def smoke() -> int:
                    "host_sorts": sortres, "executor": exres,
                    "files": fres, "cli": cres, "kill_resume": killres,
                    "quarantine": quarres, "chaos": chaosres,
-                   "real_oom": oomres,
+                   "real_oom": oomres, "bucketized": bres,
+                   "mesh": meshres, "ranks": rankres,
                    "build": info.get("seconds"),
                    "wall_s": time.perf_counter() - start}, fh, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -28,6 +28,17 @@ rep bin, and runs ``ops.similarity.cosine_flat`` on the card per chunk,
 always in f32.  ``run_bin_mean_with_cosines`` is the two in a row, on
 one ``SpectraTable``.
 
+With ``layout="bucketized"`` (or a ``mesh``) the binned mean, the gap
+average and the QC cosine run on the JAX package's (B, K) layout instead:
+clusters of like size share a batch, each row one cluster
+(``data.packed.pack_bucketize_bin_mean``, ``pack_bucketize_gap``,
+``pack_bucketize``), the binned mean's m/z means and float32 quorum on the
+card (``ops.binning.bin_mean_deduped_compact``), the gap average's through
+``ops.gap_average.gap_average_compact2d`` and the cosine through
+``ops.similarity.cosine_packed``.  A ``parallel.mesh.DeviceMesh`` splits
+each batch's rows over its devices, one stream each; without one the rows
+run on ``device``.  ``layout="auto"`` is the flat layout on one device.
+
 Each of the three card paths is two phases (``prepare_chunk``, host work
 only, and ``run_prepared``, the dispatch and finalize), the protocol the
 CLI's chunked executor drives from its pack and dispatch lanes; the
@@ -56,12 +67,16 @@ from specpride_tpu_torch.data.packed import (
     SENTINEL,
     _as_table,
     _grouped_arange,
+    merge_cluster_sources,
     pack_bucketize,
+    pack_bucketize_bin_mean,
+    pack_bucketize_gap,
     pack_flat_bin_mean,
     pack_flat_gap,
 )
 from specpride_tpu_torch.data.peaks import Cluster, Spectrum
 from specpride_tpu_torch.ops import binning, gap_average, quantize, similarity
+from specpride_tpu_torch.parallel.mesh import DeviceMesh, row_align
 from specpride_tpu_torch.robustness import faults
 from specpride_tpu_torch.ops.segsort import (
     searchsorted_right_i32,
@@ -73,6 +88,7 @@ PHASES = (
     "qc_pack", "qc_h2d", "qc_kernel", "qc_d2h",
 )
 PREPARED_METHODS = ("bin-mean", "gap-average", "medoid")
+LAYOUTS = ("auto", "flat", "bucketized")
 
 
 def _add_time(phases: dict, phase: str, t0: float) -> None:
@@ -113,11 +129,30 @@ def check_uniform_charge(members: list[Spectrum]) -> None:
         raise ValueError("Not all precursor charges in cluster are equal")
 
 
+def _iter_compacted(fused: np.ndarray, cap: int, n_rows: int):
+    """``(row, mz, intensity)`` of a compacted ``[flat_mz (cap) |
+    flat_intensity (cap) | n_out (rows)]`` output
+    (``ops.binning.compact_rows``), float64 copies, in row order."""
+    flat_mz = fused[:cap]
+    flat_int = fused[cap : 2 * cap]
+    n_out = fused[2 * cap :].astype(np.int64)
+    offsets = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(n_out[:n_rows], out=offsets[1:])
+    for ci in range(n_rows):
+        o0, o1 = int(offsets[ci]), int(offsets[ci + 1])
+        yield (ci, flat_mz[o0:o1].astype(np.float64),
+               flat_int[o0:o1].astype(np.float64))
+
+
 class TorchBackend:
     """Runs the consensus on ``device`` ("cuda" unless the caller asks for
     "cpu").  ``max_grid_elements // 4`` bounds the peaks of one chunk.
     ``precision`` ("f32", "bf16" or "int8") is the encoding of the
     consensus channels sent to the card; the QC cosine is always f32.
+    ``layout`` ("auto" or "flat": the flat layout; "bucketized": the (B,
+    K) rows of ``batch_config``'s buckets) and ``mesh`` (a
+    ``DeviceMesh`` the rows are split over; it implies "bucketized")
+    choose where the consensus and the QC run.
 
     ``phase_seconds`` accumulates wall seconds per phase over calls (the
     kernel phases from CUDA events on the card); the ``qc_*`` phases are
@@ -125,7 +160,9 @@ class TorchBackend:
     ``h2d_bytes`` counts the bytes of the arrays copied to ``device`` in
     the ``h2d`` and ``qc_h2d`` phases, ``d2h_bytes`` those fetched back in
     the ``d2h`` and ``qc_d2h`` phases.  ``chunks`` counts the consensus or
-    medoid chunks run and ``cos_chunks`` the cosine chunks;
+    medoid chunks run (a bucketized chunk per device block) and
+    ``cos_chunks`` the cosine chunks; ``bucket_elements`` the real and
+    padded peak slots of the bucketized consensus chunks;
     ``medoid_encodings`` counts the medoid chunks by the integer width of
     the bins and member ids they shipped ("i32", or "i16" narrowed at a
     reduced ``precision``).  These are written on the dispatch lane only
@@ -136,6 +173,9 @@ class TorchBackend:
         self, device: str | torch.device = "cuda",
         max_grid_elements: int = 64 * 1024 * 1024,
         precision: str = "f32",
+        layout: str = "auto",
+        mesh: DeviceMesh | None = None,
+        batch_config: BatchConfig | None = None,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -148,8 +188,20 @@ class TorchBackend:
         if precision not in quantize.PRECISIONS:
             raise ValueError(f"precision must be one of {quantize.PRECISIONS}"
                              f", got {precision!r}")
+        if layout not in LAYOUTS:
+            raise ValueError(f"layout must be one of {LAYOUTS}, got "
+                             f"{layout!r}")
         self.max_grid_elements = int(max_grid_elements)
         self.precision = precision
+        self.layout = layout
+        # the devices the bucketized rows are split over: the mesh, else
+        # ``device`` on its current stream
+        self.mesh = mesh
+        self._rows = (mesh if mesh is not None
+                      else DeviceMesh([self.device], own_streams=False))
+        self.batch_config = batch_config or BatchConfig()
+        # real and padded peak slots of the bucketized consensus dispatches
+        self.bucket_elements = {"real": 0, "padded": 0}
         self.phase_seconds = dict.fromkeys(PHASES, 0.0)
         self.h2d_bytes = {"h2d": 0, "qc_h2d": 0}
         self.d2h_bytes = {"d2h": 0, "qc_d2h": 0}
@@ -163,9 +215,19 @@ class TorchBackend:
 
     # -- two-phase chunk protocol (the CLI's chunked executor) ----------
 
+    @property
+    def bucketized(self) -> bool:
+        """True when the consensus and the QC cosine run on the (B, K)
+        layout: ``layout="bucketized"`` or a mesh."""
+        return self.mesh is not None or self.layout == "bucketized"
+
     def supports_prepare(self, method: str) -> bool:
         """True for the methods with a host pack stage (the three card
-        paths, at every precision); ``best`` is a host join and has none."""
+        paths, at every precision); ``best`` is a host join and has none.
+        On the bucketized layout the consensus packs per bucket inside its
+        dispatch, as the JAX package's does, and has none either."""
+        if self.bucketized and method in ("bin-mean", "gap-average"):
+            return False
         return method in PREPARED_METHODS
 
     def prepare_chunk(
@@ -278,8 +340,16 @@ class TorchBackend:
 
     def _one_shot(self, method: str, clusters, config, cos_config=None):
         """A one-shot entry: one ``dispatch`` fault-site visit (as the
-        JAX package's ``run_*``), then both phases."""
+        JAX package's ``run_*``), then both phases, or on the bucketized
+        layout the consensus's bucket loop (and the QC cosine after it)."""
         faults.check("dispatch")
+        if self.bucketized and method == "bin-mean":
+            reps = self._run_bin_mean_bucketized(clusters, config)
+            if cos_config is None:
+                return reps, None
+            return reps, self.average_cosines(reps, clusters, cos_config)
+        if self.bucketized and method == "gap-average":
+            return self._run_gap_average_bucketized(clusters, config), None
         return self._run_prepared(
             self._prepare(method, clusters, config, cos_config))
 
@@ -324,16 +394,19 @@ class TorchBackend:
         return out, self._cosines_from_members(
             out, prepared.data["mprep"], prepared.cos_config)
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _sync(self, device: torch.device | None = None) -> None:
+        device = device or self.device
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
-    def _put(self, phase: str, tensors: list[torch.Tensor]) -> list:
-        """Host tensors copied to ``device``, synchronized; the time goes
-        to ``phase_seconds[phase]`` and the bytes to ``h2d_bytes[phase]``."""
+    def _put(self, phase: str, tensors: list[torch.Tensor],
+             device: torch.device | None = None) -> list:
+        """Host tensors copied to ``device`` (default: the backend's),
+        synchronized; the time goes to ``phase_seconds[phase]`` and the
+        bytes to ``h2d_bytes[phase]``."""
         t0 = time.perf_counter()
-        out = [t.to(self.device) for t in tensors]
-        self._sync()
+        out = [t.to(device or self.device) for t in tensors]
+        self._sync(device)
         self.phase_seconds[phase] += time.perf_counter() - t0
         self.h2d_bytes[phase] += sum(t.numel() * t.element_size()
                                      for t in tensors)
@@ -350,11 +423,11 @@ class TorchBackend:
         self.d2h_bytes[phase] += out.nbytes
         return out
 
-    def _timed(self, phase: str, fn):
+    def _timed(self, phase: str, fn, device: torch.device | None = None):
         """``fn()``, its time added to ``phase``: CUDA events around it on
-        the card (the caller has synchronized, so only ``fn``'s work is
-        timed), the host clock on the CPU."""
-        if self.device.type != "cuda":
+        the current stream of the card (the caller has synchronized, so
+        only ``fn``'s work is timed), the host clock on the CPU."""
+        if (device or self.device).type != "cuda":
             t0 = time.perf_counter()
             out = fn()
             self.phase_seconds[phase] += time.perf_counter() - t0
@@ -463,6 +536,175 @@ class TorchBackend:
                 title=batch.cluster_ids[ci],
             )
 
+    # -- the bucketized (B, K) layout ---------------------------------
+
+    def _map_rows(self, lo: int, hi: int, host, kernel, align: int,
+                  qc: bool = False) -> list:
+        """Rows [lo, hi) of a bucketized batch, block by block over the
+        devices (``DeviceMesh.map_rows``, each on its own stream):
+        ``host(b0, b1)``'s tensors copied to the block's device,
+        ``kernel(args, b0, b1)`` timed there, its tensor fetched.  Returns
+        ``[(b0, b1, numpy result)]`` in row order.  The ``qc_`` phases
+        when ``qc``, else the consensus's."""
+        pre = "qc_" if qc else ""
+
+        def run(dev, b0, b1):
+            args = self._put(pre + "h2d", host(b0, b1), dev)
+            res = self._timed(pre + "kernel", lambda: kernel(args, b0, b1),
+                              dev)
+            return b0, b1, self._fetch(pre + "d2h", res)
+
+        return self._rows.map_rows(lo, hi, run, align)
+
+    def _encode_bucketized(self, mz: np.ndarray, intensity: np.ndarray):
+        """A (B, K) batch's m/z and intensity at ``precision``, as the
+        tensors the kernel takes: ``(mz, intensity, scale)``; m/z as bf16
+        only where exact, int8 intensity against a per-row ``scale`` the
+        host applies to the fetched means (None otherwise)."""
+        enc_mz, _ = quantize.encode_mz(mz, self.precision)
+        enc_int, scale = quantize.encode_intensity_rows(intensity,
+                                                        self.precision)
+        return enc_mz, enc_int, scale
+
+    def _chunk_rows(self, b: int, k: int):
+        """Row ranges of a (B, K) batch's dispatches: ``max_grid_elements
+        // (4 K)`` rows each (the JAX package's cut)."""
+        chunk = max(1, self.max_grid_elements // max(k * 4, 1))
+        for lo in range(0, b, chunk):
+            yield lo, min(lo + chunk, b)
+
+    def _run_bin_mean_bucketized(self, clusters: list[Cluster],
+                                 config: BinMeanConfig) -> list[Spectrum]:
+        """The bucketized branch of the JAX package's ``run_bin_mean``
+        (``tpu_backend.py:683-752``): per bucket batch and row chunk, one
+        ``bin_mean_deduped_compact`` per device block, its output sized by
+        the rows' distinct bins."""
+        check_no_empty(clusters)
+        for c in clusters:
+            check_uniform_charge(c.members)
+        t0 = time.perf_counter()
+        batches = pack_bucketize_bin_mean(clusters, config,
+                                          self.batch_config)
+        _add_time(self.phase_seconds, "pack", t0)
+        out: list[Spectrum | None] = [None] * len(clusters)
+        for batch in batches:
+            t0 = time.perf_counter()
+            b, k = batch.bins.shape
+            enc_mz, enc_int, scale = self._encode_bucketized(
+                batch.mz, batch.intensity)
+            heads = np.ones((b, k), dtype=bool)
+            heads[:, 1:] = batch.bins[:, 1:] != batch.bins[:, :-1]
+            distinct = (heads & (batch.bins < config.n_bins)).sum(axis=1)
+            _add_time(self.phase_seconds, "pack", t0)
+
+            def host(b0, b1):
+                return [quantize.codes_tensor(enc_mz[b0:b1]),
+                        quantize.codes_tensor(enc_int[b0:b1]),
+                        torch.from_numpy(batch.bins[b0:b1]),
+                        torch.from_numpy(batch.n_members[b0:b1])]
+
+            def kernel(args, b0, b1):
+                return binning.bin_mean_deduped_compact(
+                    *args, n_bins=config.n_bins,
+                    quorum_fraction=config.quorum_fraction,
+                    apply_quorum=config.apply_peak_quorum,
+                    total_cap=int(distinct[b0:b1].sum()))
+
+            for lo, hi in self._chunk_rows(b, k):
+                for b0, b1, fused in self._map_rows(lo, hi, host, kernel,
+                                                    row_align(k)):
+                    self._count_block(batch.n_valid[b0:b1], k)
+                    t0 = time.perf_counter()
+                    cap = int(distinct[b0:b1].sum())
+                    for ci, r_mz, r_int in _iter_compacted(fused, cap,
+                                                           b1 - b0):
+                        gi = batch.source_indices[b0 + ci]
+                        if scale is not None:
+                            # int8 codes were averaged on the card: rescale
+                            # the means by the row's scale (linear)
+                            r_int = r_int * float(scale[b0 + ci])
+                        members = clusters[gi].members
+                        out[gi] = Spectrum(
+                            mz=r_mz, intensity=r_int,
+                            # exact f64 mean, as the oracle (ref
+                            # src/binning.py:224)
+                            precursor_mz=float(
+                                np.mean([s.precursor_mz for s in members])),
+                            precursor_charge=members[0].precursor_charge,
+                            title=batch.cluster_ids[b0 + ci],
+                        )
+                    _add_time(self.phase_seconds, "finalize", t0)
+        return out
+
+    def _count_block(self, n_valid: np.ndarray, k: int) -> None:
+        """One bucketized consensus dispatch: a chunk, its real and padded
+        peak slots."""
+        self.chunks += 1
+        self.bucket_elements["real"] += int(n_valid.sum())
+        self.bucket_elements["padded"] += int(n_valid.size) * k
+
+    def _run_gap_average_bucketized(self, clusters: list[Cluster],
+                                    config: GapAverageConfig
+                                    ) -> list[Spectrum]:
+        """The JAX package's ``_run_gap_average_mesh``
+        (``tpu_backend.py:1453``): per bucket batch and row chunk, one
+        ``gap_average_compact2d`` per device block, its output sized by the
+        rows' exact group counts; at a reduced precision the segment ids
+        cross as int16 where they fit."""
+        check_no_empty(clusters)
+        get_pepmass, get_rt = numpy_backend.resolve_gap_estimators(config)
+        t0 = time.perf_counter()
+        batches = pack_bucketize_gap(clusters, config, self.batch_config)
+        _add_time(self.phase_seconds, "pack", t0)
+        out: list[Spectrum | None] = [None] * len(clusters)
+        for batch in batches:
+            t0 = time.perf_counter()
+            b, k = batch.mz.shape
+            enc_mz, enc_int, scale = self._encode_bucketized(
+                batch.mz, batch.intensity)
+            enc_seg = batch.seg
+            if self.precision != "f32":
+                seg16 = quantize.narrow_i32_to_i16(batch.seg,
+                                                   max_valid=k - 1)
+                if seg16 is not None:
+                    enc_seg = seg16
+            _add_time(self.phase_seconds, "pack", t0)
+
+            def host(b0, b1):
+                return [quantize.codes_tensor(enc_mz[b0:b1]),
+                        quantize.codes_tensor(enc_int[b0:b1]),
+                        torch.from_numpy(enc_seg[b0:b1]),
+                        torch.from_numpy(batch.n_valid[b0:b1]),
+                        torch.from_numpy(batch.quorum[b0:b1]),
+                        torch.from_numpy(batch.n_members[b0:b1])]
+
+            def kernel(args, b0, b1):
+                return gap_average.gap_average_compact2d(
+                    *args, dyn_range=config.dyn_range,
+                    total_cap=int(batch.n_groups[b0:b1].sum()))
+
+            for lo, hi in self._chunk_rows(b, k):
+                for b0, b1, fused in self._map_rows(lo, hi, host, kernel,
+                                                    row_align(k)):
+                    self._count_block(batch.n_valid[b0:b1], k)
+                    t0 = time.perf_counter()
+                    cap = int(batch.n_groups[b0:b1].sum())
+                    for ci, r_mz, r_int in _iter_compacted(fused, cap,
+                                                           b1 - b0):
+                        gi = batch.source_indices[b0 + ci]
+                        if scale is not None:
+                            r_int = r_int * float(scale[b0 + ci])
+                        members = clusters[gi].members
+                        pep_mz, pep_z = get_pepmass(members)
+                        out[gi] = Spectrum(
+                            mz=r_mz, intensity=r_int,
+                            precursor_mz=pep_mz, precursor_charge=pep_z,
+                            rt=get_rt(members),
+                            title=batch.cluster_ids[b0 + ci],
+                        )
+                    _add_time(self.phase_seconds, "finalize", t0)
+        return out
+
     # -- gap-average consensus --------------------------------------------
 
     def run_gap_average(
@@ -553,7 +795,7 @@ class TorchBackend:
         member) (``_medoid_sorted``)."""
         check_no_empty(prepared.clusters)
         t0 = time.perf_counter()
-        batches = pack_bucketize(prepared.clusters, BatchConfig(),
+        batches = pack_bucketize(prepared.clusters, self.batch_config,
                                  bucket_members=True)
         for batch in batches:
             # the JAX package's bound: its counts cross as uint16
@@ -576,23 +818,25 @@ class TorchBackend:
             chunk = max(1, self.max_grid_elements // (int(runs.max()) * m))
             for lo in range(0, batch.n_clusters, chunk):
                 hi = min(lo + chunk, batch.n_clusters)
-                r = int(runs[lo:hi].max())
-                args = self._put("h2d", [torch.from_numpy(sbins[lo:hi]),
-                                         torch.from_numpy(smm[lo:hi])])
-                shared = self._timed("kernel", lambda: (
-                    similarity.shared_bins_packed(*args, m=m, runs=r)
-                ))
-                shared = self._fetch("d2h", shared)
-                self.chunks += 1
-                self.medoid_encodings[encoding] += 1
-                t0 = time.perf_counter()
-                picks = similarity.medoid_finalize(
-                    shared, batch.n_peaks[lo:hi], batch.member_mask[lo:hi],
-                    batch.n_members[lo:hi],
-                )
-                for ci, pick in enumerate(picks):
-                    out[batch.source_indices[lo + ci]] = int(pick)
-                ph["finalize"] += time.perf_counter() - t0
+                # integer counts: any cut of the rows gives the same bytes
+                for b0, b1, shared in self._map_rows(
+                    lo, hi,
+                    lambda b0, b1: [torch.from_numpy(sbins[b0:b1]),
+                                    torch.from_numpy(smm[b0:b1])],
+                    lambda args, b0, b1: similarity.shared_bins_packed(
+                        *args, m=m, runs=int(runs[b0:b1].max())),
+                    1,
+                ):
+                    self.chunks += 1
+                    self.medoid_encodings[encoding] += 1
+                    t0 = time.perf_counter()
+                    picks = similarity.medoid_finalize(
+                        shared, batch.n_peaks[b0:b1],
+                        batch.member_mask[b0:b1], batch.n_members[b0:b1],
+                    )
+                    for ci, pick in enumerate(picks):
+                        out[batch.source_indices[b0 + ci]] = int(pick)
+                    ph["finalize"] += time.perf_counter() - t0
         return out
 
     def _medoid_sorted(self, batch, config: MedoidConfig):
@@ -632,6 +876,38 @@ class TorchBackend:
         """The medoid member of each cluster, in input order."""
         return self._one_shot("medoid", clusters, config)[0]
 
+    def run_shared(self, method: str, parts, config, cos_config=None
+                   ) -> list:
+        """One method over the clusters of several sources as one pack
+        and dispatch group (the device half of the JAX package's serving
+        micro-batcher, ``tpu_backend.py:1786``): the sources are merged
+        (``merge_cluster_sources``), so the buckets fill across them, and
+        the results sliced back.  Every method is per cluster, so each
+        source's representatives and QC cosines (with ``cos_config``) are
+        those of a run over that source alone.  Returns one
+        ``(representatives, cosines or None)`` per source."""
+        if method not in PREPARED_METHODS:
+            raise ValueError(f"method {method!r} is not batchable")
+        merged, spans = merge_cluster_sources(parts)
+        cosines = None
+        if method == "bin-mean" and cos_config is not None:
+            reps, cosines = self.run_bin_mean_with_cosines(merged, config,
+                                                           cos_config)
+        elif method == "bin-mean":
+            reps = self.run_bin_mean(merged, config)
+        elif method == "gap-average":
+            reps = self.run_gap_average(merged, config)
+        else:
+            reps = self.run_medoid(merged, config)
+        if len(reps) != len(merged):
+            raise RuntimeError(f"shared {method} dispatch returned "
+                               f"{len(reps)} representatives for "
+                               f"{len(merged)} clusters")
+        if cos_config is not None and cosines is None:
+            cosines = self.average_cosines(reps, merged, cos_config)
+        return [(reps[a:b], None if cosines is None else cosines[a:b])
+                for a, b in spans]
+
     def run_best_spectrum(
         self,
         clusters: list[Cluster],
@@ -666,10 +942,97 @@ class TorchBackend:
         if len(representatives) != len(clusters):
             raise ValueError("representatives and clusters must align")
         check_no_empty(clusters)
+        if self.bucketized:
+            return self._average_cosines_bucketized(representatives,
+                                                    clusters, config)
         t0 = time.perf_counter()
         mprep = self._prep_cosine_members(clusters, config)
         self.phase_seconds["qc_pack"] += time.perf_counter() - t0
         return self._cosines_from_members(representatives, mprep, config)
+
+    def _cosine_rows(self, representatives, clusters, batch,
+                     config: CosineConfig):
+        """The host arrays of ``similarity.cosine_packed`` for one
+        ``pack_bucketize`` batch, as the JAX package's ``average_cosines``
+        builds them: rep rows of ``Pr`` (a power of two, at least 256)
+        sorted by bin, member rows sorted by (member, bin), both with the
+        host library's stable segmented sort."""
+        idxs = batch.source_indices
+        b, k = batch.mz.shape
+        m = batch.m
+        space = config.mz_space
+        pr_raw = max(max((representatives[i].n_peaks for i in idxs),
+                         default=1), 1)
+        pr = max(256, 1 << (pr_raw - 1).bit_length())
+        rep_mz = np.zeros((b, pr), np.float64)
+        rep_int = np.zeros((b, pr), np.float32)
+        rep_valid = np.zeros((b, pr), bool)
+        mem_edges = np.zeros((b, m), np.int32)
+        for ci, gi in enumerate(idxs):
+            r = representatives[gi]
+            rep_mz[ci, : r.n_peaks] = r.mz
+            rep_int[ci, : r.n_peaks] = quantize.cosine_normalize(
+                r.intensity, config)
+            rep_valid[ci, : r.n_peaks] = True
+            for mi, mem in enumerate(clusters[gi].members):
+                if mem.n_peaks:
+                    # per-member edge count off the LAST peak (ref
+                    # src/benchmark.py:20 assumes sorted spectra)
+                    mem_edges[ci, mi] = quantize.cosine_edge_count(
+                        mem.mz[-1], space)
+        rep_bins, rep_edges = quantize.cosine_bins(rep_mz, rep_valid, config)
+        mem_bins, _ = quantize.cosine_bins(batch.mz64, batch.member_id >= 0,
+                                           config)
+        r_order = seg_argsort(rep_bins.reshape(-1),
+                              np.arange(b + 1, dtype=np.int64) * pr)
+        rep_bins = rep_bins.reshape(-1)[r_order].reshape(b, pr)
+        rep_int = rep_int.reshape(-1)[r_order].reshape(b, pr)
+        mm = np.where(batch.member_id >= 0, batch.member_id, m).astype(
+            np.int64)
+        key = mm * (1 << 31) + mem_bins
+        m_order = seg_argsort(key.reshape(-1),
+                              np.arange(b + 1, dtype=np.int64) * k)
+        mem_bins = mem_bins.reshape(-1)[m_order].reshape(b, k)
+        mem_int = quantize.cosine_normalize(batch.intensity, config).astype(
+            np.float32).reshape(-1)[m_order].reshape(b, k)
+        mem_mm = mm.astype(np.int32).reshape(-1)[m_order].reshape(b, k)
+        return [rep_bins, rep_int, rep_edges, mem_bins, mem_int, mem_mm,
+                mem_edges, batch.member_mask], pr
+
+    def _average_cosines_bucketized(self, representatives, clusters,
+                                    config: CosineConfig) -> np.ndarray:
+        """The bucketized branch of the JAX package's ``average_cosines``
+        (``tpu_backend.py:1883-1981``): per ``pack_bucketize`` batch and
+        row chunk, one ``cosine_packed`` per device block; each row's mean
+        over its members on the host."""
+        out = np.zeros(len(clusters), dtype=np.float64)
+        t0 = time.perf_counter()
+        batches = pack_bucketize(clusters, self.batch_config)
+        _add_time(self.phase_seconds, "qc_pack", t0)
+        for batch in batches:
+            t0 = time.perf_counter()
+            arrays, pr = self._cosine_rows(representatives, clusters, batch,
+                                           config)
+            _add_time(self.phase_seconds, "qc_pack", t0)
+            b, k = batch.mz.shape
+            m = batch.m
+            chunk = max(1, self.max_grid_elements // max((k + pr) * 6, 1))
+            for lo in range(0, b, chunk):
+                hi = min(lo + chunk, b)
+                for b0, b1, cos in self._map_rows(
+                    lo, hi,
+                    lambda b0, b1: [torch.from_numpy(a[b0:b1])
+                                    for a in arrays],
+                    lambda args, b0, b1: similarity.cosine_packed(
+                        *args, m=m),
+                    row_align(k, pr), qc=True,
+                ):
+                    self.cos_chunks += 1
+                    nm = np.maximum(batch.n_members[b0:b1], 1)
+                    mean = cos.astype(np.float64).sum(axis=1) / nm
+                    for ci in range(b1 - b0):
+                        out[batch.source_indices[b0 + ci]] = mean[ci]
+        return out
 
     def _cosines_from_members(self, representatives, mprep: dict,
                               config: CosineConfig) -> np.ndarray:

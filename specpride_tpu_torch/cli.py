@@ -10,6 +10,8 @@
         [--report R.json] [--format json|csv] [--normalization ...]
     python -m specpride_tpu_torch convert IN OUT --msms msms.txt \
         --clusters clusters.tsv [--raw-name NAME] [--px-accession PXD]
+    python -m specpride_tpu_torch merge-parts OUT [--num-processes N] \
+        [--checkpoint BASE] [--qc-report QC.json] [--remove-parts]
 
 ``consensus`` and ``select`` read the clustered MGF (or, with
 ``--clusters``, an mzML file and a MaRaCluster TSV) and group it into
@@ -34,6 +36,15 @@ one on the card, an optional lane copies them to the card ahead
 (``--h2d-buffer``) and a write lane commits finished chunks in order
 (``--async-write``).  Every setting writes the same bytes.  The run
 summary goes to stderr as one JSON line.
+
+``--layout bucketized`` runs the consensus and the QC on the (B, K)
+layout; ``--mesh`` also splits each batch's clusters over every visible
+card.  With ``--coordinator HOST:PORT --num-processes N --process-id I``
+each of N processes (on one host or several) takes the I-th contiguous
+block of the clusters and writes ``OUT.part<I>`` (and per-rank checkpoint
+and QC report), on the bucketized layout over its own cards;
+``merge-parts`` joins the parts in rank order into the bytes of a
+single-process run.
 
 ``evaluate`` scores representatives against their clusters (the mean
 binned cosine on the card, the b/y-ion fraction on the host) and prints
@@ -85,6 +96,12 @@ from specpride_tpu_torch.io.mgf import (
 )
 from specpride_tpu_torch.io.mzml import read_mzml_scans
 from specpride_tpu_torch.ops import kernels, quantize
+from specpride_tpu_torch.parallel.mesh import (
+    DeviceMesh,
+    initialize_distributed,
+    shutdown_distributed,
+)
+from specpride_tpu_torch.parallel.parts import merge_parts, part_path
 from specpride_tpu_torch.robustness import errors, faults
 from specpride_tpu_torch.robustness.harness import Harness
 from specpride_tpu_torch.robustness.integrity import (
@@ -186,6 +203,27 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--format", choices=["json", "csv"], default="json")
     pe.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the cosines run (default: the GPU)")
+
+    pm = sub.add_parser(
+        "merge-parts",
+        help="concatenate multi-host <output>.part<id> shards in order",
+    )
+    pm.add_argument("output", help="final output path (parts are "
+                    "<output>.part00000, <output>.part00001, ...)")
+    pm.add_argument("--num-processes", type=int,
+                    help="expected part count (refuse to merge fewer)")
+    pm.add_argument(
+        "--checkpoint", metavar="BASE",
+        help="verify each part against its <BASE>.part<id> schema-2 "
+        "resume manifest (size + sha256) from a static multi-host run",
+    )
+    pm.add_argument(
+        "--qc-report", metavar="FILE",
+        help="also merge the per-shard <FILE>.part<id> QC reports into "
+        "FILE (byte-identical to a single-host serial run's report)",
+    )
+    pm.add_argument("--remove-parts", action="store_true",
+                    help="delete the part files after a successful merge")
     return ap
 
 
@@ -211,6 +249,28 @@ def _add_common(p: argparse.ArgumentParser, what: str) -> None:
     )
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the method runs (default: the GPU)")
+    p.add_argument(
+        "--layout", choices=["auto", "flat", "bucketized"], default="auto",
+        help="mesh-less device layout (escape hatch: 'bucketized' forces "
+        "the (B, K) paths mesh runs use)",
+    )
+    p.add_argument(
+        "--mesh", action="store_true",
+        help="split each (B, K) batch's clusters over ALL visible cards, "
+        "one stream each (single-host multi-card; implied by "
+        "--coordinator)",
+    )
+    p.add_argument(
+        "--coordinator", metavar="HOST:PORT",
+        help="multi-host: torch.distributed (gloo) rendezvous address, "
+        "rank 0 listening; every process runs the same command with its "
+        "own --process-id and writes <output>.part<id> (merge with "
+        "`merge-parts`)",
+    )
+    p.add_argument("--num-processes", type=int,
+                   help="multi-host: total process count")
+    p.add_argument("--process-id", type=int,
+                   help="multi-host: this process's rank")
     p.add_argument("--append", action="store_true",
                    help="append to the output instead of replacing it")
     p.add_argument("--checkpoint", help="resume manifest path")
@@ -414,7 +474,9 @@ def precision_gate(backend: TorchBackend, method: str, clusters, config,
 
     def twin(prec: str):
         return TorchBackend(device=backend.device, precision=prec,
-                            max_grid_elements=backend.max_grid_elements)
+                            max_grid_elements=backend.max_grid_elements,
+                            layout=backend.layout, mesh=backend.mesh,
+                            batch_config=backend.batch_config)
 
     if method == "medoid":
         # an equal pick scores 1; a different one, the two members' cosine
@@ -1385,10 +1447,39 @@ def load_clusters(args, quarantine: Quarantine | None = None):
     return clusters
 
 
-def _run_pipeline_command(args, backend: TorchBackend) -> dict:
-    """THE consensus/select body: parse, the chunked run, the QC report,
-    then the precision gate (after the outputs, so a breach leaves them on
-    disk to diagnose).  Returns the run summary."""
+def _shard_for_process(clusters, args, rank: int, world: int,
+                       quarantine: Quarantine | None):
+    """Multi-host input sharding (``--coordinator``): rank ``rank`` of
+    ``world`` takes the rank-th contiguous block of the clusters (block
+    order makes ``merge-parts`` give the single-process bytes) and writes
+    ``<output>.part<rank>``; its ``--checkpoint``, ``--qc-report`` and
+    quarantine file get the same suffix, so ranks never share a file.
+    Without a coordinator the clusters and output pass through.  Returns
+    ``(clusters, output)``."""
+    if not args.coordinator:
+        return clusters, args.output
+    chunk = -(-len(clusters) // max(world, 1))
+    lo = min(rank * chunk, len(clusters))
+    mine = clusters[lo : min(lo + chunk, len(clusters))]
+    part = part_path(args.output, rank)
+    if args.checkpoint:
+        args.checkpoint = part_path(args.checkpoint, rank)
+    if args.qc_report:
+        args.qc_report = part_path(args.qc_report, rank)
+    if quarantine is not None:
+        # every rank parses the whole input before sharding
+        quarantine.rename(part_path(quarantine.path, rank))
+    logger.info("process %d/%d: %d of %d clusters -> %s", rank, world,
+                len(mine), len(clusters), part)
+    return mine, part
+
+
+def _run_pipeline_command(args, backend: TorchBackend, rank: int = 0,
+                          world: int = 1) -> dict:
+    """THE consensus/select body: parse, the rank's block of the clusters
+    (``_shard_for_process``), the chunked run, the QC report, then the
+    precision gate (after the outputs, so a breach leaves them on disk to
+    diagnose).  Returns the run summary."""
     stats = RunStats()
     # --on-error skip arms the quarantine: fresh for each run
     quarantine = (Quarantine(args.output + ".quarantine.mgf")
@@ -1397,6 +1488,8 @@ def _run_pipeline_command(args, backend: TorchBackend) -> dict:
         with stats.phase("parse"):
             clusters = load_clusters(args, quarantine)
         scores = load_scores(args) if args.method == "best" else None
+        clusters, args.output = _shard_for_process(clusters, args, rank,
+                                                   world, quarantine)
         qc = [] if args.qc_report is not None else None
         resumed, failed, qc_failed = _checkpointed_run(
             backend, args.method, clusters, args, stats, scores, qc=qc,
@@ -1414,6 +1507,10 @@ def _run_pipeline_command(args, backend: TorchBackend) -> dict:
         "clusters_per_sec": round(stats.throughput("clusters"), 3),
         "backend": {
             "device": str(backend.device), "precision": backend.precision,
+            "layout": "bucketized" if backend.bucketized else "flat",
+            "devices": [str(d) for d in backend.mesh.devices]
+            if backend.mesh is not None else [str(backend.device)],
+            **({"process": [rank, world]} if args.coordinator else {}),
             "chunks": backend.chunks, "cos_chunks": backend.cos_chunks,
             "phase_s": {k: round(v, 6)
                         for k, v in backend.phase_seconds.items()},
@@ -1463,20 +1560,54 @@ def run_evaluate(args, backend: TorchBackend) -> dict:
     return metrics.summarize(results)
 
 
+def run_merge_parts(args) -> int:
+    """``merge-parts``: the parts joined (``parallel.parts.merge_parts``);
+    1 with the reason on stderr when it refuses."""
+    problem = merge_parts(args.output, args.num_processes, args.checkpoint,
+                          args.qc_report, args.remove_parts)
+    if problem is not None:
+        print(problem, file=sys.stderr)
+        return 1
+    return 0
+
+
+def _make_backend(args) -> TorchBackend:
+    """The backend of a consensus, select or evaluate run: on
+    ``--device``, with ``--precision`` and ``--layout``; ``--mesh`` and
+    ``--coordinator`` split the (B, K) batches over every visible card of
+    the device type (the one CPU under ``--device cpu``)."""
+    mesh = None
+    if getattr(args, "mesh", False) or getattr(args, "coordinator", None):
+        mesh = DeviceMesh.local(args.device)
+    return TorchBackend(device=args.device,
+                        precision=getattr(args, "precision", "f32"),
+                        layout=getattr(args, "layout", "auto"), mesh=mesh)
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.command == "convert":
         print(json.dumps(run_convert(args)), file=sys.stderr)
         return 0
+    if args.command == "merge-parts":
+        return run_merge_parts(args)
     try:
-        backend = TorchBackend(device=args.device,
-                               precision=getattr(args, "precision", "f32"))
+        backend = _make_backend(args)
     except RuntimeError as exc:  # no CUDA for the default --device cuda
         ap.error(f"{exc} (here: --device cpu)")
     if args.command == "evaluate":
         print(json.dumps(run_evaluate(args, backend)))
         return 0
-    # the run summary: one JSON line on stderr
-    print(json.dumps(_run_pipeline_command(args, backend)), file=sys.stderr)
+    try:
+        rank, world = initialize_distributed(
+            args.coordinator, args.num_processes, args.process_id)
+    except ValueError as exc:
+        ap.error(str(exc))
+    try:
+        # the run summary: one JSON line on stderr
+        summary = _run_pipeline_command(args, backend, rank, world)
+    finally:
+        shutdown_distributed()
+    print(json.dumps(summary), file=sys.stderr)
     return 0

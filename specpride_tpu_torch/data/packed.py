@@ -13,7 +13,11 @@ float64 and marked by 1-byte group-start flags.
 
 Bucketized: clusters of like total peak count share a (B, K) batch, each
 row its cluster's peaks concatenated in member order with a member-id
-channel (``pack_bucketize``).
+channel (``pack_bucketize``, the medoid's); for the binned mean each row
+holds its cluster's kept peaks sorted by bin (``pack_bucketize_bin_mean``),
+for the gap average its peaks in group order with segment ids
+(``pack_bucketize_gap``).  A (B, K) batch splits along its cluster axis
+over several cards; a flat peak axis would split clusters.
 
 All passes are vectorized numpy over a ``SpectraTable``.  With a reduced
 ``precision`` the packers also encode the channels the card receives
@@ -676,3 +680,154 @@ def pack_bucketize(
             )
         )
     return batches
+
+
+@dataclasses.dataclass
+class BinPackedBatch:
+    """A (B, K) batch for the bucketized binned mean: bins quantized in
+    float64 and duplicate (member, bin) peaks dropped on the host, each row
+    sorted by bin with the padding (bin ``n_bins``) last, so the card needs
+    no member channel and sorts nothing."""
+
+    mz: np.ndarray  # (B, K) f32
+    intensity: np.ndarray  # (B, K) f32
+    bins: np.ndarray  # (B, K) i32, n_bins in padding slots
+    n_valid: np.ndarray  # (B,) i32 kept peaks per row
+    n_members: np.ndarray  # (B,) i32
+    cluster_ids: list[str]
+    source_indices: list[int]
+
+
+def pack_bucketize_bin_mean(
+    clusters_or_table,
+    bin_config,
+    config: BatchConfig = BatchConfig(),
+) -> list[BinPackedBatch]:
+    """Quantize (float64), dedup and bucket clusters for the bucketized
+    binned mean; K buckets are chosen on the kept peak counts.  Each row's
+    kept peaks are sorted by bin with the host library's stable segmented
+    sort, the padding (sentinel ``n_bins``) after them."""
+    table = _as_table(clusters_or_table)
+    idx = table.cluster_order()
+    bins64, kept_src, _, kept_offsets, kept_totals = _bin_quantize_dedup(
+        table, bin_config)
+    plans = _plan_buckets(idx, idx.n_members > 0, kept_totals, config, False)
+    # the kept peaks as a table of their own drive the same layout helper
+    kept_table = dataclasses.replace(table, peak_offsets=kept_offsets)
+    kept_idx = dataclasses.replace(idx, total_peaks=kept_totals)
+    n_bins = bin_config.n_bins
+
+    batches: list[BinPackedBatch] = []
+    for plan in plans:
+        codes = plan.codes
+        b, k = codes.size, plan.k
+        _, _, _, _, src_kept, dest = _peak_layout(kept_table, kept_idx, plan)
+        src = kept_src[src_kept]
+        n_valid = kept_totals[codes]
+        # dest lists each row's kept peaks from column 0 in row order, so a
+        # segmented sort of them by bin is the rows' stable sort (the
+        # padding, all n_bins, is already last)
+        offsets = np.zeros(b + 1, dtype=np.int64)
+        np.cumsum(n_valid, out=offsets[1:])
+        perm = src[seg_argsort(bins64[src], offsets)]
+        mzf = np.zeros(b * k, dtype=np.float32)
+        mzf[dest] = table.mz[perm]
+        inten = np.zeros(b * k, dtype=np.float32)
+        inten[dest] = table.intensity[perm]
+        pbins = np.full(b * k, n_bins, dtype=np.int32)
+        pbins[dest] = bins64[perm]
+        batches.append(
+            BinPackedBatch(
+                mz=mzf.reshape(b, k),
+                intensity=inten.reshape(b, k),
+                bins=pbins.reshape(b, k),
+                n_valid=n_valid.astype(np.int32),
+                n_members=idx.n_members[codes].astype(np.int32),
+                cluster_ids=[table.cluster_names[c] for c in codes],
+                source_indices=[int(c) for c in codes],
+            )
+        )
+    return batches
+
+
+@dataclasses.dataclass
+class GapPackedBatch:
+    """A (B, K) batch for the bucketized gap average: each row its
+    cluster's peaks sorted and split into groups in float64 on the host
+    (``gap_global_segments``), with non-decreasing segment ids; the card
+    takes the group means.  ``n_groups`` is each row's exact group count,
+    so the output is sized exactly."""
+
+    mz: np.ndarray  # (B, K) f32, ascending (singletons: input order)
+    intensity: np.ndarray  # (B, K) f32, same order
+    seg: np.ndarray  # (B, K) i32 segment ids, non-decreasing; padding 0
+    n_valid: np.ndarray  # (B,) i32
+    quorum: np.ndarray  # (B,) i32 host-f64 ceil(min_fraction * n_members)
+    n_members: np.ndarray  # (B,) i32
+    n_groups: np.ndarray  # (B,) i64
+    cluster_ids: list[str]
+    source_indices: list[int]
+
+
+def pack_bucketize_gap(
+    clusters_or_table,
+    config,
+    batch_config: BatchConfig = BatchConfig(),
+) -> list[GapPackedBatch]:
+    """Bucketize the float64 gap segmentation (``gap_global_segments``) by
+    total peak count."""
+    table = _as_table(clusters_or_table)
+    idx = table.cluster_order()
+    g = gap_global_segments(table, idx, config)
+    s_mz, seg, n_groups, first_pos = (
+        g["s_mz"], g["seg"], g["n_groups"], g["first_pos"])
+    s_intensity = table.intensity[g["order"]]
+    quorum_all = np.ceil(
+        config.min_fraction * idx.n_members.astype(np.float64)
+    ).astype(np.int32)
+    plans = _plan_buckets(idx, idx.n_members > 0, idx.total_peaks,
+                          batch_config, False)
+
+    batches: list[GapPackedBatch] = []
+    for plan in plans:
+        codes = plan.codes
+        b, k = codes.size, plan.k
+        totals = idx.total_peaks[codes]
+        src = np.repeat(first_pos[codes], totals) + _grouped_arange(totals)
+        dest = np.repeat(
+            np.arange(b, dtype=np.int64) * k, totals
+        ) + _grouped_arange(totals)
+        mzf = np.zeros(b * k, dtype=np.float32)
+        mzf[dest] = s_mz[src]
+        inten = np.zeros(b * k, dtype=np.float32)
+        inten[dest] = s_intensity[src]
+        pseg = np.zeros(b * k, dtype=np.int32)
+        pseg[dest] = seg[src]
+        batches.append(
+            GapPackedBatch(
+                mz=mzf.reshape(b, k),
+                intensity=inten.reshape(b, k),
+                seg=pseg.reshape(b, k),
+                n_valid=totals.astype(np.int32),
+                quorum=quorum_all[codes],
+                n_members=idx.n_members[codes].astype(np.int32),
+                n_groups=n_groups[codes],
+                cluster_ids=[table.cluster_names[c] for c in codes],
+                source_indices=[int(c) for c in codes],
+            )
+        )
+    return batches
+
+
+def merge_cluster_sources(parts) -> tuple[list, list[tuple[int, int]]]:
+    """Concatenate the cluster lists of several sources into one pack
+    input, with each source's ``(start, stop)`` span of the merged list
+    (and of any result aligned with it), so the bucket plan fills buckets
+    across sources and results are sliced back per source."""
+    merged: list = []
+    spans: list[tuple[int, int]] = []
+    for part in parts:
+        start = len(merged)
+        merged.extend(part)
+        spans.append((start, len(merged)))
+    return merged, spans

@@ -64,6 +64,26 @@ def cosine_normalize(intensity: np.ndarray, config: CosineConfig) -> np.ndarray:
     return intensity
 
 
+def cosine_bins(
+    mz: np.ndarray, valid: np.ndarray, config: CosineConfig
+) -> tuple[np.ndarray, np.ndarray]:
+    """Cosine-grid bins of (..., P) peaks and each spectrum's edge count,
+    in float64, for the bucketized cosine: ``bins`` int32
+    ``floor((mz + space/2) / space)``, 2^30 where not ``valid`` (so it
+    sorts last); the edge count off the LAST valid peak's m/z (ref
+    src/benchmark.py:20 takes ``mz[-1]``), 0 without one."""
+    space = config.mz_space
+    mzf = mz.astype(np.float64)
+    bins = np.floor((mzf + space / 2.0) / space).astype(np.int64)
+    sentinel = np.int32(2**30)
+    bins = np.where(valid, np.clip(bins, 0, sentinel - 1), sentinel)
+    n_valid = valid.sum(axis=-1)
+    last_idx = np.maximum(n_valid - 1, 0)
+    last_mz = np.take_along_axis(mzf, last_idx[..., None], axis=-1)[..., 0]
+    last_mz = np.where(n_valid > 0, last_mz, -np.inf)
+    return bins.astype(np.int32), cosine_edge_count(last_mz, space)
+
+
 def cosine_edge_count(last_mz, space):
     """Edge count of the metric grid ``arange(-space/2, last_mz, space)``
     (numpy arange length = ceil((stop - start)/step)), float64; 0 for a
@@ -136,6 +156,28 @@ def encode_mz(mz: np.ndarray, precision: str) -> tuple[np.ndarray, str]:
     if precision == "f32" or not bf16_exact(mz):
         return np.asarray(mz, dtype=np.float32), "f32"
     return bf16_bits(mz), "bf16"
+
+
+def encode_intensity_rows(
+    intensity: np.ndarray, precision: str
+) -> tuple[np.ndarray, np.ndarray | None]:
+    """Encode a (B, K) bucketized intensity channel: ``(codes, scale)``
+    as ``encode_intensity_flat`` does, each row a cluster: f32 the
+    identity; bf16 bit patterns; int8 per-row codes ``round(x / scale)``,
+    ``scale = rowmax / 127``, the scale kept on the host."""
+    x = np.asarray(intensity, dtype=np.float32)
+    if precision == "f32":
+        return x, None
+    if precision == "bf16":
+        return bf16_bits(x), None
+    if precision != "int8":
+        raise ValueError(f"unknown precision {precision!r}")
+    rowmax = np.abs(x).max(axis=-1)
+    scale = np.where(rowmax > 0, rowmax / 127.0, 1.0).astype(np.float32)
+    codes = np.clip(
+        np.round(x / scale[..., None]), -127, 127
+    ).astype(np.int8)
+    return codes, scale
 
 
 def encode_intensity_flat(

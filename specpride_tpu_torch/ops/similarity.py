@@ -13,7 +13,9 @@ per-peak composite keys, edge-gated intensities, spectrum ids and
 rep-lookup positions outright (``TorchBackend._dispatch_cosine_flat``
 builds them); the card runs five segmented scans through the ``seg_scan``
 kernel, plus gathers and elementwise torch ops, and returns one float per
-cluster.
+cluster.  On the bucketized (B, K) layout (``cosine_packed``) the same
+algebra runs row by row: four row-local ``seg_scan`` launches over the
+flattened rows, and each member's cosine comes back.
 """
 
 from __future__ import annotations
@@ -210,3 +212,92 @@ def cosine_flat(
     row_has = row_spec_offsets[1:] > row_spec_offsets[:-1]
     row_sum = torch.where(row_has, cos_scan[row_last], 0.0)
     return row_sum / torch.clamp(n_members.to(torch.float32), min=1.0)
+
+
+COSINE_SENTINEL = 2**30  # cosine bin of a padding slot (quantize.cosine_bins)
+
+
+def cosine_packed(
+    rep_bins: torch.Tensor,  # (B, Pr) i32, each row non-decreasing,
+    #   COSINE_SENTINEL padding last
+    rep_int: torch.Tensor,  # (B, Pr) f32, same order
+    rep_edges: torch.Tensor,  # (B,) i32
+    mem_bins: torch.Tensor,  # (B, K) i32, each row sorted by (member,
+    #   bin), COSINE_SENTINEL padding last
+    mem_int: torch.Tensor,  # (B, K) f32, same order
+    mem_member: torch.Tensor,  # (B, K) i32 member ids, padding = m (last)
+    mem_edges: torch.Tensor,  # (B, M) i32 per-member edge counts
+    member_mask: torch.Tensor,  # (B, M) bool
+    m: int,
+) -> torch.Tensor:
+    """(B, M) float32 binned cosine of each row's representative to each
+    of its members (0 off ``member_mask``): the counterpart of the JAX
+    package's ``ops/similarity.py::_cosine_packed`` (vmapped
+    ``_cosine_packed_cluster``) on the same host-sorted arrays.  The
+    caller takes each row's mean over its members.
+
+    Per-bin algebra: per-(member, bin) intensity sums, each rep bin's sum
+    and the prefix of their squares, then each member's dot and norm by
+    member-segmented sums, the rep sum found by a row-wise
+    ``searchsorted``.  The pair's grid cutoff ``max(rep_edges,
+    mem_edges) - 2`` (ref src/benchmark.py:20-22) gates member peaks and
+    the rep norm's prefix.  Every segmented sum is a row-local
+    ``seg_scan2d`` (the ``seg_scan`` kernel on head flags)."""
+    sent = COSINE_SENTINEL
+    b, pr = rep_bins.shape
+    dev = rep_bins.device
+    rb = rep_bins.to(torch.int32)
+    sb = mem_bins.to(torch.int32)
+    sm = mem_member.to(torch.int64)
+
+    # rep side: per-bin run totals, then the row prefix of their squares
+    rvalid = rb < sent
+    r_starts = sg.run_starts2d(rb)
+    (r_scan,) = sg.seg_scan2d(r_starts, (torch.where(rvalid, rep_int, 0.0),))
+    r_sq = torch.where(sg.run_ends2d(r_starts) & rvalid, r_scan * r_scan, 0.0)
+    row_heads = torch.zeros((b, pr), dtype=torch.bool, device=dev)
+    row_heads[:, 0] = True
+    (r_sq_prefix,) = sg.seg_scan2d(row_heads, (r_sq,))
+
+    # member side: (member, bin) runs, gated by the pair's cutoff
+    cutoff = torch.maximum(rep_edges.to(torch.int32)[:, None],
+                           mem_edges.to(torch.int32)) - 2  # (B, M)
+    cut_at = torch.gather(cutoff, 1, sm.clamp(0, m - 1))
+    ok = (sm < m) & (sb < sent) & (sb <= cut_at)
+    m_starts = sg.run_starts2d2(sm, sb)
+    (m_scan,) = sg.seg_scan2d(m_starts, (torch.where(ok, mem_int, 0.0),))
+    is_last = sg.run_ends2d(m_starts)
+
+    # each member run's rep bin total: the last element of the matching
+    # rep run holds it in the scan
+    pos = torch.searchsorted(rb, sb, right=True) - 1
+    pos_c = pos.clamp(0, pr - 1)
+    rep_hit = (torch.gather(rb, 1, pos_c) == sb) & (sb < sent)
+    rep_val = torch.where(rep_hit, torch.gather(r_scan, 1, pos_c), 0.0)
+
+    # per-member dot and norm: run totals at run ends, summed per member,
+    # read at each member's last element and placed by member id
+    contrib_ok = is_last & ok
+    run_tot = torch.where(is_last, m_scan, 0.0)
+    sm_starts = sg.run_starts2d(sm)
+    dot_scan, norm_scan = sg.seg_scan2d(sm_starts, (
+        torch.where(contrib_ok, run_tot * rep_val, 0.0),
+        torch.where(contrib_ok, run_tot * run_tot, 0.0),
+    ))
+    midx = torch.where(sg.run_ends2d(sm_starts) & (sm < m), sm, m)
+    dots = torch.zeros((b, m + 1), dtype=torch.float32, device=dev)
+    norms = torch.zeros((b, m + 1), dtype=torch.float32, device=dev)
+    # real member ids are unique per row; slot m collects the rest
+    dots = dots.scatter(1, midx, dot_scan)[:, :m]
+    norms = norms.scatter(1, midx, norm_scan)[:, :m]
+
+    # the rep norm per member: the squared prefix up to the cutoff
+    npos = torch.searchsorted(rb, (cutoff + 1).contiguous(), right=False)
+    rep_norm = torch.where(
+        npos > 0, torch.gather(r_sq_prefix, 1, (npos - 1).clamp(0, pr - 1)),
+        0.0)
+
+    okc = (norms > 0) & (rep_norm > 0)
+    cos = torch.where(
+        okc, dots / torch.sqrt(torch.clamp(norms * rep_norm, min=1e-30)), 0.0)
+    return torch.where(member_mask, cos, 0.0)

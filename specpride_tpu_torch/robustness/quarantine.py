@@ -45,6 +45,18 @@ class Quarantine:
         logger.warning("quarantined malformed MGF block (%s) -> %s", reason,
                        self.path)
 
+    def rename(self, path: str) -> None:
+        """Move the quarantine to ``path`` (a rank of a multi-host run
+        keeps its own ``.part<id>`` file), before or after its first
+        block."""
+        with self._lock:
+            if self._fh is not None:
+                self._fh.close()
+                self._fh = None
+            if os.path.exists(self.path):
+                os.replace(self.path, str(path))
+            self.path = str(path)
+
     def close(self) -> None:
         with self._lock:
             if self._fh is not None:

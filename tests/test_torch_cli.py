@@ -157,6 +157,8 @@ def test_import_and_help_load_no_jax():
         "import specpride_tpu_torch.robustness.harness\n"
         "import specpride_tpu_torch.robustness.quarantine\n"
         "import specpride_tpu_torch.robustness.errors\n"
+        "import specpride_tpu_torch.parallel.mesh\n"
+        "import specpride_tpu_torch.parallel.parts\n"
         "from specpride_tpu_torch.io.mgf import StreamedClusters\n"
         "import numpy\n"
         "from specpride_tpu_torch.ops.segsort import seg_argsort\n"
@@ -164,7 +166,8 @@ def test_import_and_help_load_no_jax():
         "from specpride_tpu_torch.io.native import parse_mgf_bytes\n"
         "parse_mgf_bytes(b'BEGIN IONS\\n1.0 2.0\\nEND IONS\\n')\n"
         "from specpride_tpu_torch.cli import main\n"
-        "for cmd in ('consensus', 'select', 'evaluate', 'convert'):\n"
+        "for cmd in ('consensus', 'select', 'evaluate', 'convert',\n"
+        "            'merge-parts'):\n"
         "    try:\n"
         "        main([cmd, '--help'])\n"
         "    except SystemExit:\n"
@@ -196,6 +199,16 @@ def test_import_and_help_load_no_jax():
     for flag in ("--single", "--report", "--format", "--normalization"):
         assert flag in proc.stdout
     assert proc.stdout.count("--clusters") >= 3
+    # the bucketized layout and the cluster split on consensus and select,
+    # the JAX CLI's spellings; merge-parts and its flags
+    for flag in ("--layout", "{auto,flat,bucketized}", "--mesh",
+                 "--coordinator", "--process-id"):
+        assert proc.stdout.count(flag) >= 2, flag
+    assert proc.stdout.count("--num-processes") >= 3
+    assert proc.stdout.count("--checkpoint ") + proc.stdout.count(
+        "--checkpoint BASE") >= 3
+    for flag in ("--remove-parts", "<output>.part00000"):
+        assert flag in proc.stdout
     assert "LOADED []" in proc.stdout
 
 
@@ -229,7 +242,8 @@ def test_package_source_imports_no_jax():
             "metrics.py", "ops/fragments.py", "robustness/errors.py",
             "robustness/faults.py", "robustness/retry.py",
             "robustness/watchdog.py", "robustness/quarantine.py",
-            "robustness/harness.py", "io/mgf.py"} <= scanned
+            "robustness/harness.py", "io/mgf.py", "parallel/__init__.py",
+            "parallel/mesh.py", "parallel/parts.py"} <= scanned
     assert len(files) > 10
     # the port builds its own host library: none of the JAX package's
     # native libraries (native/lib*.so) is named, let alone loaded, and no
@@ -390,3 +404,29 @@ def test_cli_without_cuda_refuses_default_device(tmp_path):
     assert proc.returncode != 0
     assert "device='cpu'" in proc.stderr
     assert not out.exists()
+
+
+def test_layout_and_split_flags_parse_like_the_jax_cli():
+    """The new flags parse to the JAX CLI's dests and defaults on both
+    commands, and ``merge-parts`` to its flags."""
+    from specpride_tpu_torch.cli import build_parser
+
+    port, jax_ap = build_parser(), jcli.build_parser()
+    for cmd in ("consensus", "select"):
+        base = [cmd, "in.mgf", "out.mgf"]
+        for argv in (base, base + [
+                "--layout", "bucketized", "--mesh", "--coordinator",
+                "127.0.0.1:9", "--num-processes", "4", "--process-id",
+                "3"]):
+            got, want = port.parse_args(argv), jax_ap.parse_args(argv)
+            for dest in ("layout", "mesh", "coordinator", "num_processes",
+                         "process_id"):
+                assert getattr(got, dest) == getattr(want, dest), dest
+        with pytest.raises(SystemExit):
+            port.parse_args(base + ["--layout", "sideways"])
+    argv = ["merge-parts", "o.mgf", "--num-processes", "2", "--checkpoint",
+            "ck", "--qc-report", "qc.json", "--remove-parts"]
+    got, want = port.parse_args(argv), jax_ap.parse_args(argv)
+    for dest in ("output", "num_processes", "checkpoint", "qc_report",
+                 "remove_parts"):
+        assert getattr(got, dest) == getattr(want, dest), dest
