@@ -18,8 +18,9 @@ NVIDIA GPU:
    one CUDA kernel per call, and beside its bound it is given the time of
    a plain device copy of the same traffic (``copy_ms``);
    then ``seg_mean_heads`` against ``seg_mean_heads_plain`` (head flags;
-   one bf16 or int8 channel, f32/f32 and f32/int8 channel pairs at 16M, a
-   ragged N, and pointers one element off alignment), timed the same way;
+   one f32 (the flat gap average's intensities), bf16 or int8 channel,
+   f32/f32 and f32/int8 channel pairs at 16M, a ragged N, and pointers
+   one element off alignment), timed the same way;
    stress phase: 200 calls of both kernels back to back on one stream, N
    cycling through the path's shape, 16M, a ragged N, 1, one tile and one
    tile + 1, each against its plain version; extremes: 16M elements as
@@ -33,7 +34,8 @@ NVIDIA GPU:
    representative's cosine to the f32 one held to the precision
    tolerance, H2D bytes per peak beside f32's; gap phase:
    ``run_gap_average`` on the same clusters at f32 and int8 against CPU
-   runs; medoid phase: ``run_medoid`` on the same clusters at f32 and
+   runs, the m/z (the host's float64 group means) identical and the
+   singletons equal to their member; medoid phase: ``run_medoid`` on the same clusters at f32 and
    bf16 (int16 channels), the picks identical to each other, to a CPU run
    and to the numpy oracle on subsets, no hand-written kernel launched,
    the shared-bin counts' device time beside their bound; select phase:
@@ -98,10 +100,21 @@ NVIDIA GPU:
    the single-process ``--mesh`` run: the medoid and int8 bytes, the f32
    bin-mean and its QC report at the tolerances with the changed bits
    counted;
-7. prints a ``{"kernels": [...]}`` line (launches: the executor's runs at
+7. telemetry phase, on CLI-2k: ``consensus --qc-report --journal
+   --metrics-out --trace-dir`` on the card, the journal read back with no
+   schema violation, its ``dispatch`` and ``chunk_done`` events counted
+   against the ``seg_mean`` and ``seg_scan`` launches, the textfile's
+   ``specpride_*`` families with a device-memory gauge above 0, the
+   ``torch.profiler`` trace's CUDA kernels naming both hand-written
+   kernels, and ``stats`` over the journal; ``consensus --method
+   gap-average --qc-report`` against ``--device cpu`` (m/z identical,
+   singletons equal to their member, one ``seg_mean_heads`` launch per
+   chunk); ``evaluate --layout bucketized`` against the CPU; ``plot``
+   (skipped, with a line saying so, where matplotlib does not import);
+8. prints a ``{"kernels": [...]}`` line (launches: the executor's runs at
    the defaults, the files phase's consensus runs and evaluate, the chaos
-   and real OOM runs, the bucketized, mesh and rank runs) and, last, the
-   ``{"ok": true, "device": {...}}`` line.
+   and real OOM runs, the bucketized, mesh and rank runs, the telemetry
+   phase's runs) and, last, the ``{"ok": true, "device": {...}}`` line.
 
 Every comparison of a kernel with its plain version prints its largest
 relative error beside the tolerance.
@@ -443,10 +456,12 @@ def path_scan_phase(kernels, shapes: list) -> dict:
     return {"cases": cases}
 
 
-# seg_mean_heads at the paths' shapes: the binned mean's bf16 or int8 codes
-# (nv = 1) and the gap average's m/z and intensity (nv = 2), a ragged N,
-# and every pointer one element off its 16-byte alignment (the scalar path)
+# seg_mean_heads at the paths' shapes: the flat gap average's f32
+# intensities and the binned mean's bf16 or int8 codes (nv = 1), the
+# bucketized gap average's m/z and intensity (nv = 2), a ragged N, and
+# every pointer one element off its 16-byte alignment (the scalar path)
 HEAD_CASES = (
+    ("f32 nv=1", KERNEL_N, ("float32",), 0),
     ("bf16 nv=1", KERNEL_N, ("bfloat16",), 0),
     ("int8 nv=1", KERNEL_N, ("int8",), 0),
     ("f32/f32 nv=2", KERNEL_N, ("float32", "float32"), 0),
@@ -454,7 +469,7 @@ HEAD_CASES = (
     ("bf16/bf16 nv=2 ragged", RAGGED_N, ("bfloat16", "bfloat16"), 0),
     ("f32/int8 nv=2 offset", KERNEL_N, ("float32", "int8"), 1),
 )
-HEAD_MAIN = "f32/f32 nv=2"  # the gap average at f32: the kernels line's case
+HEAD_MAIN = "f32 nv=1"  # the flat gap average at f32: the kernels line's
 
 
 def head_inputs(n: int, dtypes, seed: int):
@@ -893,10 +908,13 @@ def precision_phase(kernels, clusters, f32_reps, f32_h2d: int) -> dict:
 GAP_TOL = (dict(rtol=1e-5, atol=0.0), dict(rtol=1e-4, atol=1e-3))
 
 
-def check_gap_same(got, want, what: str) -> None:
+def check_gap_same(got, want, what: str, exact_mz: bool = True) -> None:
     """Card vs CPU gap average: the same spectra and precursors, equal peak
-    counts, m/z rtol 1e-5, intensity rtol 1e-4 / atol 1e-3 (group means
-    in float32 on the card, from float64 prefixes on the CPU)."""
+    counts, identical m/z (the flat layout's group m/z are the host's
+    float64 means on both; with ``exact_mz`` False, the bucketized
+    layout's float32 card means, rtol 1e-5), intensity rtol 1e-4 / atol
+    1e-3 (group intensity means in float32 on the card, from float64
+    prefixes on the CPU)."""
     if len(got) != len(want):
         raise AssertionError(f"{what}: {len(got)} vs {len(want)} spectra")
     for g, e in zip(got, want):
@@ -906,9 +924,33 @@ def check_gap_same(got, want, what: str) -> None:
             raise AssertionError(f"{what}: {g.title} differs in structure")
         if not np.isfinite(g.intensity).all():
             raise AssertionError(f"{what}: {g.title} non-finite intensity")
+        if exact_mz and not np.array_equal(g.mz, e.mz):
+            raise AssertionError(f"{what}: {g.title} m/z differs")
         np.testing.assert_allclose(g.mz, e.mz, **GAP_TOL[0], err_msg=what)
         np.testing.assert_allclose(g.intensity, e.intensity, **GAP_TOL[1],
                                    err_msg=what)
+
+
+def check_singletons(reps, clusters, what: str, dyn_range: float = 1000.0
+                     ) -> int:
+    """Each singleton's representative is its member's peaks, float64
+    m/z and intensity unchanged, less those under the dynamic-range floor
+    (ref src/average_spectrum_clustering.py:88-98).  Returns the count."""
+    n = 0
+    for rep, c in zip(reps, clusters):
+        if c.n_members != 1:
+            continue
+        m = c.members[0]
+        keep = (m.intensity >= m.intensity.max() / dyn_range
+                if m.n_peaks else np.zeros(0, bool))
+        if not (np.array_equal(rep.mz, m.mz[keep])
+                and np.array_equal(rep.intensity, m.intensity[keep])):
+            raise AssertionError(f"{what}: singleton {c.cluster_id} is not "
+                                 "its member")
+        n += 1
+    if not n:
+        raise AssertionError(f"{what}: no singleton to check")
+    return n
 
 
 def gap_phase(kernels, clusters) -> dict:
@@ -934,13 +976,19 @@ def gap_phase(kernels, clusters) -> dict:
         ref = TorchBackend(device="cpu", precision=precision)\
             .run_gap_average(clusters)
         check_gap_same(reps, ref, f"gap {precision}")
-        run = {"chunks": backend.chunks, "launches": launches,
+        run = {}
+        if precision == "f32":
+            run["singletons"] = check_singletons(reps, clusters,
+                                                 f"gap {precision}")
+        run.update({"chunks": backend.chunks, "launches": launches,
                "wall_s": wall, "clusters_per_s": len(clusters) / wall,
                "phase_s": backend.phase_seconds,
                "h2d_bytes_per_peak": backend.h2d_bytes["h2d"] / n_peaks,
-               "peaks_out": sum(s.n_peaks for s in reps)}
+               "peaks_out": sum(s.n_peaks for s in reps)})
         print(f"compare gap {precision} vs cpu: peak counts equal, m/z "
-              f"{GAP_TOL[0]}, intensity {GAP_TOL[1]}", flush=True)
+              f"identical, intensity {GAP_TOL[1]}"
+              + (f", {run['singletons']} singletons their member"
+                 if "singletons" in run else ""), flush=True)
         print(f"gap {precision} {json.dumps(run)}", flush=True)
         res[precision] = run
     return res
@@ -1510,12 +1558,12 @@ def cli_phase() -> dict:
 
     res["gap_wall_s"] = cli("--method", "gap-average", "--qc-report", qc)
     got = read_mgf(dst)
-    check_gap_same(got, cpu.run_gap_average(parsed), "cli gap-average")
-    # the CPU's cosines of the card's own output: group m/z from the card's
-    # float32 means sit an ulp from the CPU's, enough to move a peak across
-    # a QC bin edge, so the CPU's representatives would not be comparable
+    cpu_gap = cpu.run_gap_average(parsed)
+    check_gap_same(got, cpu_gap, "cli gap-average")
+    # the group m/z are the host's float64 means on both, so the CPU's
+    # cosines of its own representatives are the reference
     res["gap_cosine_err"] = qc_cosines(
-        "cli gap-average", cpu.average_cosines(got, parsed))
+        "cli gap-average", cpu.average_cosines(cpu_gap, parsed))
 
     res["int8_wall_s"] = cli("--precision", "int8")
     ref_reps = TorchBackend(device="cpu", precision="int8").run_bin_mean(
@@ -2481,7 +2529,7 @@ def bucketized_phase(kernels, clusters, flat_reps) -> dict:
                "h2d_bytes_per_peak": backend.h2d_bytes["h2d"] / n_peaks}
         if what == "gap f32":
             check_gap_same(reps, cpu.run_gap_average(clusters),
-                           "bucketized gap f32")
+                           "bucketized gap f32", exact_mz=False)
         elif cosines is not None:
             run["vs_cpu"] = check_bucket_same(reps, cpu.run_bin_mean(clusters),
                                               "bucketized bin-mean QC")
@@ -2633,6 +2681,227 @@ def ranks_phase(src: str) -> dict:
     return res
 
 
+# the hand-written kernels' instantiations of seg_onepass (the name
+# device_split matches) as the profiler's trace names them: the Load of
+# seg_mean on int32 keys, the Store of seg_scan
+TRACE_KERNELS = {"seg_mean": "MeanLoad", "seg_scan": "ScanStore"}
+METRIC_FAMILIES = (
+    "specpride_compiles_total", "specpride_dispatches_total",
+    "specpride_rows_real_total", "specpride_rows_padded_total",
+    "specpride_bytes_h2d_total", "specpride_bytes_d2h_total",
+    "specpride_device_peak_bytes_in_use", "specpride_phase_seconds_total",
+    "specpride_run_clusters_total", "specpride_padding_waste_frac",
+    "specpride_bucket_occupancy_frac", "specpride_run_elapsed_seconds",
+)
+
+
+def read_textfile(path: str) -> dict:
+    """A Prometheus textfile: family -> {sample line name and labels:
+    value}."""
+    out: dict = {}
+    family = None
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("# TYPE"):
+                family = line.split()[2]
+                out[family] = {}
+            elif line.strip() and not line.startswith("#"):
+                key, value = line.rsplit(" ", 1)
+                out[family][key] = float(value)
+    return out
+
+
+def trace_kernels(path: str) -> dict:
+    """The CUDA kernels of a ``torch.profiler`` Chrome trace: each of
+    ``TRACE_KERNELS``' count, and the names ``device_split`` reads."""
+    import re
+
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    counts = {k: sum("seg_onepass" in n and tag in n for n in names)
+              for k, tag in TRACE_KERNELS.items()}
+    short = sorted({m.group(1) for n in names
+                    for m in [re.search(r"(seg_\w+)", n)] if m})
+    return {"kernel_events": len(names), "counts": counts, "names": short}
+
+
+def telemetry_phase(kernels, src: str) -> dict:
+    """CLI-2k through the CLI in process on the card, the launch counts
+    zeroed just before each run: ``consensus --qc-report --journal
+    --metrics-out --trace-dir`` (the journal, textfile and trace read back
+    and held to the launches, ``stats`` over the journal, the output
+    against a CPU run); ``consensus --method gap-average --qc-report``
+    against ``--device cpu`` (m/z identical, singletons their member, one
+    ``seg_mean_heads`` launch per journaled dispatch); ``evaluate --layout
+    bucketized`` against ``--device cpu``; ``plot``."""
+    import shutil
+
+    from specpride_tpu_torch import cli
+    from specpride_tpu_torch.backends.torch_backend import TorchBackend
+    from specpride_tpu_torch.data.peaks import group_into_clusters
+    from specpride_tpu_torch.io.mgf import read_mgf
+    from specpride_tpu_torch.observability.journal import read_events
+    from specpride_tpu_torch.observability.stats import trace_path
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "telemetry")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    def path(name: str) -> str:
+        return os.path.join(work, name)
+
+    def run(*argv, what: str) -> tuple[float, dict]:
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        if cli.main(list(argv)) != 0:
+            raise AssertionError(f"telemetry {what}: CLI {argv} failed")
+        return time.perf_counter() - t0, dict(kernels.launches)
+
+    def journal(jpath: str, what: str) -> list:
+        events, bad = read_events(jpath)
+        if bad or events[0]["event"] != "run_start" \
+                or events[-1]["event"] != "run_end":
+            raise AssertionError(f"telemetry {what}: journal {bad[:3]}")
+        return events
+
+    def count(events, name: str, kernel: str | None = None) -> int:
+        return sum(e["event"] == name and kernel in (None, e.get("kernel"))
+                   for e in events)
+
+    def qc_of(qc: str) -> list:
+        with open(qc) as fh:
+            return [r["avg_cosine"] for r in json.load(fh)["clusters"]]
+
+    parsed = group_into_clusters(read_mgf(src))
+    cpu = TorchBackend(device="cpu")
+    res = {"clusters": len(parsed)}
+
+    # 1. the run journal, the metrics textfile and the device trace; the
+    # profiler has lost device events in a full smoke (device_split), so a
+    # trace without both kernels is taken again, up to PROFILE_TRIES runs
+    jpath, mpath, tdir = path("run.jsonl"), path("run.prom"), path("trace")
+    for tries in range(1, PROFILE_TRIES + 1):
+        for stale in (jpath, mpath):
+            if os.path.exists(stale):
+                os.remove(stale)
+        shutil.rmtree(tdir, ignore_errors=True)
+        wall, launches = run("consensus", src, path("out.mgf"),
+                             "--qc-report", path("qc.json"), "--journal",
+                             jpath, "--metrics-out", mpath, "--trace-dir",
+                             tdir, what="journal")
+        trace = trace_kernels(trace_path(tdir))
+        if all(trace["counts"].values()):
+            break
+        print(f"telemetry trace try {tries}: kernels {trace}", flush=True)
+    events = journal(jpath, "journal")
+    chunks = count(events, "chunk_done")
+    dispatch = {k: count(events, "dispatch", k)
+                for k in ("bin_mean_flat_intensity", "cosine_flat")}
+    want = {"seg_mean": dispatch["bin_mean_flat_intensity"],
+            "seg_mean_heads": 0, "seg_scan": 5 * dispatch["cosine_flat"]}
+    if chunks < 2 or launches != want or want["seg_mean"] != chunks:
+        raise AssertionError(f"telemetry journal: launches {launches}, "
+                             f"{chunks} chunks, dispatches {dispatch}")
+    reps = read_mgf(path("out.mgf"))
+    ref_reps, ref_cos = cpu.run_bin_mean_with_cosines(parsed)
+    check_same(reps, ref_reps, "telemetry journal run")
+    check_cosines(qc_of(path("qc.json")), ref_cos, "telemetry journal run")
+    metrics = read_textfile(mpath)
+    missing = [f for f in METRIC_FAMILIES if f not in metrics]
+    peak = max(metrics.get("specpride_device_peak_bytes_in_use",
+                           {}).values(), default=0.0)
+    if missing or peak <= 0:
+        raise AssertionError(f"telemetry metrics: missing {missing}, device "
+                             f"peak {peak}")
+    if not all(trace["counts"].values()) or trace["names"] != ["seg_onepass"]:
+        raise AssertionError(f"telemetry trace: kernels {trace}")
+    print(f"compare telemetry journal: {len(events)} events, 0 violations, "
+          f"{chunks} chunk_done, dispatches {dispatch} = launches "
+          f"{launches}", flush=True)
+    t0 = time.perf_counter()
+    if cli.main(["stats", jpath]) != 0:
+        raise AssertionError("telemetry: stats over the journal failed")
+    res["journal"] = {
+        "wall_s": wall, "events": len(events), "chunk_done": chunks,
+        "dispatch": dispatch, "launches": launches,
+        "compile_events": count(events, "compile"),
+        "device": events[-1]["device"], "metric_families": len(metrics),
+        "device_peak_bytes": peak, "trace": trace, "trace_tries": tries,
+        "trace_bytes": os.path.getsize(trace_path(tdir)),
+        "stats_s": time.perf_counter() - t0,
+    }
+
+    # 2. the gap average: the host's float64 group m/z on the card
+    gpath = path("gap.jsonl")
+    wall, launches = run("consensus", src, path("gap.mgf"), "--method",
+                         "gap-average", "--qc-report", path("gap.qc.json"),
+                         "--journal", gpath, what="gap-average")
+    events = journal(gpath, "gap-average")
+    gap_dispatch = count(events, "dispatch", "gap_average_compact")
+    cos = count(events, "dispatch", "cosine_flat")
+    if (gap_dispatch < 2 or launches["seg_mean_heads"] != gap_dispatch
+            or launches["seg_scan"] != 5 * cos or launches["seg_mean"]):
+        raise AssertionError(f"telemetry gap-average: launches {launches}, "
+                             f"dispatches {gap_dispatch} / {cos}")
+    if cli.main(["consensus", src, path("gap.cpu.mgf"), "--method",
+                 "gap-average", "--qc-report", path("gap.cpu.qc.json"),
+                 "--device", "cpu"]) != 0:
+        raise AssertionError("telemetry gap-average on the CPU failed")
+    got = read_mgf(path("gap.mgf"))
+    check_gap_same(got, read_mgf(path("gap.cpu.mgf")),
+                   "telemetry gap-average")
+    singles = check_singletons(got, parsed, "telemetry gap-average")
+    cos_err = check_cosines(qc_of(path("gap.qc.json")),
+                            qc_of(path("gap.cpu.qc.json")),
+                            "telemetry gap-average")
+    res["gap"] = {"wall_s": wall, "launches": launches,
+                  "dispatches": gap_dispatch, "singletons": singles,
+                  **cos_err}
+    print(f"compare telemetry gap-average vs cpu: m/z identical, "
+          f"{singles} singletons their member, {gap_dispatch} "
+          "seg_mean_heads launches = dispatches", flush=True)
+
+    # 3. evaluate on the bucketized layout
+    wall, launches = run("evaluate", path("out.mgf"), src, "--layout",
+                         "bucketized", "--report", path("ev.json"),
+                         what="evaluate")
+    if cli.main(["evaluate", path("out.mgf"), src, "--layout", "bucketized",
+                 "--report", path("ev.cpu.json"), "--device", "cpu"]) != 0:
+        raise AssertionError("telemetry evaluate on the CPU failed")
+    with open(path("ev.json")) as fh, open(path("ev.cpu.json")) as gh:
+        ev, ev_cpu = json.load(fh)["clusters"], json.load(gh)["clusters"]
+    ev_err = check_cosines([r["avg_cosine"] for r in ev],
+                           [r["avg_cosine"] for r in ev_cpu],
+                           "telemetry evaluate --layout bucketized")
+    if (launches["seg_scan"] < 4 or launches["seg_scan"] % 4
+            or launches["seg_mean"] or launches["seg_mean_heads"]):
+        raise AssertionError(f"telemetry evaluate: launches {launches}")
+    res["evaluate"] = {"wall_s": wall, "launches": launches, **ev_err}
+
+    # 4. plot: host work; skipped only where matplotlib is missing
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        print(f"plot: matplotlib does not import on this host ({e}); the "
+              "plot check is skipped", flush=True)
+        res["plot"] = None
+    else:
+        cid = parsed[0].cluster_id
+        t0 = time.perf_counter()
+        if cli.main(["plot", src, cid, path("mirror"), "--consensus",
+                     path("out.mgf")]) != 0:
+            raise AssertionError("telemetry plot failed")
+        pngs = [path(f"mirror_{i}.png")
+                for i in range(parsed[0].n_members)]
+        if not all(os.path.getsize(p) > 1000 for p in pngs):
+            raise AssertionError(f"telemetry plot: {pngs}")
+        res["plot"] = {"wall_s": time.perf_counter() - t0,
+                       "files": len(pngs)}
+    print(f"telemetry {json.dumps(res)}", flush=True)
+    return res
+
+
 def main() -> int:
     start_launcher()  # before torch: see LAUNCHER
     try:
@@ -2704,6 +2973,7 @@ def smoke() -> int:
     chaosres = chaos_phase(cli_src)
     oomres = real_oom_phase(kernels)
     rankres = ranks_phase(cli_src)
+    telres = telemetry_phase(kernels, cli_src)
 
     main_case = mres["cases"][0]
     path_case = pres["cases"][0]
@@ -2722,6 +2992,11 @@ def smoke() -> int:
     bucket = {k: sum(r["launches"][k] for r in
                      [*bres.values(), *meshres.values(), rankres])
               for k in main_run}
+    # the telemetry phase's runs: the journaled main path, the gap average
+    # and evaluate
+    tele = {k: sum(telres[what]["launches"][k]
+                   for what in ("journal", "gap", "evaluate"))
+            for k in main_run}
     entries = [{
         "name": "seg_mean",
         "route": "cuda",
@@ -2729,7 +3004,8 @@ def smoke() -> int:
         "replaces": "specpride_tpu/ops/pallas_kernels.py:187",
         "launches": (main_run["seg_mean"]
                      + fres["consensus_launches"]["seg_mean"]
-                     + robust["seg_mean"] + bucket["seg_mean"]),
+                     + robust["seg_mean"] + bucket["seg_mean"]
+                     + tele["seg_mean"]),
         "max_abs_err": max(c["max_abs_err"] for c in mres["cases"]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -2742,7 +3018,7 @@ def smoke() -> int:
         "source": "specpride_tpu_torch/ops/csrc/seg_mean.cu",
         "replaces": "specpride_tpu/ops/pallas_kernels.py:187",
         "launches": (heads_launches + robust["seg_mean_heads"]
-                     + bucket["seg_mean_heads"]),
+                     + bucket["seg_mean_heads"] + tele["seg_mean_heads"]),
         "max_abs_err": max(c["max_abs_err"] for c in hres["cases"]),
         "ms": heads_case["ms"],
         "plain_ms": heads_case["plain_ms"],
@@ -2758,7 +3034,8 @@ def smoke() -> int:
                      + exres["medoid"]["launches"]["seg_scan"]
                      + fres["consensus_launches"]["seg_scan"]
                      + fres["evaluate_launches"]["seg_scan"]
-                     + robust["seg_scan"] + bucket["seg_scan"]),
+                     + robust["seg_scan"] + bucket["seg_scan"]
+                     + tele["seg_scan"]),
         "max_abs_err": max(
             c["max_abs_err"] for c in kres["cases"] + pres["cases"]
         ),
@@ -2782,6 +3059,7 @@ def smoke() -> int:
                    "quarantine": quarres, "chaos": chaosres,
                    "real_oom": oomres, "bucketized": bres,
                    "mesh": meshres, "ranks": rankres,
+                   "telemetry": telres,
                    "build": info.get("seconds"),
                    "wall_s": time.perf_counter() - start}, fh, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)

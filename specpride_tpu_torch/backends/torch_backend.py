@@ -11,8 +11,10 @@ from the host m/z means and the card's intensity means.  At a reduced
 a 1-byte run-start mask (``ops.binning.bin_mean_flat_q``).
 
 ``TorchBackend.run_gap_average`` sorts and groups every cluster's peaks
-on the host in float64 (``data.packed.pack_flat_gap``) and runs
-``ops.gap_average.gap_average_compact`` on the card per chunk.
+and takes each group's mean m/z on the host in float64
+(``data.packed.pack_flat_gap``), and runs
+``ops.gap_average.gap_average_groups`` (the intensity means, quorum and
+dynamic-range floor) on the card per chunk.
 
 ``TorchBackend.medoid_indices`` bucketizes the clusters
 (``data.packed.pack_bucketize``), bins and sorts each row by (bin, member)
@@ -75,6 +77,8 @@ from specpride_tpu_torch.data.packed import (
     pack_flat_gap,
 )
 from specpride_tpu_torch.data.peaks import Cluster, Spectrum
+from specpride_tpu_torch.observability.journal import NullJournal
+from specpride_tpu_torch.observability.registry import MetricsRegistry
 from specpride_tpu_torch.ops import binning, gap_average, quantize, similarity
 from specpride_tpu_torch.parallel.mesh import DeviceMesh, row_align
 from specpride_tpu_torch.robustness import faults
@@ -212,6 +216,12 @@ class TorchBackend:
         # on it, so the per-(device, stream) workspaces stay one per lane
         self._h2d_stream = (torch.cuda.Stream(self.device)
                             if self.device.type == "cuda" else None)
+        # run telemetry (the CLI's --journal and --metrics-out): the
+        # device counters, the dispatch events and the kernel shape
+        # classes seen, each one's first dispatch counted as a compile
+        self.metrics = MetricsRegistry()
+        self.journal = NullJournal()
+        self._seen_shapes: set[tuple] = set()
 
     # -- two-phase chunk protocol (the CLI's chunked executor) ----------
 
@@ -281,7 +291,9 @@ class TorchBackend:
     def _merge_prepared(self, prepared: PreparedChunk) -> None:
         for phase, seconds in prepared.phases.items():
             self.phase_seconds[phase] += seconds
-        self.h2d_bytes["h2d"] += prepared.data.pop("staged_bytes", 0)
+        staged = prepared.data.pop("staged_bytes", 0)
+        self.h2d_bytes["h2d"] += staged
+        self._note_h2d(staged)
 
     def supports_h2d_stage(self, prepared: PreparedChunk | None) -> bool:
         """True when ``stage_chunk`` can copy the chunk's device inputs
@@ -408,8 +420,9 @@ class TorchBackend:
         out = [t.to(device or self.device) for t in tensors]
         self._sync(device)
         self.phase_seconds[phase] += time.perf_counter() - t0
-        self.h2d_bytes[phase] += sum(t.numel() * t.element_size()
-                                     for t in tensors)
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        self.h2d_bytes[phase] += nbytes
+        self._note_h2d(nbytes)
         return out
 
     def _fetch(self, phase: str, t: torch.Tensor) -> np.ndarray:
@@ -421,7 +434,75 @@ class TorchBackend:
         out = t.cpu().numpy()
         self.phase_seconds[phase] += time.perf_counter() - t0
         self.d2h_bytes[phase] += out.nbytes
+        self.metrics.counter(
+            "specpride_bytes_d2h_total", "bytes fetched device->host",
+        ).inc(out.nbytes)
+        self._note_device_memory(t.device)
         return out
+
+    # -- telemetry hooks (the JAX package's metric names and events) -----
+
+    def _note_h2d(self, nbytes: int) -> None:
+        self.metrics.counter(
+            "specpride_bytes_h2d_total", "bytes shipped host->device",
+        ).inc(nbytes)
+
+    def _note_dispatch(self, kernel: str, shape_key: tuple, *, rows: int,
+                       padded_rows: int, real_elems: int | None = None,
+                       padded_elems: int | None = None) -> None:
+        """One device dispatch, on the dispatch lane: the per-kernel
+        dispatch counters, the real and padded rows and (given) elements,
+        and the journal's ``dispatch`` event; the first dispatch of a
+        (kernel, shape class) counts in ``specpride_compiles_total`` and
+        journals ``compile``, as the JAX package's first XLA compile of a
+        shape does (the port compiles nothing per shape: the counter
+        keeps the JAX package's name and meaning of a new shape class).
+        The port pads nothing to a shape class: a class is what changes
+        the kernels' instantiation or a padded width, the channel
+        precision of the flat paths and the bucket widths of the (B, K)
+        ones."""
+        m = self.metrics
+        key = (kernel, *shape_key)
+        if key not in self._seen_shapes:
+            self._seen_shapes.add(key)
+            m.counter(
+                "specpride_compiles_total",
+                "first dispatch of a (kernel, shape class)",
+                labels=("kernel",),
+            ).inc(1, kernel=kernel)
+            self.journal.emit("compile", kernel=kernel,
+                              shape_key=list(shape_key))
+        m.counter("specpride_dispatches_total", "device kernel dispatches",
+                  labels=("kernel",)).inc(1, kernel=kernel)
+        m.counter("specpride_rows_real_total",
+                  "real cluster rows dispatched",
+                  labels=("kernel",)).inc(rows, kernel=kernel)
+        m.counter("specpride_rows_padded_total",
+                  "dispatched cluster rows incl. shape padding",
+                  labels=("kernel",)).inc(padded_rows, kernel=kernel)
+        pack = {}
+        if real_elems is not None and padded_elems:
+            m.counter("specpride_pack_real_elements_total",
+                      "real packed elements shipped",
+                      labels=("kernel",)).inc(real_elems, kernel=kernel)
+            m.counter("specpride_pack_padded_elements_total",
+                      "packed elements shipped incl. padding",
+                      labels=("kernel",)).inc(padded_elems, kernel=kernel)
+            pack = {"real_elems": int(real_elems),
+                    "padded_elems": int(padded_elems)}
+        self.journal.emit("dispatch", kernel=kernel, rows=rows,
+                          padded_rows=padded_rows, **pack)
+
+    def _note_device_memory(self, device: torch.device) -> None:
+        """The device memory high-water gauge: the caching allocator's
+        ``max_memory_allocated`` on the card, 0 on the CPU."""
+        peak = (torch.cuda.max_memory_allocated(device)
+                if device.type == "cuda" else 0)
+        g = self.metrics.gauge(
+            "specpride_device_peak_bytes_in_use",
+            "high-water device memory (bytes) observed at collect time",
+        )
+        g.set(max(float(peak), g.value()))
 
     def _timed(self, phase: str, fn, device: torch.device | None = None):
         """``fn()``, its time added to ``phase``: CUDA events around it on
@@ -509,6 +590,11 @@ class TorchBackend:
         ))
         fused = self._fetch("d2h", fused)
         self.chunks += 1
+        rows = len(batch.source_indices)
+        self._note_dispatch(
+            "bin_mean_flat_intensity" if batch.codes is None
+            else "bin_mean_flat_q", (batch.precision,),
+            rows=rows, padded_rows=rows)
         return fused, aux
 
     def _emit_bin_mean_rows(self, batch, fused, aux, clusters, out) -> None:
@@ -613,7 +699,8 @@ class TorchBackend:
             for lo, hi in self._chunk_rows(b, k):
                 for b0, b1, fused in self._map_rows(lo, hi, host, kernel,
                                                     row_align(k)):
-                    self._count_block(batch.n_valid[b0:b1], k)
+                    self._count_block("bin_mean_bucketized",
+                                      batch.n_valid[b0:b1], k)
                     t0 = time.perf_counter()
                     cap = int(distinct[b0:b1].sum())
                     for ci, r_mz, r_int in _iter_compacted(fused, cap,
@@ -636,12 +723,17 @@ class TorchBackend:
                     _add_time(self.phase_seconds, "finalize", t0)
         return out
 
-    def _count_block(self, n_valid: np.ndarray, k: int) -> None:
+    def _count_block(self, kernel: str, n_valid: np.ndarray, k: int
+                     ) -> None:
         """One bucketized consensus dispatch: a chunk, its real and padded
         peak slots."""
         self.chunks += 1
-        self.bucket_elements["real"] += int(n_valid.sum())
-        self.bucket_elements["padded"] += int(n_valid.size) * k
+        real, b = int(n_valid.sum()), int(n_valid.size)
+        self.bucket_elements["real"] += real
+        self.bucket_elements["padded"] += b * k
+        self._note_dispatch(kernel, (k, self.precision), rows=b,
+                            padded_rows=b, real_elems=real,
+                            padded_elems=b * k)
 
     def _run_gap_average_bucketized(self, clusters: list[Cluster],
                                     config: GapAverageConfig
@@ -686,7 +778,8 @@ class TorchBackend:
             for lo, hi in self._chunk_rows(b, k):
                 for b0, b1, fused in self._map_rows(lo, hi, host, kernel,
                                                     row_align(k)):
-                    self._count_block(batch.n_valid[b0:b1], k)
+                    self._count_block("gap_average_compact",
+                                      batch.n_valid[b0:b1], k)
                     t0 = time.perf_counter()
                     cap = int(batch.n_groups[b0:b1].sum())
                     for ci, r_mz, r_int in _iter_compacted(fused, cap,
@@ -724,8 +817,8 @@ class TorchBackend:
         t0 = time.perf_counter()
         prepared.data["batches"] = [
             (batch, [quantize.codes_tensor(a) for a in (
-                batch.mz, batch.intensity, batch.group_start,
-                batch.quorum, batch.n_members, batch.n_groups,
+                batch.intensity, batch.group_start, batch.quorum,
+                batch.n_members, batch.n_groups,
             )])
             for batch in pack_flat_gap(
                 _as_table(prepared.clusters), prepared.config,
@@ -736,6 +829,9 @@ class TorchBackend:
         _add_time(prepared.phases, "pack", t0)
 
     def _finish_gap_average(self, prepared: PreparedChunk) -> list[Spectrum]:
+        """Each chunk's group intensities and keep marks from the card
+        (``gap_average_groups``), joined on the host to the pack's float64
+        group m/z; at f32 the singletons' intensities pass through."""
         clusters, config = prepared.clusters, prepared.config
         get_pepmass, get_rt = numpy_backend.resolve_gap_estimators(config)
         out: list[Spectrum | None] = [None] * len(clusters)
@@ -743,29 +839,34 @@ class TorchBackend:
             total = int(batch.n_groups.sum())
             args = self._put("h2d", host)
             fused = self._timed("kernel", lambda: (
-                gap_average.gap_average_compact(
+                gap_average.gap_average_groups(
                     *args, dyn_range=config.dyn_range, total_cap=total
                 )
             ))
             fused = self._fetch("d2h", fused)
             self.chunks += 1
+            self._note_dispatch("gap_average_compact", (batch.precision,),
+                                rows=len(batch.source_indices),
+                                padded_rows=len(batch.source_indices))
 
             t0 = time.perf_counter()
-            n_out = fused[2 * total :].astype(np.int64)
-            off = np.zeros(n_out.size + 1, dtype=np.int64)
-            np.cumsum(n_out, out=off[1:])
-            flat_mz = fused[:total].astype(np.float64)
-            flat_int = fused[total : 2 * total].astype(np.float64)
+            group_int = fused[:total].astype(np.float64)
+            keep = fused[total:] != 0
             if batch.scale is not None:
                 # int8 codes were averaged on the card: rescale (linear)
-                flat_int[: off[-1]] *= np.repeat(batch.scale, n_out)
+                group_int *= np.repeat(batch.scale, batch.n_groups)
+            if batch.single_groups is not None:
+                group_int[batch.single_groups] = batch.single_int
+            goff = np.zeros(batch.n_groups.size + 1, dtype=np.int64)
+            np.cumsum(batch.n_groups, out=goff[1:])
             for ci, gi in enumerate(batch.source_indices):
-                o0, o1 = int(off[ci]), int(off[ci + 1])
+                g0, g1 = int(goff[ci]), int(goff[ci + 1])
+                sel = keep[g0:g1]
                 members = clusters[gi].members
                 pep_mz, pep_z = get_pepmass(members)
                 out[gi] = Spectrum(
-                    mz=flat_mz[o0:o1].copy(),
-                    intensity=flat_int[o0:o1].copy(),
+                    mz=batch.group_mz[g0:g1][sel],
+                    intensity=group_int[g0:g1][sel],
                     precursor_mz=pep_mz,
                     precursor_charge=pep_z,
                     rt=get_rt(members),
@@ -829,6 +930,9 @@ class TorchBackend:
                 ):
                     self.chunks += 1
                     self.medoid_encodings[encoding] += 1
+                    self._note_dispatch("shared_bins_packed",
+                                        (sbins.shape[1], m, encoding),
+                                        rows=b1 - b0, padded_rows=b1 - b0)
                     t0 = time.perf_counter()
                     picks = similarity.medoid_finalize(
                         shared, batch.n_peaks[b0:b1],
@@ -1028,6 +1132,8 @@ class TorchBackend:
                     row_align(k, pr), qc=True,
                 ):
                     self.cos_chunks += 1
+                    self._note_dispatch("cosine_packed", (k, pr, m),
+                                        rows=b1 - b0, padded_rows=b1 - b0)
                     nm = np.maximum(batch.n_members[b0:b1], 1)
                     mean = cos.astype(np.float64).sum(axis=1) / nm
                     for ci in range(b1 - b0):
@@ -1236,4 +1342,6 @@ class TorchBackend:
 
             out[lo:hi] = self._fetch("qc_d2h", mean)
             self.cos_chunks += 1
+            self._note_dispatch("cosine_flat", (), rows=hi - lo,
+                                padded_rows=hi - lo)
         return out

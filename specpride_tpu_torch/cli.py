@@ -12,6 +12,9 @@
         --clusters clusters.tsv [--raw-name NAME] [--px-accession PXD]
     python -m specpride_tpu_torch merge-parts OUT [--num-processes N] \
         [--checkpoint BASE] [--qc-report QC.json] [--remove-parts]
+    python -m specpride_tpu_torch plot CLUSTERED CLUSTER_ID OUT_PREFIX \
+        [--consensus REPS.mgf | --peptide PEPTIDE]
+    python -m specpride_tpu_torch stats JOURNAL [JOURNAL ...] [--json F]
 
 ``consensus`` and ``select`` read the clustered MGF (or, with
 ``--clusters``, an mzML file and a MaRaCluster TSV) and group it into
@@ -47,16 +50,26 @@ and QC report), on the bucketized layout over its own cards;
 single-process run.
 
 ``evaluate`` scores representatives against their clusters (the mean
-binned cosine on the card, the b/y-ion fraction on the host) and prints
+binned cosine on the card, flat or with ``--layout bucketized`` / ``--mesh``
+on the (B, K) layout, and the b/y-ion fraction on the host) and prints
 the summary on stdout; ``convert`` builds the clustered MGF (or mzML)
-from raw spectra, MaxQuant peptides and MaRaCluster clusters.  Every MGF
+from raw spectra, MaxQuant peptides and MaRaCluster clusters; ``plot``
+draws a cluster's members mirrored against a peptide's theoretical
+spectrum or against its representative (matplotlib, no card).  Every MGF
 is read and written through the host library (``io/native.py``).
+
+Telemetry, in the JAX package's formats: ``--journal FILE`` appends the
+run's events (``run_start``, chunk heartbeats, ``compile`` / ``dispatch``,
+``checkpoint_write``, ``resume``, the robustness events, ``precision``,
+``run_end``) as JSON lines, which ``stats`` summarizes; ``--metrics-out
+FILE`` writes the run's metrics as a Prometheus textfile; ``--trace-dir
+DIR`` captures the run's compute with ``torch.profiler`` as a Chrome
+trace; the global ``-v`` and ``--log-json`` set the logging.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import logging
 import os
@@ -65,7 +78,6 @@ import statistics
 import sys
 import threading
 import time
-from collections import defaultdict
 
 from specpride_tpu_torch import convert, metrics
 from specpride_tpu_torch.backends import numpy_backend
@@ -95,6 +107,20 @@ from specpride_tpu_torch.io.mgf import (
     write_mgf,
 )
 from specpride_tpu_torch.io.mzml import read_mzml_scans
+from specpride_tpu_torch.observability.journal import (
+    NullJournal,
+    emit_clock_anchor,
+    open_journal,
+)
+from specpride_tpu_torch.observability.registry import (
+    device_summary,
+    export_run_metrics,
+)
+from specpride_tpu_torch.observability.stats import (
+    RunStats,
+    configure_logging,
+    device_trace,
+)
 from specpride_tpu_torch.ops import kernels, quantize
 from specpride_tpu_torch.parallel.mesh import (
     DeviceMesh,
@@ -118,6 +144,9 @@ def build_parser() -> argparse.ArgumentParser:
         prog="specpride_tpu_torch",
         description="representative spectra on an NVIDIA GPU (PyTorch/CUDA)",
     )
+    ap.add_argument("-v", "--verbose", action="count", default=0)
+    ap.add_argument("--log-json", action="store_true",
+                    help="structured JSON logs on stderr")
     sub = ap.add_subparsers(dest="command", required=True)
     pc = sub.add_parser("consensus",
                         help="merge clusters into consensus spectra")
@@ -203,6 +232,13 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--format", choices=["json", "csv"], default="json")
     pe.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the cosines run (default: the GPU)")
+    _add_layout(pe)
+    pe.add_argument(
+        "--precision", choices=list(quantize.PRECISIONS), default="f32",
+        help="accepted for the JAX CLI's flag set and ignored: the QC "
+        "cosine always runs in f32",
+    )
+    _add_trace_dir(pe, "the evaluate compute")
 
     pm = sub.add_parser(
         "merge-parts",
@@ -224,7 +260,54 @@ def build_parser() -> argparse.ArgumentParser:
     )
     pm.add_argument("--remove-parts", action="store_true",
                     help="delete the part files after a successful merge")
+
+    pp = sub.add_parser("plot", help="mirror plots for one cluster")
+    pp.add_argument("clustered",
+                    help="clustered MGF, or a raw .mzML with --clusters")
+    pp.add_argument("cluster_id")
+    pp.add_argument("out_prefix")
+    pp.add_argument("--consensus",
+                    help="representatives MGF (vs-consensus mode)")
+    pp.add_argument("--peptide", help="peptide for the theoretical mirror")
+    pp.add_argument("--clusters",
+                    help="MaRaCluster TSV (direct .mzML input, "
+                    "ref plot_cluster.py:50-86)")
+    pp.add_argument("--msms", help="MaxQuant msms.txt for peptide titles "
+                    "(direct .mzML input)")
+    pp.add_argument("--raw-name", help="raw file name for USIs")
+    pp.add_argument("--px-accession", default="PXD004732")
+
+    pst = sub.add_parser(
+        "stats", help="summarize run journals (schema-checked)")
+    pst.add_argument("journals", nargs="+",
+                     help="journal paths; a base path with .part<id> "
+                     "shards merges them in rank order")
+    pst.add_argument("--json", metavar="FILE",
+                     help="also write the machine-readable aggregate here")
     return ap
+
+
+def _add_layout(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--layout", choices=["auto", "flat", "bucketized"], default="auto",
+        help="mesh-less device layout (escape hatch: 'bucketized' forces "
+        "the (B, K) paths mesh runs use)",
+    )
+    p.add_argument(
+        "--mesh", action="store_true",
+        help="split each (B, K) batch's clusters over ALL visible cards, "
+        "one stream each (single-host multi-card; implied by "
+        "--coordinator)",
+    )
+
+
+def _add_trace_dir(p: argparse.ArgumentParser, what: str) -> None:
+    p.add_argument(
+        "--trace-dir", metavar="DIR",
+        help=f"capture a torch.profiler trace of {what} (CPU and, on the "
+        "card, CUDA activity) into this directory as a Chrome trace "
+        "(view with Perfetto or chrome://tracing)",
+    )
 
 
 def _add_common(p: argparse.ArgumentParser, what: str) -> None:
@@ -249,17 +332,7 @@ def _add_common(p: argparse.ArgumentParser, what: str) -> None:
     )
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the method runs (default: the GPU)")
-    p.add_argument(
-        "--layout", choices=["auto", "flat", "bucketized"], default="auto",
-        help="mesh-less device layout (escape hatch: 'bucketized' forces "
-        "the (B, K) paths mesh runs use)",
-    )
-    p.add_argument(
-        "--mesh", action="store_true",
-        help="split each (B, K) batch's clusters over ALL visible cards, "
-        "one stream each (single-host multi-card; implied by "
-        "--coordinator)",
-    )
+    _add_layout(p)
     p.add_argument(
         "--coordinator", metavar="HOST:PORT",
         help="multi-host: torch.distributed (gloo) rendezvous address, "
@@ -349,6 +422,19 @@ def _add_common(p: argparse.ArgumentParser, what: str) -> None:
         help="seed for --inject-faults firing decisions and retry "
         "jitter: same plan + seed fires at the same visits every run",
     )
+    p.add_argument(
+        "--journal", metavar="FILE",
+        help="append-only JSONL run journal: typed events (run_start, "
+        "chunk heartbeats, compile/dispatch, checkpoint_write, resume, "
+        "run_end) an operator can tail live; multi-host runs write "
+        "<FILE>.part<rank> (read with `stats`)",
+    )
+    p.add_argument(
+        "--metrics-out", metavar="FILE",
+        help="write run metrics as a Prometheus textfile on exit "
+        "(counters and gauges; node_exporter textfile format)",
+    )
+    _add_trace_dir(p, "the compute")
 
 
 def _host_cores() -> int:
@@ -361,59 +447,6 @@ def _host_cores() -> int:
 def _default_pack_workers() -> int:
     """Default ``--pack-workers``: min(4, cores/4), at least 1."""
     return max(1, min(4, _host_cores() // 4))
-
-
-class RunStats:
-    """Counters and phase timers of one CLI run (a trimmed copy of the
-    JAX package's ``observability/stats.py::RunStats``).  Not thread-safe:
-    each pack worker fills a private one, merged on the dispatch lane."""
-
-    def __init__(self) -> None:
-        self.counters: dict[str, int] = defaultdict(int)
-        self.phases: dict[str, float] = defaultdict(float)
-        # the executor's lane summary (``_checkpointed_run``), or None
-        self.pipeline: dict | None = None
-        # the robustness layer's counts (``Harness.summary``), or None
-        self.robustness: dict | None = None
-        self._start = time.perf_counter()
-
-    def count(self, name: str, n: int = 1) -> None:
-        self.counters[name] += n
-
-    def merge(self, other: "RunStats") -> None:
-        for k, v in other.counters.items():
-            self.counters[k] += v
-        for k, v in other.phases.items():
-            self.phases[k] += v
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.phases[name] += time.perf_counter() - t0
-
-    @property
-    def elapsed(self) -> float:
-        return time.perf_counter() - self._start
-
-    def throughput(self, counter: str = "clusters") -> float:
-        """Clusters/s over the work phases (compute + write), or the wall
-        when none was timed."""
-        dt = self.phases.get("compute", 0.0) + self.phases.get("write", 0.0)
-        if dt <= 0.0:
-            dt = self.elapsed
-        return self.counters[counter] / dt if dt > 0 else 0.0
-
-    def summary(self) -> dict:
-        return {
-            "elapsed_s": round(self.elapsed, 3),
-            "counters": dict(self.counters),
-            "phases_s": {k: round(v, 3) for k, v in self.phases.items()},
-            **({"pipeline": self.pipeline} if self.pipeline else {}),
-            **({"robustness": self.robustness} if self.robustness else {}),
-        }
 
 
 def method_config(args):
@@ -459,13 +492,18 @@ PRECISION_GATE_SAMPLE = 32
 
 
 def precision_gate(backend: TorchBackend, method: str, clusters, config,
-                   cos_config: CosineConfig) -> dict | None:
+                   cos_config: CosineConfig, journal=None) -> dict | None:
     """The gate of a reduced-precision run: the first
     ``PRECISION_GATE_SAMPLE`` clusters run again at the run's precision
-    and at f32, on twin backends on the same device, and every pair's
+    and at f32, on twin backends on the same device (their dispatches
+    reach neither the run's journal nor its metrics), and every pair's
     binned cosine must reach ``quantize.precision_tolerance(method,
-    precision)``.  Returns the gate's numbers (None for f32, which is
-    the reference); a breach raises ``SystemExit`` with a message."""
+    precision)``.  The f32 twin of a gap average runs the flat layout,
+    whose group m/z are the host's float64 means: the reference every
+    reduced gap average is held to, as the JAX package holds its reduced
+    runs to its host path.  Returns the gate's numbers, journaled as a
+    ``precision`` event (None for f32, which is the reference); a breach
+    raises ``SystemExit`` with a message after journaling them."""
     precision = backend.precision
     if precision == "f32" or method == "best":
         return None
@@ -473,9 +511,11 @@ def precision_gate(backend: TorchBackend, method: str, clusters, config,
     tol = quantize.precision_tolerance(method, precision)
 
     def twin(prec: str):
+        flat = prec == "f32" and method == "gap-average"
         return TorchBackend(device=backend.device, precision=prec,
                             max_grid_elements=backend.max_grid_elements,
-                            layout=backend.layout, mesh=backend.mesh,
+                            layout="flat" if flat else backend.layout,
+                            mesh=None if flat else backend.mesh,
                             batch_config=backend.batch_config)
 
     if method == "medoid":
@@ -492,16 +532,25 @@ def precision_gate(backend: TorchBackend, method: str, clusters, config,
         ref = _run_method(twin("f32"), method, sample, config)
         cosines = [numpy_backend.binned_cosine(a, b, cos_config)
                    for a, b in zip(red, ref)]
-    min_cos = min(cosines, default=1.0)
-    if min_cos < tol:
+    min_cos = float(min(cosines, default=1.0))
+    ok = bool(min_cos >= tol)
+    result = {"precision": precision, "gated": True, "checked": len(sample),
+              "min_cosine": min_cos,
+              "mean_cosine": float(sum(cosines) / len(cosines)) if cosines
+              else 1.0,
+              "tolerance": tol, "ok": ok}
+    if journal is not None:
+        journal.emit("precision", method=method, precision=precision,
+                     gated=True, checked=len(sample), min_cosine=min_cos,
+                     mean_cosine=result["mean_cosine"], tolerance=tol, ok=ok)
+    if not ok:
         raise SystemExit(
             f"precision gate failed: {method} at --precision {precision} "
             f"scored min cosine {min_cos:.6f} against f32 over "
             f"{len(sample)} sampled clusters (tolerance {tol}); rerun at "
             "f32 or a wider precision"
         )
-    return {"precision": precision, "checked": len(sample),
-            "min_cosine": min_cos, "tolerance": tol}
+    return result
 
 
 def _cosine_config(args) -> CosineConfig:
@@ -864,23 +913,27 @@ class _CommitItem:
     """One finished chunk handed from the dispatch lane to the write lane,
     everything the commit needs taken on the dispatch lane."""
 
-    __slots__ = ("index", "reps", "part_ids", "qc_rows", "failed")
+    __slots__ = ("index", "reps", "part_ids", "qc_rows", "failed",
+                 "chunk_t0")
 
-    def __init__(self, index, reps, part_ids, qc_rows, failed):
+    def __init__(self, index, reps, part_ids, qc_rows, failed, chunk_t0):
         self.index = index
         self.reps = reps
         self.part_ids = part_ids
         self.qc_rows = qc_rows  # the chunk's QC rows (or None)
         self.failed = failed  # sorted failures at submit time (or None)
+        self.chunk_t0 = chunk_t0  # perf_counter at the chunk's start
 
 
 def _commit_chunk(item: _CommitItem, args, stats: RunStats, qc: list,
                   done: set, first_write: bool,
-                  integrity: OutputIntegrity, harness: Harness) -> None:
+                  integrity: OutputIntegrity, harness: Harness,
+                  journal) -> None:
     """THE commit protocol, the one copy the inline tail of
     ``_checkpointed_run`` and the ``_Committer`` lane run: the QC rows,
-    the MGF append, the counters, then (with a checkpoint) the atomic
-    schema-2 manifest replace, strictly after the append: a kill between
+    the MGF append, the counters and the ``chunk_done`` event, then (with
+    a checkpoint) the atomic schema-2 manifest replace and its
+    ``checkpoint_write`` event, strictly after the append: a kill between
     the two leaves output past the manifest, which a resume truncates.
     The append retries at ``write``, each retry after truncating a
     partial append back to the offset before it (so no record is written
@@ -911,6 +964,14 @@ def _commit_chunk(item: _CommitItem, args, stats: RunStats, qc: list,
     stats.count("clusters", len(item.part_ids))
     stats.count("representatives", len(item.reps))
     done.update(item.part_ids)
+    dt = time.perf_counter() - item.chunk_t0
+    journal.emit(
+        "chunk_done", chunk_index=item.index,
+        n_clusters=len(item.part_ids), n_representatives=len(item.reps),
+        elapsed_s=round(dt, 4),
+        clusters_per_sec=round(len(item.part_ids) / dt, 2) if dt > 0
+        else 0.0,
+    )
     if args.checkpoint:
         def _replace_manifest() -> None:
             with harness.section("write"):
@@ -922,6 +983,8 @@ def _commit_chunk(item: _CommitItem, args, stats: RunStats, qc: list,
                 os.replace(tmp, args.checkpoint)
 
         harness.retry_call("checkpoint_write", _replace_manifest)
+        journal.emit("checkpoint_write", n_done=len(done),
+                     output_bytes=output_bytes)
 
 
 class _Committer:
@@ -935,9 +998,11 @@ class _Committer:
     keeps draining its queue after one."""
 
     def __init__(self, args, qc: list, done: set, first_write: bool,
-                 depth: int, integrity: OutputIntegrity, harness: Harness):
+                 depth: int, integrity: OutputIntegrity, harness: Harness,
+                 journal):
         self._args = args
         self._harness = harness
+        self._journal = journal
         self._qc = qc
         self._done = done
         self._first_write = first_write
@@ -968,7 +1033,7 @@ class _Committer:
             try:
                 _commit_chunk(item, self._args, self.stats, self._qc,
                               self._done, self._first_write,
-                              self._integrity, self._harness)
+                              self._integrity, self._harness, self._journal)
                 self._first_write = False
             except BaseException as e:  # noqa: BLE001 - re-raised on submit
                 self.error = e
@@ -1056,20 +1121,34 @@ def _dispatch_chunk(backend: TorchBackend, method: str, item: _ChunkItem,
         return _run_parts(part, item.prepared)
 
 
-def _read_manifest(args, integ: OutputIntegrity, harness: Harness):
+def _read_manifest(args, integ: OutputIntegrity, harness: Harness,
+                   journal):
     """The resume state of ``args.checkpoint``: ``(done, output_bytes,
     restarted, prior_failed)``, each unusable state repaired as the JAX
     package does: an unreadable manifest, a missing output, an output
     shorter than the manifest, a ragged boundary without a hash and a
     sha256 mismatch restart; a torn tail is truncated back.  Each repair
-    the JAX package counts is counted on ``harness``.  Seeds ``integ``
-    with the committed prefix."""
-    done: set[str] = set()
-    output_bytes: int | None = None  # None: the manifest has no offset
-    restarted = False
-    prior_failed: list[str] = []
+    is journaled (``resume_repair``) and, where the JAX package counts
+    it, counted on ``harness``; a run that found a checkpoint journals
+    ``resume``.  Seeds ``integ`` with the committed prefix."""
     if not (args.checkpoint and os.path.exists(args.checkpoint)):
-        return done, output_bytes, restarted, prior_failed
+        return set(), None, False, []
+    state = _manifest_state(args, integ, harness, journal)
+    done, _, restarted, prior_failed = state
+    logger.info("resuming: %d clusters already done", len(done))
+    journal.emit("resume", n_done=len(done), restarted=restarted,
+                 n_prior_failed=len(prior_failed))
+    return state
+
+
+def _repair(harness: Harness, journal, action: str, reason: str,
+            **fields) -> None:
+    harness.note_repair()
+    journal.emit("resume_repair", action=action, reason=reason, **fields)
+
+
+def _manifest_state(args, integ: OutputIntegrity, harness: Harness,
+                    journal):
     manifest: dict | None = None
     try:
         with open(args.checkpoint, encoding="utf-8") as fh:
@@ -1079,7 +1158,8 @@ def _read_manifest(args, integ: OutputIntegrity, harness: Harness):
     except (ValueError, UnicodeDecodeError) as e:
         logger.warning("checkpoint %s is unreadable (%s); restarting from "
                        "scratch", args.checkpoint, e)
-        harness.note_repair()
+        _repair(harness, journal, "restart", "manifest_unreadable",
+                error=str(e))
         return set(), 0, True, []
     done = set(manifest.get("done", []))
     prior_failed = list(manifest.get("failed", []))
@@ -1093,8 +1173,8 @@ def _read_manifest(args, integ: OutputIntegrity, harness: Harness):
                        args.output)
         # no output on disk: nothing a redo could duplicate, so this
         # restart is safe even under --append
-        harness.note_repair()
-        return set(), 0, restarted, []
+        _repair(harness, journal, "restart", "output_missing")
+        return set(), 0, False, []
     if output_bytes is not None and out_size is not None:
         if out_size < output_bytes:
             # an append lost after its manifest landed: done-listed
@@ -1102,17 +1182,21 @@ def _read_manifest(args, integ: OutputIntegrity, harness: Harness):
             logger.warning("output %s is %d bytes but the manifest recorded "
                            "%d; restarting from scratch", args.output,
                            out_size, output_bytes)
-            harness.note_repair()
+            _repair(harness, journal, "restart",
+                    "output_shorter_than_manifest")
             return set(), 0, True, []
         if out_size > output_bytes:
             logger.info("dropping %d output bytes past the manifest "
                         "(interrupted chunk)", out_size - output_bytes)
             clean = truncate_tail(args.output, output_bytes)
-            harness.note_repair()
+            _repair(harness, journal, "truncate_tail", "torn_tail",
+                    n_bytes=out_size - output_bytes, clean_boundary=clean)
             if not clean and not manifest.get("sha256"):
                 logger.warning("truncated output does not end on a record "
                                "boundary and the manifest has no sha256; "
                                "restarting from scratch")
+                journal.emit("resume_repair", action="restart",
+                             reason="ragged_boundary")
                 return set(), 0, True, []
     # a bit flip inside the committed prefix passes every byte count: only
     # the hash catches it.  The check also seeds this run's running hash.
@@ -1122,15 +1206,16 @@ def _read_manifest(args, integ: OutputIntegrity, harness: Harness):
         if want and got != want:
             logger.warning("output %s fails the manifest's sha256 check; "
                            "restarting from scratch", args.output)
-            harness.note_repair()
+            _repair(harness, journal, "restart", "sha256_mismatch")
             integ.reset()
             return set(), 0, True, []
-    return done, output_bytes, restarted, prior_failed
+    return done, output_bytes, False, prior_failed
 
 
 def _checkpointed_run(backend: TorchBackend, method: str, clusters, args,
                       stats: RunStats, scores=None, qc: list | None = None,
-                      quarantine: Quarantine | None = None):
+                      quarantine: Quarantine | None = None,
+                      journal=None):
     """Chunked execution with a resume manifest.
 
     Each chunk appends to the output FIRST, then the manifest records
@@ -1144,11 +1229,14 @@ def _checkpointed_run(backend: TorchBackend, method: str, clusters, args,
     ``--inject-faults``, ``--watchdog-timeout``, ``--no-degrade``): its
     counts, with the ``quarantine``'s, go to ``stats.robustness`` however
     the run ends, and it is closed (the fault plan disarmed) in a
-    ``finally``.  Returns ``(resumed ids, failed ids, QC-failed ids)``."""
-    harness = Harness.from_args(args)
+    ``finally``.  ``journal`` (the run's, else none) receives the chunk,
+    checkpoint, resume and robustness events.  Returns ``(resumed ids,
+    failed ids, QC-failed ids)``."""
+    journal = journal if journal is not None else NullJournal()
+    harness = Harness.from_args(args, journal)
     try:
         return _checkpointed_run_impl(backend, method, clusters, args, stats,
-                                      scores, qc, harness)
+                                      scores, qc, harness, journal)
     finally:
         stats.robustness = harness.summary(
             quarantined=quarantine.count if quarantine is not None else 0)
@@ -1156,10 +1244,11 @@ def _checkpointed_run(backend: TorchBackend, method: str, clusters, args,
 
 
 def _checkpointed_run_impl(backend: TorchBackend, method: str, clusters,
-                           args, stats: RunStats, scores, qc, harness):
+                           args, stats: RunStats, scores, qc, harness,
+                           journal):
     integ = OutputIntegrity()
     done, output_bytes, restarted, prior_failed = _read_manifest(
-        args, integ, harness)
+        args, integ, harness, journal)
     ids = _cluster_ids(clusters)
     todo_idx = [i for i, cid in enumerate(ids) if cid not in done]
     resumed_ids = set(done)  # skipped this run (the QC recomputes these)
@@ -1225,7 +1314,8 @@ def _checkpointed_run_impl(backend: TorchBackend, method: str, clusters,
         items = _h2d_staged_chunks(items, backend, h2d_slots, lanes)
     committer = (
         _Committer(args, qc if qc is not None else [], done, first_write,
-                   depth=max(prefetch, 1), integrity=integ, harness=harness)
+                   depth=max(prefetch, 1), integrity=integ, harness=harness,
+                   journal=journal)
         if worklist and (args.async_write == "on"
                          or (args.async_write == "auto" and pipelined))
         else None
@@ -1240,6 +1330,9 @@ def _checkpointed_run_impl(backend: TorchBackend, method: str, clusters,
                 # pack-lane time lands in `pack`, not in the dispatch
                 # lane's `compute`
                 stats.merge(item.pack_stats)
+            chunk_t0 = time.perf_counter()
+            journal.emit("chunk_start", chunk_index=item.index,
+                         n_clusters=len(item.idxs))
             # the chunk's QC rows reach the shared list only at commit
             chunk_qc: list | None = [] if qc is not None else None
             try:
@@ -1302,15 +1395,19 @@ def _checkpointed_run_impl(backend: TorchBackend, method: str, clusters,
                                    "report", len(part), e)
                     qc_failed.update(dict.fromkeys(c.cluster_id
                                                    for c in part))
+                    journal.emit("qc_failure",
+                                 cluster_ids=[c.cluster_id for c in part],
+                                 error=str(e))
             commit_item = _CommitItem(item.index, reps,
                                       [c.cluster_id for c in part], chunk_qc,
-                                      sorted(failed) if failed else None)
+                                      sorted(failed) if failed else None,
+                                      chunk_t0)
             if committer is not None:
                 committer.submit(commit_item)
             else:
                 _commit_chunk(commit_item, args, stats,
                               qc if qc is not None else [], done,
-                              first_write, integ, harness)
+                              first_write, integ, harness, journal)
                 first_write = False
         if committer is not None:
             # flush before the lane summary, so the write lane's time is
@@ -1359,6 +1456,8 @@ def _checkpointed_run_impl(backend: TorchBackend, method: str, clusters,
         logger.warning("%d clusters failed and were skipped: %s%s",
                        len(failed), ", ".join(list(failed)[:5]),
                        "..." if len(failed) > 5 else "")
+        # the journal carries the whole list
+        journal.emit("skipped_clusters", cluster_ids=sorted(failed))
     return resumed_ids, list(failed), list(qc_failed)
 
 
@@ -1452,8 +1551,9 @@ def _shard_for_process(clusters, args, rank: int, world: int,
     """Multi-host input sharding (``--coordinator``): rank ``rank`` of
     ``world`` takes the rank-th contiguous block of the clusters (block
     order makes ``merge-parts`` give the single-process bytes) and writes
-    ``<output>.part<rank>``; its ``--checkpoint``, ``--qc-report`` and
-    quarantine file get the same suffix, so ranks never share a file.
+    ``<output>.part<rank>``; its ``--checkpoint``, ``--qc-report``,
+    ``--journal``, ``--metrics-out`` and quarantine file get the same
+    suffix, so ranks never share a file.
     Without a coordinator the clusters and output pass through.  Returns
     ``(clusters, output)``."""
     if not args.coordinator:
@@ -1469,37 +1569,90 @@ def _shard_for_process(clusters, args, rank: int, world: int,
     if quarantine is not None:
         # every rank parses the whole input before sharding
         quarantine.rename(part_path(quarantine.path, rank))
+    if args.journal:
+        args.journal = part_path(args.journal, rank)
+    if args.metrics_out:
+        args.metrics_out = part_path(args.metrics_out, rank)
     logger.info("process %d/%d: %d of %d clusters -> %s", rank, world,
                 len(mine), len(clusters), part)
     return mine, part
 
 
+def _open_run_journal(args, backend: TorchBackend, n_clusters: int):
+    """The ``--journal`` stream (a ``NullJournal`` without one), hooked
+    into the backend's dispatch events, with ``run_start`` and a clock
+    anchor written."""
+    journal = open_journal(args.journal)
+    backend.journal = journal
+    journal.emit("run_start", command=args.command, method=args.method,
+                 backend="torch", n_clusters=int(n_clusters),
+                 output=args.output, device=str(backend.device),
+                 precision=backend.precision)
+    if journal.enabled:
+        emit_clock_anchor(journal)
+    return journal
+
+
+def _finish_run(args, backend: TorchBackend, stats: RunStats,
+                journal) -> None:
+    """``run_end`` (the summary and the device counters, the JAX
+    package's keys) and, with ``--metrics-out``, the Prometheus
+    textfile."""
+    device = device_summary(backend.metrics)
+    extra = {}
+    for key in ("pipeline", "robustness", "precision"):
+        value = getattr(stats, key)
+        if value:
+            extra[key] = value
+    journal.emit(
+        "run_end", counters=dict(stats.counters),
+        phases_s={k: round(v, 4) for k, v in stats.phases.items()},
+        elapsed_s=round(stats.elapsed, 4),
+        representatives_written=stats.counters.get("representatives", 0),
+        clusters_per_sec=round(stats.throughput("clusters"), 2),
+        device=device, **extra,
+    )
+    if args.metrics_out:
+        export_run_metrics(backend.metrics, stats, device)
+        backend.metrics.write_textfile(args.metrics_out)
+        logger.info("metrics -> %s", args.metrics_out)
+
+
 def _run_pipeline_command(args, backend: TorchBackend, rank: int = 0,
                           world: int = 1) -> dict:
     """THE consensus/select body: parse, the rank's block of the clusters
-    (``_shard_for_process``), the chunked run, the QC report, then the
-    precision gate (after the outputs, so a breach leaves them on disk to
-    diagnose).  Returns the run summary."""
+    (``_shard_for_process``), the journal, the chunked run (under
+    ``--trace-dir``'s capture), the QC report, then the precision gate
+    (after the outputs, so a breach leaves them on disk to diagnose) and
+    ``run_end``.  Returns the run summary."""
     stats = RunStats()
     # --on-error skip arms the quarantine: fresh for each run
     quarantine = (Quarantine(args.output + ".quarantine.mgf")
                   if args.on_error == "skip" else None)
+    journal = NullJournal()
     try:
         with stats.phase("parse"):
             clusters = load_clusters(args, quarantine)
         scores = load_scores(args) if args.method == "best" else None
         clusters, args.output = _shard_for_process(clusters, args, rank,
                                                    world, quarantine)
+        journal = _open_run_journal(args, backend, len(clusters))
+        if quarantine is not None:
+            quarantine.bind(journal)  # the blocks found while parsing
         qc = [] if args.qc_report is not None else None
-        resumed, failed, qc_failed = _checkpointed_run(
-            backend, args.method, clusters, args, stats, scores, qc=qc,
-            quarantine=quarantine)
+        with device_trace(args.trace_dir, backend.device):
+            resumed, failed, qc_failed = _checkpointed_run(
+                backend, args.method, clusters, args, stats, scores, qc=qc,
+                quarantine=quarantine, journal=journal)
         if qc is not None:
             _write_qc_report(args, backend, clusters, qc, resumed, failed,
                              qc_failed)
-        gate = precision_gate(backend, args.method, clusters,
-                              method_config(args), _cosine_config(args))
+        stats.precision = precision_gate(
+            backend, args.method, clusters, method_config(args),
+            _cosine_config(args), journal)
+        _finish_run(args, backend, stats, journal)
     finally:
+        journal.close()
         if quarantine is not None:
             quarantine.close()
     return {
@@ -1518,7 +1671,7 @@ def _run_pipeline_command(args, backend: TorchBackend, rank: int = 0,
             # this process's kernel launches
             "launches": dict(kernels.launches),
         },
-        **({"precision_gate": gate} if gate else {}),
+        **({"precision_gate": stats.precision} if stats.precision else {}),
         **({"skipped_cluster_ids": sorted(failed)} if failed else {}),
     }
 
@@ -1545,16 +1698,18 @@ def run_convert(args) -> dict:
 
 def run_evaluate(args, backend: TorchBackend) -> dict:
     """``evaluate``: each cluster of ``args.clustered`` with a
-    representative in ``args.representatives`` scored on ``backend``; the
+    representative in ``args.representatives`` scored on ``backend`` (its
+    ``--layout`` / ``--mesh``), under ``--trace-dir``'s capture; the
     per-cluster report written if asked.  Returns the summary."""
     reps = {s.cluster_id: s for s in read_mgf(args.representatives)}
     clusters = group_into_clusters(read_mgf(args.clustered))
     pairs = [(reps[c.cluster_id], c) for c in clusters
              if c.cluster_id in reps]
-    results = metrics.evaluate(
-        [r for r, _ in pairs], [c for _, c in pairs], backend,
-        cosine_config=CosineConfig(normalization=args.normalization),
-    )
+    with device_trace(args.trace_dir, backend.device):
+        results = metrics.evaluate(
+            [r for r, _ in pairs], [c for _, c in pairs], backend,
+            cosine_config=CosineConfig(normalization=args.normalization),
+        )
     if args.report:
         metrics.write_report(results, args.report, args.format)
     return metrics.summarize(results)
@@ -1584,9 +1739,58 @@ def _make_backend(args) -> TorchBackend:
                         layout=getattr(args, "layout", "auto"), mesh=mesh)
 
 
+def run_plot(args) -> int:
+    """``plot``: one mirror plot per member of ``args.cluster_id``,
+    against its representative in ``--consensus``, else against the
+    theoretical spectrum of ``--peptide`` or of the first peptide a
+    member's USI names; prints the PNG paths.  Host work only."""
+    from specpride_tpu_torch import viz
+    from specpride_tpu_torch.data.peaks import peptide_from_usi
+
+    if _is_mzml(args.clustered):
+        cluster_list = _clusters_from_mzml(args.clustered, args)
+    else:
+        cluster_list = group_into_clusters(read_mgf(args.clustered))
+    clusters = {c.cluster_id: c for c in cluster_list}
+    if args.cluster_id not in clusters:
+        print(f"cluster {args.cluster_id!r} not found", file=sys.stderr)
+        return 1
+    cluster = clusters[args.cluster_id]
+    if args.consensus:
+        reps = {s.cluster_id: s for s in read_mgf(args.consensus)}
+        paths = viz.plot_cluster_vs_consensus(
+            cluster.members, reps[args.cluster_id], args.out_prefix)
+    else:
+        peptide = args.peptide
+        charge = cluster.members[0].precursor_charge
+        if not peptide:
+            for s in cluster.members:
+                pep, z = peptide_from_usi(s.usi)
+                if pep:
+                    peptide, charge = pep, z or charge
+                    break
+        if not peptide:
+            print("no peptide known for cluster; pass --peptide",
+                  file=sys.stderr)
+            return 1
+        paths = viz.plot_cluster_vs_theoretical(
+            cluster.members, peptide, charge, args.out_prefix)
+    print("\n".join(paths))
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.verbose or args.log_json:
+        # only when asked: a process that calls main() keeps its logging
+        configure_logging(args.verbose, args.log_json)
+    if args.command == "plot":
+        return run_plot(args)
+    if args.command == "stats":
+        from specpride_tpu_torch.observability.stats_cli import run_stats
+
+        return run_stats(args.journals, json_out=args.json)
     if args.command == "convert":
         print(json.dumps(run_convert(args)), file=sys.stderr)
         return 0

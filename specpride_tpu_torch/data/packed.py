@@ -394,14 +394,22 @@ class FlatGapBatch:
     clusters sorted by (cluster, m/z), singletons in input order.
 
     A group begins where ``group_start`` is 1: at each cluster's first
-    peak and at each host-f64 gap.  ``quorum`` is the per-row integer
-    threshold ``ceil(min_fraction * n_members)`` (f64), exact for integer
-    group sizes.  Rows are chunk-local; ``row_offsets`` are their peak
-    extents."""
+    peak and at each host-f64 gap.  ``group_mz`` holds each group's mean
+    m/z, taken here in float64 as the JAX package's default host path
+    takes it (ascending m/z, one addition after another, as ``np.bincount``
+    and ``native/gap_average.cpp`` add), so the card ships and averages
+    only the intensities.  At f32 ``single_groups`` / ``single_int`` are
+    the groups of singleton clusters (one peak each) and their float64
+    intensities, which pass through unrounded (ref
+    src/average_spectrum_clustering.py:88-90); None at a reduced
+    precision, whose intensities are the reduced ones throughout.
+    ``quorum`` is the per-row integer threshold ``ceil(min_fraction *
+    n_members)`` (f64), exact for integer group sizes.  Rows are
+    chunk-local; ``row_offsets`` are their peak extents."""
 
-    mz: np.ndarray  # (N,) f32, or int16 bf16 bits where exact (precision)
     intensity: np.ndarray  # (N,) f32, or int16 bf16 bits | int8 codes
     group_start: np.ndarray  # (N,) uint8
+    group_mz: np.ndarray  # (groups,) f64
     n_members: np.ndarray  # (rows,) i32
     quorum: np.ndarray  # (rows,) i32
     n_groups: np.ndarray  # (rows,) i64
@@ -410,6 +418,8 @@ class FlatGapBatch:
     source_indices: list[int]
     precision: str = "f32"
     scale: np.ndarray | None = None  # (rows,) f32, int8 only
+    single_groups: np.ndarray | None = None  # (k,) i64 chunk group ids
+    single_int: np.ndarray | None = None  # (k,) f64
 
 
 def pack_flat_gap(
@@ -420,15 +430,22 @@ def pack_flat_gap(
 ) -> list[FlatGapBatch]:
     """Lay the peaks of ``gap_global_segments`` flat and chunk them at
     cluster boundaries, each chunk at most ``max_elements`` peaks (a single
-    larger cluster gets a chunk of its own).  A reduced ``precision``
-    encodes each chunk's m/z (bf16 only where exact, ``encode_mz``) and
-    intensities per row (``encode_intensity_flat``)."""
+    larger cluster gets a chunk of its own), with each group's float64
+    mean m/z.  A reduced ``precision`` encodes each chunk's intensities per
+    row (``encode_intensity_flat``)."""
     table = _as_table(clusters_or_table)
     idx = table.cluster_order()
     g = gap_global_segments(table, idx, config)
-    s_mz = g["s_mz"].astype(np.float32)
-    s_int = table.intensity[g["order"]].astype(np.float32)
-    group_start = (g["cluster_first_peak"] | g["gap"]).astype(np.uint8)
+    s_int64 = table.intensity[g["order"]]
+    s_int = s_int64.astype(np.float32)
+    heads = g["cluster_first_peak"] | g["gap"]
+    group_start = heads.astype(np.uint8)
+    gid = np.cumsum(heads) - 1
+    n_total = int(g["n_groups"].sum())
+    sizes = np.bincount(gid, minlength=n_total)
+    group_mz = np.bincount(gid, weights=g["s_mz"], minlength=n_total
+                           ) / np.maximum(sizes, 1)
+    single = idx.n_members[g["s_cluster"]] == 1
     quorum = np.ceil(
         config.min_fraction * idx.n_members.astype(np.float64)
     ).astype(np.int32)
@@ -436,19 +453,26 @@ def pack_flat_gap(
     c = table.n_clusters
     row_peak_offsets = np.zeros(c + 1, dtype=np.int64)
     np.cumsum(idx.total_peaks, out=row_peak_offsets[1:])
+    row_group_offsets = np.zeros(c + 1, dtype=np.int64)
+    np.cumsum(g["n_groups"], out=row_group_offsets[1:])
     batches: list[FlatGapBatch] = []
     for lo, hi in _row_chunks(row_peak_offsets, max_elements, c):
         p0, p1 = int(row_peak_offsets[lo]), int(row_peak_offsets[hi])
+        g0, g1 = int(row_group_offsets[lo]), int(row_group_offsets[hi])
         offsets = row_peak_offsets[lo : hi + 1] - p0
-        mz, _ = quantize.encode_mz(s_mz[p0:p1], precision)
         inten, scale = quantize.encode_intensity_flat(
             s_int[p0:p1], offsets, precision
         )
+        single_groups = single_int = None
+        if precision == "f32":
+            (pos,) = np.nonzero(single[p0:p1])
+            single_groups = gid[p0 + pos] - g0
+            single_int = s_int64[p0 + pos]
         batches.append(
             FlatGapBatch(
-                mz=mz,
                 intensity=inten,
                 group_start=group_start[p0:p1],
+                group_mz=group_mz[g0:g1],
                 n_members=idx.n_members[lo:hi].astype(np.int32),
                 quorum=quorum[lo:hi],
                 n_groups=g["n_groups"][lo:hi],
@@ -457,6 +481,8 @@ def pack_flat_gap(
                 source_indices=list(range(lo, hi)),
                 precision=precision,
                 scale=scale,
+                single_groups=single_groups,
+                single_int=single_int,
             )
         )
     return batches

@@ -233,8 +233,9 @@ int seg_mean_f32(const void* keys, const void* w, const void* v0,
   return (int)cudaErrorInvalidValue;
 }
 
-// One bf16 or int8 channel, or two: f32 m/z and f32 intensity, or f32 or
-// bf16 m/z and bf16 or int8 intensity (`kinds`, above).  Outputs o0 = count, o1[, o2] = means,
+// One f32, bf16 or int8 channel (the gap average's and the reduced binned
+// mean's intensities), or two: f32 m/z and f32 intensity, or f32 or bf16
+// m/z and bf16 or int8 intensity (`kinds`, above).  Outputs o0 = count, o1[, o2] = means,
 // f32; in2 is unused.  ws and base as for seg_scan_flags_f32 (seg_scan.cu).
 // Returns 0 or the cudaError_t of the launch (cudaErrorInvalidValue for
 // another combination); synchronizes nothing.
@@ -248,6 +249,7 @@ int seg_mean_heads(const void* head, const void* v0, const void* v1,
                     static_cast<float*>(o2)},
                    n, ws, base, device, stream};
   switch (kinds) {
+    case kF32: return launch_heads<2, float>(a);
     case kBF16: return launch_heads<2, bf16_bits>(a);
     case kI8: return launch_heads<2, signed char>(a);
     case kinds2(kF32, kF32): return launch_heads<3, float, float>(a);

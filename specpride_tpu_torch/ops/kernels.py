@@ -207,11 +207,13 @@ def seg_mean(
 HEADS = (torch.bool, torch.uint8)  # head flags
 # value dtype -> its code in seg_mean_heads' kinds argument (seg_mean.cu)
 HEAD_KINDS = {torch.float32: 1, torch.bfloat16: 2, torch.int8: 3}
-# the value dtypes seg_mean_heads takes: one bf16 or int8 channel (the
-# binned mean's codes), or the gap average's m/z and intensity: f32 and
-# f32 at f32, else f32 or (where exact) bf16 m/z beside bf16 or int8 codes
+# the value dtypes seg_mean_heads takes: one channel (the flat gap
+# average's f32, bf16 or int8 intensities, the binned mean's codes), or
+# the bucketized gap average's m/z and intensity: f32 and f32 at f32, else
+# f32 or (where exact) bf16 m/z beside bf16 or int8 codes
 HEAD_CASES = (
-    (torch.bfloat16,), (torch.int8,), (torch.float32, torch.float32),
+    (torch.float32,), (torch.bfloat16,), (torch.int8,),
+    (torch.float32, torch.float32),
     *((a, b) for a in (torch.float32, torch.bfloat16)
       for b in (torch.bfloat16, torch.int8)),
 )
@@ -254,9 +256,9 @@ def seg_mean_heads(
     mean_1])`` per element, all float32.
 
     ``head`` is bool or uint8, nonzero where a run begins (element 0
-    always begins one); every element weighs 1.  ``values`` are one bf16
-    or int8 channel, or two: float32 and float32, or float32 or bf16, then
-    bf16 or int8 (``HEAD_CASES``); they are upcast to float32 and summed in float32.
+    always begins one); every element weighs 1.  ``values`` are one
+    float32, bf16 or int8 channel, or two: float32 and float32, or float32
+    or bf16, then bf16 or int8 (``HEAD_CASES``); they are upcast to float32 and summed in float32.
     ``count[i]`` is i's position in its run plus 1 and ``mean_c[i]`` the
     mean of ``values[c]`` over the run's head through i, so a run's last
     element holds its mean.  The entry of B1 (``seg_mean_pallas``, the JAX

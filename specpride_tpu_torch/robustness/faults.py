@@ -27,7 +27,9 @@ var, so a test can arm a child process without threading flags through):
 
 The plan is installed process-wide (:func:`install`) because the sites
 live in both the CLI executor and the backend; :func:`check` costs one
-global read when no plan is armed.
+global read when no plan is armed.  Every fired fault is journaled as a
+``fault`` event before its error is raised, and
+:func:`audit_fault_recovery` pairs each with the recovery that followed.
 """
 
 from __future__ import annotations
@@ -50,6 +52,25 @@ SITES = (
 )
 
 KINDS = ("io", "oom", "malformed", "hang")
+
+# the retry wrappers whose ``retry`` events recover a fault fired at a
+# site: the pack lane's covers everything the pack stage runs, the
+# dispatch lane's the result fetch (the JAX package's map), and the QC
+# pass's its own fetch: the port's QC cosine runs on the card
+_RECOVERY_SITES = {
+    "parse": ("pack",),
+    "pack": ("pack",),
+    "prepare": ("pack",),
+    "dispatch": ("dispatch",),
+    "d2h": ("dispatch", "qc"),
+    "qc": ("qc",),
+    "write": ("write",),
+    "checkpoint_write": ("checkpoint_write",),
+}
+
+
+def recovery_sites_for(site: str) -> tuple[str, ...]:
+    return _RECOVERY_SITES.get(site, (site,))
 
 # a hang with no watchdog armed must still end: hard bound on the block
 MAX_HANG_S = 5.0
@@ -126,6 +147,7 @@ class FaultPlan:
         self._fires: dict[int, int] = {}  # spec index -> fire count
         self.fired_by_site: dict[str, int] = {}
         self._hang_cancel = threading.Event()
+        self.journal = None  # set by install(); may stay None
 
     @classmethod
     def parse(cls, text: str, seed: int = 0) -> "FaultPlan":
@@ -184,8 +206,12 @@ class FaultPlan:
                         self.fired_by_site.get(site, 0) + 1)
                     fired = s
                     break
-        if fired is not None:
-            self._raise(site, fired, visit)
+        if fired is None:
+            return
+        if self.journal is not None:
+            self.journal.emit("fault", site=site, kind=fired.kind,
+                              visit=visit)
+        self._raise(site, fired, visit)
 
     def _raise(self, site: str, spec: FaultSpec, visit: int) -> None:
         msg = f"injected {spec.kind} fault at {site} (visit {visit})"
@@ -224,11 +250,14 @@ def suppressed() -> _Suppressed:
     return _Suppressed()
 
 
-def install(plan: FaultPlan | None) -> FaultPlan | None:
-    """Arm ``plan`` process-wide (None disarms); returns the previous
-    plan, so the caller can restore it."""
+def install(plan: FaultPlan | None, journal=None) -> FaultPlan | None:
+    """Arm ``plan`` process-wide (None disarms), its fired faults
+    journaled to ``journal`` when one is given; returns the previous plan,
+    so the caller can restore it."""
     global _active
     prev = _active
+    if plan is not None and journal is not None:
+        plan.journal = journal
     _active = plan
     return prev
 
@@ -242,3 +271,33 @@ def check(site: str) -> None:
     plan = _active
     if plan is not None and not getattr(_suppress, "on", False):
         plan.check(site)
+
+
+def audit_fault_recovery(events: list[dict]) -> list[dict]:
+    """Pair every journaled ``fault`` with a later recovery event: a
+    ``retry`` at the fault site's wrapper (``recovery_sites_for``), a
+    ``degrade``, a ``quarantine``, a ``resume_repair`` or a
+    ``skipped_clusters`` record (the ``--on-error skip`` outcome).  Each
+    recovery backs at most one fault, and must follow it (``mono``).
+    Returns the faults left unmatched: empty when every fault recovered.
+    The JAX package's audit, without its elastic rank kinds."""
+    fired = [e for e in events if e.get("event") == "fault"]
+    recoveries = [
+        e for e in events
+        if e.get("event") in ("retry", "degrade", "quarantine",
+                              "resume_repair", "skipped_clusters")
+    ]
+    used: set[int] = set()
+    unmatched = []
+    for f in fired:
+        sites = recovery_sites_for(f.get("site", ""))
+        for i, r in enumerate(recoveries):
+            if i in used or r.get("mono", 0) < f.get("mono", 0):
+                continue
+            if r["event"] == "retry" and r.get("site") not in sites:
+                continue
+            used.add(i)
+            break
+        else:
+            unmatched.append(f)
+    return unmatched

@@ -1,7 +1,8 @@
 """Per-run robustness harness (the port's copy of the JAX package's
 ``robustness/harness.py``): the armed :class:`FaultPlan` (if any), the
 :class:`RetryPolicy`, the lane :class:`Watchdog` and the degradation
-switch, with the split and repair counts that go into the run summary.
+switch, with the split and repair counts that go into the run summary;
+each fault, retry, split and stall is also a journal event.
 
 Construction arms the fault plan process-wide (the backend reaches it
 through ``faults.check``); :meth:`close` disarms it and stops the
@@ -24,36 +25,40 @@ from specpride_tpu_torch.robustness.watchdog import Watchdog
 
 class Harness:
     def __init__(self, plan: FaultPlan | None, policy: RetryPolicy,
-                 watchdog: Watchdog | None, degrade: bool):
+                 watchdog: Watchdog | None, degrade: bool, journal=None):
         self.plan = plan
         self.policy = policy
         self.watchdog = watchdog
         self.degrade = degrade
+        self.journal = journal
         self._lock = threading.Lock()
         self.degrade_splits = 0
         self.degrade_reroutes = 0  # never grows: the port has no reroute
         self.resume_repairs = 0
-        self._prev_plan = faults.install(plan)
+        self._prev_plan = faults.install(plan, journal=journal)
 
     @classmethod
-    def from_args(cls, args) -> "Harness":
+    def from_args(cls, args, journal=None) -> "Harness":
         """From the execution flags; ``--inject-faults`` wins over
-        ``SPECPRIDE_FAULTS``."""
+        ``SPECPRIDE_FAULTS``.  ``journal`` (the run's) receives the
+        ``fault``, ``retry``, ``degrade`` and ``watchdog_stall`` events."""
         spec = getattr(args, "inject_faults", None)
         seed = int(getattr(args, "fault_seed", 0) or 0)
         plan = (FaultPlan.parse(spec, seed=seed) if spec
                 else FaultPlan.from_env())
         policy = RetryPolicy(retries=getattr(args, "retries", 0),
                              backoff=getattr(args, "retry_backoff", 0.05),
-                             seed=seed)
+                             seed=seed, journal=journal)
         timeout = float(getattr(args, "watchdog_timeout", 0.0) or 0.0)
         watchdog = (
             Watchdog(timeout,
-                     on_stall=plan.cancel_hangs if plan is not None else None)
+                     on_stall=plan.cancel_hangs if plan is not None else None,
+                     journal=journal)
             if timeout > 0 else None
         )
         return cls(plan, policy, watchdog,
-                   degrade=not getattr(args, "no_degrade", False))
+                   degrade=not getattr(args, "no_degrade", False),
+                   journal=journal)
 
     @property
     def armed(self) -> bool:
@@ -78,6 +83,9 @@ class Harness:
                 self.degrade_splits += 1
             else:
                 self.degrade_reroutes += 1
+        if self.journal is not None:
+            self.journal.emit("degrade", action=action, reason=reason,
+                              chunk_index=chunk_index, n_clusters=n_clusters)
 
     def note_repair(self) -> None:
         with self._lock:

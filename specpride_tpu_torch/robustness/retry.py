@@ -29,8 +29,9 @@ class RetryPolicy:
     drawn deterministically in [0, 0.25)."""
 
     def __init__(self, retries: int = 0, backoff: float = 0.05,
-                 seed: int = 0):
+                 seed: int = 0, journal=None):
         self.retries = max(int(retries), 0)
+        self.journal = journal
         self.backoff = max(float(backoff), 0.0)
         self.seed = int(seed)
         self._lock = threading.Lock()
@@ -54,6 +55,10 @@ class RetryPolicy:
             self.retry_count += 1
             self.retry_wait_s += wait_s
             self.retries_by_site[site] = self.retries_by_site.get(site, 0) + 1
+        if self.journal is not None:
+            self.journal.emit("retry", site=site, attempt=attempt,
+                              backoff_s=round(wait_s, 4),
+                              error=f"{type(error).__name__}: {error}")
         logger.warning("%s failed (%s); retry %d/%d in %.3fs", site, error,
                        attempt + 1, self.retries, wait_s)
 

@@ -3,8 +3,8 @@ JAX package's ``robustness/watchdog.py``).
 
 Each executor lane runs its work inside a watched *section*
 (``with watchdog.section("dispatch"): ...``); a monitor thread checks the
-open sections, and one that outlasts the timeout is counted, logged and
-handed to ``on_stall`` (``FaultPlan.cancel_hangs``, which breaks an
+open sections, and one that outlasts the timeout is counted, logged,
+journaled (``watchdog_stall``) and handed to ``on_stall`` (``FaultPlan.cancel_hangs``, which breaks an
 injected hang so the lane raises a transient ``LaneHangError`` its retry
 recovers).  Sections, not heartbeats: a lane parked on an empty queue is
 idle, not stalled.  A real runaway (a wedged stream) cannot be
@@ -26,8 +26,9 @@ class Watchdog:
     """Monitor thread over named lane sections.  ``timeout_s <= 0`` gives
     a disabled instance whose ``section`` costs nothing."""
 
-    def __init__(self, timeout_s: float, on_stall=None):
+    def __init__(self, timeout_s: float, on_stall=None, journal=None):
         self.timeout_s = float(timeout_s)
+        self.journal = journal
         self.enabled = self.timeout_s > 0
         self.on_stall = on_stall
         self.stall_count = 0
@@ -82,6 +83,10 @@ class Watchdog:
                 self.stall_count += 1
                 logger.warning("lane %s stalled for %.2fs (watchdog timeout "
                                "%.2fs)", lane, elapsed, self.timeout_s)
+                if self.journal is not None:
+                    self.journal.emit("watchdog_stall", lane=lane,
+                                      elapsed_s=round(elapsed, 4),
+                                      timeout_s=self.timeout_s)
                 if self.on_stall is not None:
                     self.on_stall()
 

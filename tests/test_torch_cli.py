@@ -159,6 +159,11 @@ def test_import_and_help_load_no_jax():
         "import specpride_tpu_torch.robustness.errors\n"
         "import specpride_tpu_torch.parallel.mesh\n"
         "import specpride_tpu_torch.parallel.parts\n"
+        "import specpride_tpu_torch.viz\n"
+        "import specpride_tpu_torch.observability.journal\n"
+        "import specpride_tpu_torch.observability.registry\n"
+        "import specpride_tpu_torch.observability.stats\n"
+        "import specpride_tpu_torch.observability.stats_cli\n"
         "from specpride_tpu_torch.io.mgf import StreamedClusters\n"
         "import numpy\n"
         "from specpride_tpu_torch.ops.segsort import seg_argsort\n"
@@ -166,13 +171,15 @@ def test_import_and_help_load_no_jax():
         "from specpride_tpu_torch.io.native import parse_mgf_bytes\n"
         "parse_mgf_bytes(b'BEGIN IONS\\n1.0 2.0\\nEND IONS\\n')\n"
         "from specpride_tpu_torch.cli import main\n"
-        "for cmd in ('consensus', 'select', 'evaluate', 'convert',\n"
-        "            'merge-parts'):\n"
+        "for argv in (['--help'], *([cmd, '--help'] for cmd in (\n"
+        "        'consensus', 'select', 'evaluate', 'convert',\n"
+        "        'merge-parts', 'plot', 'stats'))):\n"
         "    try:\n"
-        "        main([cmd, '--help'])\n"
+        "        main(argv)\n"
         "    except SystemExit:\n"
         "        pass\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes')\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes',\n"
+        "                                             'matplotlib')\n"
         "             or m.startswith(('jax.', 'specpride_tpu.',\n"
         "                              'ml_dtypes.'))\n"
         "             or m == 'specpride_tpu')\n"
@@ -209,6 +216,18 @@ def test_import_and_help_load_no_jax():
         "--checkpoint BASE") >= 3
     for flag in ("--remove-parts", "<output>.part00000"):
         assert flag in proc.stdout
+    # the telemetry flags of consensus and select, and evaluate's backend
+    # and trace flags; plot and stats (matplotlib stays unloaded: plot
+    # imports it when it draws)
+    for flag in ("--journal", "--metrics-out"):
+        assert proc.stdout.count(flag) >= 2, flag
+    assert proc.stdout.count("--trace-dir") >= 3
+    assert proc.stdout.count("{auto,flat,bucketized}") >= 3
+    assert proc.stdout.count("--mesh") >= 3
+    assert proc.stdout.count("{f32,bf16,int8}") >= 3
+    for flag in ("-v, --verbose", "--log-json", "--consensus", "--peptide",
+                 "out_prefix", "journals", "--json"):
+        assert flag in proc.stdout, flag
     assert "LOADED []" in proc.stdout
 
 
@@ -243,7 +262,10 @@ def test_package_source_imports_no_jax():
             "robustness/faults.py", "robustness/retry.py",
             "robustness/watchdog.py", "robustness/quarantine.py",
             "robustness/harness.py", "io/mgf.py", "parallel/__init__.py",
-            "parallel/mesh.py", "parallel/parts.py"} <= scanned
+            "parallel/mesh.py", "parallel/parts.py", "viz.py",
+            "observability/__init__.py", "observability/journal.py",
+            "observability/registry.py", "observability/stats.py",
+            "observability/stats_cli.py"} <= scanned
     assert len(files) > 10
     # the port builds its own host library: none of the JAX package's
     # native libraries (native/lib*.so) is named, let alone loaded, and no
@@ -260,6 +282,54 @@ def test_package_source_imports_no_jax():
 
 
 FAULT_PLAN_ENV = ("SPECPRIDE_FAULTS", "SPECPRIDE_FAULT_SEED")
+
+# the names the JAX package's lint finds its anchors by, across the whole
+# repository (specpride_tpu/analysis/core.py::Project.one_constant): a
+# second module-level assignment of one anywhere silences its check and
+# breaks tests/test_lint.py::test_repository_anchor_discovery
+LINT_ANCHOR_NAMES = frozenset({
+    "EVENT_FIELDS", "TRACE_EVENT_FIELDS", "V5_EVENT_FIELDS",
+    "V6_EVENT_FIELDS", "FAULT_SITES", "EXECUTOR_FAULT_SITES",
+    "DAEMON_ONLY_FLAGS", "_DAEMON_OWNED_DESTS", "_BUILDERS",
+    "PRE_REGISTERED_FAMILIES",
+})
+
+
+def _module_level_names(source):
+    """Every name a module's source binds at its top level by
+    assignment."""
+    for node in ast.parse(source).body:
+        targets = (node.targets if isinstance(node, ast.Assign)
+                   else [node.target] if isinstance(
+                       node, (ast.AnnAssign, ast.AugAssign)) else [])
+        for target in targets:
+            for n in ast.walk(target):
+                if isinstance(n, ast.Name):
+                    yield n.id
+
+
+def _read(path):
+    with open(path) as fh:
+        return fh.read()
+
+
+def test_package_assigns_no_jax_lint_anchor_name():
+    files = [os.path.join(d, f) for d, _, fs in os.walk(PKG)
+             for f in fs if f.endswith(".py")]
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    bad = [f"{os.path.relpath(f, REPO)}: {name}"
+           for f in files for name in _module_level_names(_read(f))
+           if name in LINT_ANCHOR_NAMES]
+    assert bad == [], bad
+    # the scan sees what it guards: the port's own schema tables, and
+    # annotated and unpacking assignments
+    names = set(_module_level_names(_read(
+        os.path.join(PKG, "observability", "journal.py"))))
+    assert {"EVENT_SCHEMA", "TRACE_EVENT_SCHEMA"} <= names
+    assert set(_module_level_names(
+        "FAULT_SITES: tuple = ()\n(a, [_BUILDERS]) = 1, [2]\n"
+        "def f():\n    EVENT_FIELDS = 1\n")) == {
+            "FAULT_SITES", "a", "_BUILDERS"}
 
 
 def _port_cli(*args):

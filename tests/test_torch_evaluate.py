@@ -281,3 +281,71 @@ def test_evaluate_reads_jax_written_files(eval_files):
     jreps = jmgf.read_mgf(reps, use_native=False)
     assert mgf.write_mgf(mgf.read_mgf(reps), None) == jmgf.write_mgf(
         jreps, None)
+
+
+EVALUATE_FLAGS = [
+    ("--layout", "bucketized"),
+    ("--mesh",),
+    ("--layout", "flat", "--precision", "bf16"),
+    ("--precision", "int8"),
+]
+
+
+@pytest.mark.parametrize("flags", EVALUATE_FLAGS, ids=" ".join)
+def test_cli_evaluate_backend_flags_match_jax_cli_and_oracle(
+        flags, eval_files, tmp_path, capsys):
+    """``evaluate``'s backend flags, the JAX CLI's: ``--layout`` and
+    ``--mesh`` score on the (B, K) layout, and ``--precision`` is taken
+    and ignored (the cosine is f32 in both packages).  Each against the
+    JAX CLI with the same flags and the numpy oracle, per cluster."""
+    from specpride_tpu_torch import cli
+
+    reps, clustered = eval_files
+    port_rep, jax_rep = tmp_path / "port.json", tmp_path / "jax.json"
+    assert cli.main(["evaluate", reps, clustered, "--report", str(port_rep),
+                     "--device", "cpu", *flags]) == 0
+    got = json.loads(capsys.readouterr().out)
+    jax = _run("-m", "specpride_tpu", "evaluate", reps, clustered,
+               "--report", str(jax_rep), "--compile-cache", "off", *flags)
+    assert jax.returncode == 0, jax.stderr
+    oracle = jmetrics.evaluate(
+        [r for r in jmgf.read_mgf(reps)],
+        [c for c in _grouped(clustered, reps)], "numpy")
+    rows = json.loads(port_rep.read_text())["clusters"]
+    for want in (json.loads(jax_rep.read_text())["clusters"],
+                 [r.to_dict() for r in oracle]):
+        assert [r["cluster_id"] for r in rows] == \
+            [r["cluster_id"] for r in want]
+        np.testing.assert_allclose([r["avg_cosine"] for r in rows],
+                                   [r["avg_cosine"] for r in want],
+                                   **COS_TOL)
+        assert [r["by_fraction"] for r in rows] == \
+            [r["by_fraction"] for r in want]
+    assert got["n_clusters"] == len(rows) == 5
+    # the flags reached the backend: the same layout as the JAX run's
+    flat = TorchBackend(device="cpu")
+    bucket = TorchBackend(device="cpu", layout="bucketized")
+    clusters = _port_clusters(clustered, reps)
+    preps = mgf.read_mgf(reps)
+    want = (bucket if "--layout" in flags and "bucketized" in flags
+            or "--mesh" in flags else flat).average_cosines(preps, clusters)
+    np.testing.assert_array_equal(
+        [r["avg_cosine"] for r in rows], want)
+
+
+def _grouped(clustered, reps):
+    """The JAX clusters of ``clustered`` that ``reps`` represents, in the
+    representatives' order."""
+    from specpride_tpu.data.peaks import group_into_clusters
+
+    by_id = {c.cluster_id: c for c in group_into_clusters(
+        jmgf.read_mgf(clustered))}
+    return [by_id[r.cluster_id] for r in jmgf.read_mgf(reps)]
+
+
+def _port_clusters(clustered, reps):
+    from specpride_tpu_torch.data.peaks import group_into_clusters
+
+    by_id = {c.cluster_id: c for c in group_into_clusters(
+        mgf.read_mgf(clustered))}
+    return [by_id[r.cluster_id] for r in mgf.read_mgf(reps)]

@@ -2,15 +2,22 @@
 numpy oracle fed the same clusters.
 
 ``gap_global_segments`` is the same numpy code as the JAX package's and
-must be equal exactly.  ``gap_average_compact`` runs on the port's flat
-chunk of the clusters of each JAX (B, K) batch and must give the JAX
-kernel's compacted output in the same row-major order.  Tolerances of the
-method runs are those of the JAX package's own device-vs-oracle test
-(tests/test_pallas.py:174-220): equal peak counts, m/z rtol 1e-5,
-intensity rtol 1e-4 / atol 1e-3 (group sums in float32 on the card, in
-float64 in the oracle)."""
+must be equal exactly.  ``gap_average_groups`` runs on the port's flat
+chunk of the clusters of each JAX (B, K) batch; its kept groups, joined to
+the pack's float64 group m/z, must give the JAX kernel's compacted output
+in the same row-major order.  Tolerances of the method runs are those of
+the JAX package's own device-vs-oracle test (tests/test_pallas.py:
+174-220): equal peak counts, m/z rtol 1e-5, intensity rtol 1e-4 / atol
+1e-3 (group intensity sums in float32 on the card, in float64 in the
+oracle).
+
+The flat layout's group m/z are float64 host means, as the JAX package's
+default host path takes them: on a seeded workload shaped like its
+benchmark the port's default gap average gives the JAX package's m/z
+exactly, and QC cosines within rtol 1e-5 / atol 1e-6."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -119,6 +126,27 @@ def test_pack_flat_gap_matches_bucketized_pack(precision):
     cfg = GapAverageConfig()
     (chunk,) = packed.pack_flat_gap(_port(clusters), cfg, precision=precision)
     assert chunk.precision == precision
+    # the group m/z: float64 means over the JAX segmentation, each group's
+    # m/z added in ascending order (np.bincount), as native/gap_average.cpp
+    from specpride_tpu.data import table as jtable
+
+    jt = jtable.SpectraTable.from_clusters(clusters)
+    jg = jpacked.gap_global_segments(jt, jt.cluster_order(), JaxGapConfig())
+    gid = np.cumsum(jg["cluster_first_peak"] | jg["gap"]) - 1
+    want_mz = np.bincount(gid, weights=jg["s_mz"]) / np.bincount(gid)
+    assert chunk.group_mz.dtype == np.float64
+    np.testing.assert_array_equal(chunk.group_mz, want_mz)
+    assert chunk.intensity.size == chunk.group_start.size
+    if precision == "f32":
+        # singletons' groups are their peaks, in input order
+        single = [c.members[0] for c in clusters if c.n_members == 1]
+        assert single and np.array_equal(
+            chunk.single_int, np.concatenate([m.intensity for m in single]))
+        np.testing.assert_array_equal(
+            chunk.group_mz[chunk.single_groups],
+            np.concatenate([m.mz for m in single]))
+    else:
+        assert chunk.single_groups is None and chunk.single_int is None
     jbatches = jpacked.pack_bucketize_gap(clusters, JaxGapConfig())
     seen = 0
     for jb in jbatches:
@@ -130,10 +158,6 @@ def test_pack_flat_gap_matches_bucketized_pack(precision):
             p0, p1 = chunk.row_offsets[ci], chunk.row_offsets[ci + 1]
             nv = int(jb.n_valid[r])
             assert p1 - p0 == nv
-            mz = chunk.mz[p0:p1]
-            if mz.dtype == np.int16:
-                mz = quantize.bf16_values(mz)
-            np.testing.assert_array_equal(mz, jb.mz[r, :nv])
             heads = np.ones(nv, bool)
             heads[1:] = jb.seg[r, 1:nv] != jb.seg[r, : nv - 1]
             np.testing.assert_array_equal(chunk.group_start[p0:p1] != 0,
@@ -165,21 +189,24 @@ def test_gap_average_compact_matches_jax(tail_mode, impl):
                                         cfg)
         assert int(chunk.n_groups.sum()) == cap
         before = dict(kernels.launches)
-        got = gap_average.gap_average_compact(
+        got = gap_average.gap_average_groups(
             *(torch.from_numpy(a) for a in (
-                chunk.mz, chunk.intensity, chunk.group_start, chunk.quorum,
+                chunk.intensity, chunk.group_start, chunk.quorum,
                 chunk.n_members, chunk.n_groups)),
             dyn_range=cfg.dyn_range, total_cap=cap,
         ).numpy()
         assert kernels.launches == before  # CPU: the plain version
-        assert got.shape == want.shape == (2 * cap + b,)
-        np.testing.assert_array_equal(got[2 * cap:], want[2 * cap:])
+        assert got.shape == (2 * cap,) and want.shape == (2 * cap + b,)
+        keep = got[cap:] != 0
+        assert set(np.unique(got[cap:])) <= {0.0, 1.0}
+        grow = np.repeat(np.arange(b), chunk.n_groups)
+        np.testing.assert_array_equal(np.bincount(grow[keep], minlength=b),
+                                      want[2 * cap:])
         k = int(want[2 * cap:].sum())
-        assert k > 0
-        np.testing.assert_allclose(got[:k], want[:k], **TOL_MZ)
-        np.testing.assert_allclose(got[cap : cap + k], want[cap : cap + k],
+        assert k == keep.sum() > 0
+        np.testing.assert_allclose(chunk.group_mz[keep], want[:k], **TOL_MZ)
+        np.testing.assert_allclose(got[:cap][keep], want[cap : cap + k],
                                    **TOL_INT)
-        assert not got[k:cap].any() and not got[cap + k : 2 * cap].any()
 
 
 ESTIMATORS = [(p, r) for p in ("naive_average", "neutral_average",
@@ -241,9 +268,11 @@ def test_run_gap_average_rejects_empty_cluster():
 @pytest.mark.parametrize("bf16_mz", [False, True])
 @pytest.mark.parametrize("precision", ["bf16", "int8"])
 def test_run_gap_average_reduced_matches_jax(precision, bf16_mz):
-    """Against the JAX bucketized run at the same precision: both encode
-    m/z to bf16 only where exact (``bf16_mz`` makes it so) and int8 codes
-    against the same row scales."""
+    """Against the JAX bucketized run at the same precision (its m/z
+    bf16 only where exact, which ``bf16_mz`` makes so, else float32
+    means; the port's are the host's float64 means either way) with int8
+    codes against the same row scales.  The flat layout ships no m/z:
+    each peak crosses as its encoded intensity and a 1-byte group flag."""
     clusters = _clusters(8, bf16_mz=bf16_mz)
     backend = TorchBackend(device="cpu", precision=precision)
     got = backend.run_gap_average(_port(clusters))
@@ -251,16 +280,15 @@ def test_run_gap_average_reduced_matches_jax(precision, bf16_mz):
                       precision=precision).run_gap_average(clusters)
     (chunk,) = packed.pack_flat_gap(_port(clusters), GapAverageConfig(),
                                     precision=precision)
-    assert (chunk.mz.dtype == np.int16) == bf16_mz
     _assert_spectra(got, want)
     f32 = TorchBackend(device="cpu")
     f32.run_gap_average(_port(clusters))
-    per_peak = {"bf16": 2 if bf16_mz else 4, "int8": 2 if bf16_mz else 4}
+    per_peak = {"bf16": 2, "int8": 1}[precision]
     n = chunk.group_start.size
+    assert chunk.intensity.itemsize == per_peak
     assert backend.h2d_bytes["h2d"] < f32.h2d_bytes["h2d"]
     assert backend.h2d_bytes["h2d"] - f32.h2d_bytes["h2d"] == n * (
-        per_peak[precision] + (2 if precision == "bf16" else 1) - 8
-    )
+        per_peak - 4)
 
 
 @pytest.mark.parametrize("method", ["naive_average", "neutral_average",
@@ -290,3 +318,147 @@ def test_binned_cosine_matches_oracle(norm):
     for x, y, px, py in ((a, b, pa, pb), (a, a, pa, pa)):
         assert pnb.binned_cosine(px, py, CosineConfig(normalization=norm)) \
             == nb.binned_cosine(x, y, JaxCosineConfig(normalization=norm))
+
+
+# -- the flat gap average's m/z against the JAX CLI (float64 host means) ----
+
+
+def _workload(n_clusters, seed):
+    """``bench.py::make_workload``, rebuilt: PXD004732-shaped clusters
+    (1-20 members, 100-400 peaks, 0.003 Da jitter), JAX data classes."""
+    rng = np.random.default_rng(seed)
+    clusters = []
+    for i in range(n_clusters):
+        n_members = min(20, 1 + int(rng.gamma(2.0, 2.5)))
+        n_peaks = int(rng.integers(100, 400))
+        skeleton = np.sort(rng.uniform(120.0, 1900.0, size=n_peaks))
+        charge = int(rng.integers(2, 4))
+        members = []
+        for k in range(n_members):
+            mz = np.sort(skeleton + rng.normal(0.0, 0.003, size=n_peaks))
+            members.append(JaxSpectrum(
+                mz=mz, intensity=rng.uniform(10.0, 1e4, size=n_peaks),
+                precursor_mz=float(rng.uniform(300.0, 900.0)),
+                precursor_charge=charge, rt=float(i),
+                title=f"cluster-{i};mzspec:PXD1:r:scan:{i * 100 + k}",
+            ))
+        clusters.append(JaxCluster(f"cluster-{i}", members))
+    return clusters
+
+
+def _peak_lines(path):
+    with open(path) as fh:
+        return [line.split() for line in fh if line[:1].isdigit()]
+
+
+@pytest.fixture(scope="module")
+def c1_runs(tmp_path_factory):
+    """``consensus --method gap-average --qc-report`` with the defaults on
+    ``make_workload(240, seed=11)`` written as an MGF: the JAX CLI (its
+    default host path) and the port's CLI on the CPU."""
+    import subprocess
+    import sys
+
+    from specpride_tpu.io.mgf import write_mgf as jwrite_mgf
+    from specpride_tpu_torch import cli
+
+    d = tmp_path_factory.mktemp("c1")
+    clusters = _workload(240, seed=11)
+    src = str(d / "in.mgf")
+    jwrite_mgf([s for c in clusters for s in c.members], src)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "specpride_tpu", "consensus", src,
+         str(d / "jax.mgf"), "--method", "gap-average", "--qc-report",
+         str(d / "jax.qc.json")],
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo, JAX_PLATFORMS="cpu"),
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert cli.main(["consensus", src, str(d / "port.mgf"), "--device",
+                     "cpu", "--method", "gap-average", "--qc-report",
+                     str(d / "port.qc.json")]) == 0
+    return d, clusters
+
+
+def test_c1_default_gap_average_gives_the_jax_cli_mz_bytes(c1_runs):
+    d, clusters = c1_runs
+    got, want = _peak_lines(d / "port.mgf"), _peak_lines(d / "jax.mgf")
+    assert len(got) == len(want) > 50_000
+    assert [g[0] for g in got] == [w[0] for w in want]
+    np.testing.assert_allclose([float(g[1]) for g in got],
+                               [float(w[1]) for w in want], **TOL_INT)
+
+
+def test_c1_qc_cosines_match_the_jax_cli(c1_runs):
+    import json
+
+    d, _ = c1_runs
+    rows = [json.loads((d / f"{who}.qc.json").read_text())["clusters"]
+            for who in ("port", "jax")]
+    assert [r["cluster_id"] for r in rows[0]] == \
+        [r["cluster_id"] for r in rows[1]]
+    np.testing.assert_allclose([r["avg_cosine"] for r in rows[0]],
+                               [r["avg_cosine"] for r in rows[1]],
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_c1_singletons_equal_their_member(c1_runs):
+    """A singleton's peaks pass through with their float64 m/z and
+    intensity (then the dynamic-range floor), as the reference's
+    (src/average_spectrum_clustering.py:88-90); its QC cosine is 1."""
+    import json
+
+    from specpride_tpu_torch.io.mgf import read_mgf
+
+    d, clusters = c1_runs
+    reps = {s.cluster_id: s for s in read_mgf(str(d / "port.mgf"))}
+    qc = {r["cluster_id"]: r["avg_cosine"] for r in json.loads(
+        (d / "port.qc.json").read_text())["clusters"]}
+    singles = [c for c in clusters if c.n_members == 1]
+    assert len(singles) == 14  # of 240 clusters, cluster-52 among them
+    for c in singles:
+        want = nb.gap_average_consensus(c.members)
+        got = reps[c.cluster_id]
+        np.testing.assert_array_equal(got.mz, want.mz)
+        np.testing.assert_array_equal(got.intensity, want.intensity)
+        assert got.mz.size == c.members[0].mz.size
+        assert qc[c.cluster_id] == pytest.approx(1.0, abs=1e-12)
+
+
+# (precision, layout) -> the JAX CLI's gate decision on this input and
+# the port's: the port's reduced flat gap average keeps the host's float64
+# m/z means, so it clears the gate against the f32 path (min cosine
+# 0.999998 bf16, 0.999992 int8), while the JAX CLI's reduced run moves to
+# its bucketized device path, whose float32 m/z means move peaks across
+# cosine bin edges (0.969, refused); on the bucketized layout both hold
+# float32 card means against the flat float64 path and both refuse
+GATE_CASES = [("bf16", "auto", True), ("bf16", "flat", True),
+              ("bf16", "bucketized", False), ("int8", "flat", True)]
+
+
+@pytest.mark.parametrize("precision,layout,port_accepts", GATE_CASES)
+def test_c1_precision_gate_decisions_against_the_jax_cli(
+        precision, layout, port_accepts):
+    from specpride_tpu import cli as jcli
+    from specpride_tpu.observability.journal import NullJournal as JNull
+    from specpride_tpu_torch import cli
+    from specpride_tpu_torch.config import CosineConfig
+
+    clusters = _workload(240, seed=11)
+    args = jcli.build_parser().parse_args(
+        ["consensus", "in.mgf", "out.mgf", "--method", "gap-average",
+         "--precision", precision, "--layout", layout])
+    with pytest.raises(SystemExit, match="precision gate FAILED"):
+        jcli._precision_gate(
+            args, TpuBackend(precision=precision, layout=layout), clusters,
+            "gap-average", jcli.RunStats(), JNull())
+    backend = TorchBackend(device="cpu", precision=precision, layout=layout)
+    gate = lambda: cli.precision_gate(  # noqa: E731
+        backend, "gap-average", _port(clusters), GapAverageConfig(),
+        CosineConfig())
+    if port_accepts:
+        result = gate()
+        assert result["ok"] and result["min_cosine"] > 0.99999
+    else:
+        with pytest.raises(SystemExit, match="precision gate failed"):
+            gate()

@@ -278,7 +278,9 @@ def test_seg_mean_heads_rejects_bad_arguments(bad):
         torch.ones(8, dtype=torch.int8)
     args = {
         "head_dtype": (head.int(), b),
-        "one_f32": (head, f),
+        # one f32 channel is a kernel case (the flat gap average's), but
+        # only as a flat channel beside the flat head flags
+        "one_f32": (head, f.view(2, 4)),
         "bf16_after_int8": (head, i, b),
         "int8_mz": (head, i, f),
         "bf16_mz_f32": (head, b, f),  # f32 intensity only beside f32 m/z

@@ -5,9 +5,9 @@ on the CPU.
 A ``DeviceMesh(["cpu"] * 4)`` split of every bucketized method must give
 the one-device bytes.  The CLI rehearses a 4-rank run as 4 ``--device
 cpu`` processes joined through ``--coordinator 127.0.0.1:<port>`` (a
-port the OS picked, ``OMP_NUM_THREADS=1`` each, a timeout on every
-process and on the process group): ``merge-parts`` of their parts must
-give the single-process ``--mesh`` run's bytes (output and QC report),
+port the OS picked, a timeout on every process and on the process
+group, torch's default thread count): ``merge-parts`` of their parts
+must give the single-process ``--mesh`` run's bytes (output and QC report),
 and the JAX package's ``merge-parts`` over the same parts the same
 bytes."""
 
@@ -111,8 +111,7 @@ def _ranks(n, command, src, out, *flags):
     """``n`` CPU ranks of ``command`` through one coordinator; each must
     exit 0 within ``RANK_TIMEOUT_S``."""
     port = _free_port()
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
-               MKL_NUM_THREADS="1")
+    env = dict(os.environ, PYTHONPATH=REPO)
     procs = [
         subprocess.Popen(
             [sys.executable, "-m", "specpride_tpu_torch", command, str(src),
@@ -139,8 +138,7 @@ def _single(command, src, out, *flags):
     proc = subprocess.run(
         [sys.executable, "-m", "specpride_tpu_torch", command, str(src),
          str(out), "--device", "cpu", *flags],
-        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
-                           MKL_NUM_THREADS="1"),
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
         capture_output=True, text=True, timeout=RANK_TIMEOUT_S)
     assert proc.returncode == 0, proc.stderr
 
