@@ -111,10 +111,27 @@ NVIDIA GPU:
    singletons equal to their member, one ``seg_mean_heads`` launch per
    chunk); ``evaluate --layout bucketized`` against the CPU; ``plot``
    (skipped, with a line saying so, where matplotlib does not import);
-8. prints a ``{"kernels": [...]}`` line (launches: the executor's runs at
+8. tracing phase, on CLI-2k in process: ``consensus --qc-report`` with
+   and without ``--journal --chrome-trace`` (the same launches and
+   bytes), the journal read back with no violation, one trace id on
+   every event, a ``kernel:*`` span per ``dispatch`` event and per
+   launch, top-level spans covering at least 95 % of the phase seconds;
+   ``trace`` and the ``--chrome-trace`` file holding every span; ``stats
+   --top-spans 10`` and ``stats --trace ID`` timed; then the tracer's
+   cost on exec-20k (untraced, traced, untraced, traced, the same bytes);
+   result-cache phase: ``--result-cache`` on CLI-2k for bin-mean and
+   gap-average consensus and medoid select with QC, cold (the launches
+   and bytes of a run without it) and warm (every cluster a hit, no
+   launch, no ``dispatch`` event, the same bytes), the digest, read,
+   write and scan costs on one thread, then exec-20k's cold and warm
+   walls; process-start phase: a child interpreter's start,
+   ``import torch``, the package's import, CUDA init, the two libraries'
+   hash check and load, each timed, beside a 3-cluster CLI run's wall;
+9. prints a ``{"kernels": [...]}`` line (launches: the executor's runs at
    the defaults, the files phase's consensus runs and evaluate, the chaos
-   and real OOM runs, the bucketized, mesh and rank runs, the telemetry
-   phase's runs) and, last, the ``{"ok": true, "device": {...}}`` line.
+   and real OOM runs, the bucketized, mesh and rank runs, the telemetry,
+   tracing and result-cache phases' runs) and, last, the ``{"ok": true,
+   "device": {...}}`` line.
 
 Every comparison of a kernel with its plain version prints its largest
 relative error beside the tolerance.
@@ -1377,16 +1394,20 @@ EXEC_SETTINGS = (
 
 def executor_run(kernels, clusters, name: str, command: str, flags=(),
                  qc: bool = True) -> dict:
-    """One in-process run of the CLI's chunked executor
-    (``cli._checkpointed_run``, then ``cli._write_qc_report``) on
-    ``clusters`` with ``--checkpoint`` and ``--checkpoint-every
-    EXEC_EVERY``, launch counts zeroed just before; the bytes it wrote and
-    its numbers.  The input is in memory: parsing the MGF is not what is
-    measured."""
+    """One in-process run of the CLI's chunked executor on ``clusters``
+    with ``--checkpoint`` and ``--checkpoint-every EXEC_EVERY``, as
+    ``cli._run_pipeline_command`` runs it less the parse (the input is in
+    memory: parsing the MGF is not what is measured): the span tracer
+    (with ``--journal`` / ``--chrome-trace``), the result cache's run
+    context (``--result-cache``), the journal, ``cli._checkpointed_run``
+    (the launch counts zeroed just before it, the wall around it), the
+    QC report and ``cli._finish_run`` (``finish_s``: the Chrome trace
+    written).  Returns its numbers and the bytes it wrote."""
     import torch
 
     from specpride_tpu_torch import cli
     from specpride_tpu_torch.backends.torch_backend import TorchBackend
+    from specpride_tpu_torch.cache import result_cache
 
     work = os.path.join(ROOT, "build", "chip_smoke", "executor")
     os.makedirs(work, exist_ok=True)
@@ -1403,16 +1424,29 @@ def executor_run(kernels, clusters, name: str, command: str, flags=(),
     backend = TorchBackend(device=DEV, precision=args.precision)
     stats = cli.RunStats()
     rows = [] if qc else None
-    zero_launches(kernels)
-    t0 = time.perf_counter()
-    resumed, failed, qc_failed = cli._checkpointed_run(
-        backend, args.method, clusters, args, stats, qc=rows)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.launches)
-    if qc:
-        cli._write_qc_report(args, backend, clusters, rows, resumed, failed,
-                             qc_failed)
+    cli._install_tracer_early(args)
+    journal = cli.NullJournal()
+    try:
+        args._result_cache = result_cache.runtime_for(args, command,
+                                                      backend)
+        journal = cli._open_run_journal(args, backend, len(clusters))
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        resumed, failed, qc_failed = cli._checkpointed_run(
+            backend, args.method, clusters, args, stats, qc=rows,
+            journal=journal)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        if qc:
+            cli._write_qc_report(args, backend, clusters, rows, resumed,
+                                 failed, qc_failed)
+        t0 = time.perf_counter()
+        cli._finish_run(args, backend, stats, journal)
+        finish_s = time.perf_counter() - t0
+    finally:
+        cli._restore_tracer(args)
+        journal.close()
     if failed or qc_failed:
         raise AssertionError(f"executor {name}: failed {failed} {qc_failed}")
     got = {}
@@ -1428,6 +1462,7 @@ def executor_run(kernels, clusters, name: str, command: str, flags=(),
            "launches": launches, "chunks": backend.chunks,
            "cos_chunks": backend.cos_chunks, "pipeline": stats.pipeline,
            "phase_s": ph, "cli_phases_s": dict(stats.phases),
+           "counters": dict(stats.counters), "finish_s": finish_s,
            "h2d_bytes": backend.h2d_bytes,
            "output_bytes": len(got["mgf"]),
            "robustness": stats.robustness}
@@ -2902,6 +2937,383 @@ def telemetry_phase(kernels, src: str) -> dict:
     return res
 
 
+def cli_ok(what: str, *argv) -> dict:
+    """``run_main(ARGV)``, which must exit 0: its result."""
+    res = run_main(*argv)
+    if res["rc"] != 0:
+        raise AssertionError(f"{what}: CLI {argv} exited {res['rc']}:\n"
+                             f"{res['stderr'][-2000:]}")
+    return res
+
+
+def file_bytes(*paths) -> list:
+    out = []
+    for p in paths:
+        with open(p, "rb") as fh:
+            out.append(fh.read())
+    return out
+
+
+def span_events(events) -> list:
+    return [e for e in events if e["event"] == "span"]
+
+
+def check_trace_journal(events, launches: dict, what: str) -> dict:
+    """A traced run's journal: one 32-hex trace id on every event, a
+    ``kernel:*`` span per ``dispatch`` event (the main path's two: as
+    many ``seg_mean`` launches as bin-mean spans, five ``seg_scan`` per
+    cosine span), and top-level spans covering at least 95 % of the
+    phase seconds.  Returns the counts."""
+    import re
+
+    ids = {e.get("trace_id") for e in events}
+    if len(ids) != 1 or not re.fullmatch(r"[0-9a-f]{32}", str(min(ids))):
+        raise AssertionError(f"{what}: trace ids {sorted(map(str, ids))[:3]}")
+    spans = span_events(events)
+    n = {}
+    for kernel in ("bin_mean_flat_intensity", "cosine_flat"):
+        n[kernel] = (sum(e["name"] == f"kernel:{kernel}" for e in spans),
+                     sum(e["event"] == "dispatch" and e["kernel"] == kernel
+                         for e in events))
+    want = {"seg_mean": n["bin_mean_flat_intensity"][0], "seg_mean_heads": 0,
+            "seg_scan": 5 * n["cosine_flat"][0]}
+    if (any(a != b or a < 2 for a, b in n.values())
+            or launches != want):
+        raise AssertionError(f"{what}: kernel spans / dispatches {n}, "
+                             f"launches {launches}")
+    end = events[-1]
+    phases = sum(end["phases_s"].values())
+    top = sum(e["dur_s"] for e in spans if e["depth"] == 0)
+    if top < 0.95 * phases:
+        raise AssertionError(f"{what}: top-level spans {top} s cover under "
+                             f"95 % of the phases' {phases} s")
+    return {"spans": len(spans), "kernel_spans": {k: v[0] for k, v in
+                                                  n.items()},
+            "span_names": len({e["name"] for e in spans}),
+            "top_level_s": top, "phase_s": phases,
+            "coverage": top / phases if phases else None,
+            "trace_id": min(ids)}
+
+
+def tracing_phase(kernels, src: str, clusters) -> dict:
+    """tracing: CLI-2k through ``cli.main`` in process, launch counts
+    zeroed before each run: ``consensus --qc-report`` without and with
+    ``--journal --chrome-trace`` (the same bytes; the journal read back
+    with no violation and held to ``check_trace_journal``); ``trace J -o
+    T`` and the ``--chrome-trace`` file load as JSON with every span;
+    ``stats J --top-spans 10`` and ``stats J --trace ID`` timed.  Then the
+    tracer's cost on exec-20k (``executor_run`` at the defaults): untraced,
+    traced, untraced, traced, each pair the same bytes."""
+    import shutil
+
+    from specpride_tpu_torch.observability.journal import read_events
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "tracing")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    def path(name: str) -> str:
+        return os.path.join(work, name)
+
+    plain = cli_ok("tracing plain", "consensus", src, path("plain.mgf"),
+                   "--qc-report", path("plain.qc.json"))
+    jpath, cpath = path("run.jsonl"), path("run.trace.json")
+    traced = cli_ok("tracing traced", "consensus", src, path("out.mgf"),
+                    "--qc-report", path("qc.json"), "--journal", jpath,
+                    "--chrome-trace", cpath)
+    launches = traced["summary"]["backend"]["launches"]
+    if launches != plain["summary"]["backend"]["launches"]:
+        raise AssertionError(f"tracing: launches {launches} against "
+                             f"{plain['summary']['backend']['launches']}")
+    if (file_bytes(path("out.mgf"), path("qc.json"))
+            != file_bytes(path("plain.mgf"), path("plain.qc.json"))):
+        raise AssertionError("tracing: the traced run's bytes differ")
+    events, bad = read_events(jpath)
+    if bad or events[0]["event"] != "run_start" \
+            or events[-1]["event"] != "run_end":
+        raise AssertionError(f"tracing: journal {bad[:3]}")
+    res = {"plain_wall_s": plain["wall_s"], "wall_s": traced["wall_s"],
+           "launches": launches, "events": len(events),
+           **check_trace_journal(events, launches, "tracing CLI-2k")}
+    n_spans = res["spans"]
+    t0 = time.perf_counter()
+    cli_ok("tracing trace", "trace", jpath, "-o", path("trace.json"))
+    res["trace_s"] = time.perf_counter() - t0
+    for what, p in (("trace", path("trace.json")), ("chrome", cpath)):
+        with open(p) as fh:
+            got = sum(e["ph"] == "X" for e in json.load(fh)["traceEvents"])
+        if got != n_spans:
+            raise AssertionError(f"tracing {what}: {got} spans, the journal "
+                                 f"{n_spans}")
+        res[f"{what}_bytes"] = os.path.getsize(p)
+    t0 = time.perf_counter()
+    cli_ok("tracing stats", "stats", jpath, "--top-spans", "10")
+    res["stats_top_spans_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli_ok("tracing stats --trace", "stats", jpath, "--trace",
+           res["trace_id"])
+    res["stats_trace_s"] = time.perf_counter() - t0
+    print(f"compare tracing CLI-2k: {len(events)} events, 0 violations, one "
+          f"trace id, kernel spans {res['kernel_spans']} = dispatches = "
+          f"launches {launches}, top-level spans {res['coverage']:.4f} of "
+          f"the phase seconds, {n_spans} spans in trace and chrome files, "
+          f"bytes = untraced; stats --top-spans {res['stats_top_spans_s']} "
+          f"s, stats --trace {res['stats_trace_s']} s", flush=True)
+
+    # the tracer's cost on exec-20k, alternating, same bytes each
+    cost = []
+    ref = None
+    for i, traced_run in enumerate((False, True, False, True)):
+        flags = (("--journal", path(f"exec{i}.jsonl"), "--chrome-trace",
+                  path(f"exec{i}.trace.json")) if traced_run else ())
+        run, got = executor_run(kernels, clusters, f"trace{i}", "consensus",
+                                flags)
+        ref = ref or got
+        if got != ref:
+            raise AssertionError(f"tracing exec-20k run {i}: bytes differ")
+        if traced_run:
+            ev, bad = read_events(path(f"exec{i}.jsonl"))
+            if bad:
+                raise AssertionError(f"tracing exec-20k: journal {bad[:3]}")
+            run.update(check_trace_journal(ev, run["launches"],
+                                           "tracing exec-20k"))
+            run["trace_bytes"] = os.path.getsize(path(f"exec{i}.trace.json"))
+        run["traced"] = traced_run
+        cost.append(run)
+    res["exec"] = cost
+    res["exec_bytes"] = ref
+    # every run of the phase is a main-path run
+    res["all_launches"] = {
+        k: 2 * launches[k] + sum(r["launches"][k] for r in cost)
+        for k in launches}
+    print("tracing exec-20k walls (untraced, traced, untraced, traced; "
+          "+ the run's finish, the Chrome trace written): "
+          + ", ".join(f"{r['wall_s']} + {r['finish_s']}" for r in cost),
+          flush=True)
+    return res
+
+
+CACHE_RUNS = (
+    ("bin-mean", ("consensus", "--qc-report")),
+    ("gap-average", ("consensus", "--method", "gap-average", "--qc-report")),
+    ("medoid", ("select", "--method", "medoid", "--qc-report")),
+)
+
+
+def result_cache_phase(kernels, src: str, clusters, exec_bytes: dict
+                       ) -> dict:
+    """result-cache: on CLI-2k through ``cli.main`` in process, for
+    bin-mean and gap-average consensus and medoid select, each with QC: a
+    run without the cache, a cold run with ``--result-cache D`` (the same
+    launches, output and QC report bytes) and a warm rerun (every cluster
+    a hit, no launch and no ``dispatch`` event, the same bytes), and the
+    cache's host costs on one thread (``cache_split``).  Then exec-20k's
+    cold and warm walls (``executor_run``), its bytes those of
+    the tracing phase's untraced runs.  ``launches``: every run's (the
+    warm runs launch none)."""
+    import shutil
+
+    from specpride_tpu_torch.observability.journal import read_events
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "result_cache")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    def path(name: str) -> str:
+        return os.path.join(work, name)
+
+    res: dict = {}
+    launched = {k: 0 for k in kernels.launches}
+    for method, (command, *flags) in CACHE_RUNS:
+        tier = path(f"{method}.tier")
+        runs = {}
+        for mode in ("off", "cold", "warm"):
+            extra = ([] if mode == "off" else
+                     ["--result-cache", tier, "--journal",
+                      path(f"{method}.{mode}.jsonl")])
+            qc = path(f"{method}.{mode}.qc.json")
+            r = cli_ok(f"result-cache {method} {mode}", command, src,
+                       path(f"{method}.{mode}.mgf"), *flags, qc, *extra)
+            runs[mode] = {"wall_s": r["wall_s"],
+                          "launches": r["summary"]["backend"]["launches"],
+                          "bytes": file_bytes(path(f"{method}.{mode}.mgf"),
+                                              qc)}
+        for mode in ("cold", "warm"):
+            if runs[mode]["bytes"] != runs["off"]["bytes"]:
+                raise AssertionError(f"result-cache {method} {mode}: bytes "
+                                     "differ from the run without it")
+            events, bad = read_events(path(f"{method}.{mode}.jsonl"))
+            rc = [e for e in events if e["event"] == "result_cache"]
+            if bad or len(rc) != 1:
+                raise AssertionError(f"result-cache {method} {mode}: "
+                                     f"journal {bad[:3]}, {len(rc)} events")
+            runs[mode]["result_cache"] = rc[0]
+            runs[mode]["dispatch"] = sum(e["event"] == "dispatch"
+                                         for e in events)
+        cold, warm, off = runs["cold"], runs["warm"], runs["off"]
+        n = len(group_ids(src))
+        if (cold["launches"] != off["launches"]
+                or not any(off["launches"].values())
+                or cold["result_cache"]["misses"] != n
+                or cold["result_cache"]["populated"] != n):
+            raise AssertionError(f"result-cache {method} cold: {cold}")
+        if (any(warm["launches"].values()) or warm["dispatch"]
+                or warm["result_cache"]["hits"] != n):
+            raise AssertionError(f"result-cache {method} warm: "
+                                 f"launches {warm['launches']}, "
+                                 f"{warm['dispatch']} dispatches, "
+                                 f"{warm['result_cache']}")
+        for k in launched:
+            launched[k] += off["launches"][k] + cold["launches"][k]
+        for r in runs.values():
+            r.pop("bytes")
+        res[method] = runs
+        print(f"compare result-cache {method}: cold = off (launches "
+              f"{cold['launches']}), warm {n} hits, 0 launches, 0 dispatch "
+              f"events, bytes = off; walls off {off['wall_s']} s, cold "
+              f"{cold['wall_s']} s, warm {warm['wall_s']} s", flush=True)
+    res["launches"] = launched
+    res["split"] = cache_split(src, path("bin-mean.tier"), path("split.tier"))
+
+    tier = path("exec.tier")
+    for mode in ("cold", "warm"):
+        run, got = executor_run(kernels, clusters, f"cache_{mode}",
+                                "consensus", ("--result-cache", tier))
+        if got != exec_bytes:
+            raise AssertionError(f"result-cache exec-20k {mode}: bytes "
+                                 "differ from the run without it")
+        hits = run["counters"].get("result_cache_hits", 0)
+        if mode == "warm" and (hits != len(clusters)
+                               or any(run["launches"].values())):
+            raise AssertionError(f"result-cache exec-20k warm: {hits} hits, "
+                                 f"launches {run['launches']}")
+        if mode == "cold":
+            for k in launched:
+                launched[k] += run["launches"][k]
+        res[f"exec_{mode}"] = run
+    res["exec_tier_bytes"] = sum(
+        os.path.getsize(os.path.join(tier, f)) for f in os.listdir(tier))
+    print(f"result-cache exec-20k: cold {res['exec_cold']['wall_s']} s, "
+          f"warm {res['exec_warm']['wall_s']} s ({len(clusters)} hits), "
+          f"bytes = the run without the cache; tier "
+          f"{res['exec_tier_bytes']} bytes", flush=True)
+    return res
+
+
+def cache_split(src: str, tier_dir: str, scratch_dir: str) -> dict:
+    """The result cache's host costs on one thread, CLI-2k's clusters and
+    the bin-mean run's tier: each cluster's content digest, each entry
+    read back as a hit (``LocalTier.get``: the read, the seal check and
+    the LRU touch), each written again into an empty tier
+    (``LocalTier.put``), and one scan of that tier (``info``)."""
+    from specpride_tpu_torch.cache.digest import cluster_digest
+    from specpride_tpu_torch.cache.result_cache import LocalTier
+    from specpride_tpu_torch.data.peaks import group_into_clusters
+    from specpride_tpu_torch.io.mgf import read_mgf
+
+    parsed = group_into_clusters(read_mgf(src))
+    t0 = time.perf_counter()
+    for c in parsed:
+        cluster_digest(c)
+    digest_s = time.perf_counter() - t0
+    tier, scratch = LocalTier(tier_dir), LocalTier(scratch_dir)
+    keys = [n[:-len(".json")] for n in os.listdir(tier_dir)
+            if n.endswith(".json")]
+    t0 = time.perf_counter()
+    docs = [tier.get(k) for k in keys]
+    get_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for k, doc in zip(keys, docs):
+        scratch.put(k, doc)
+    put_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scratch.info()
+    res = {"clusters": len(parsed), "entries": len(keys),
+           "digest_ms": digest_s / len(parsed) * 1e3,
+           "get_ms": get_s / len(keys) * 1e3,
+           "put_ms": put_s / len(keys) * 1e3,
+           "scan_s": time.perf_counter() - t0}
+    print(f"result-cache split (one thread) {json.dumps(res)}", flush=True)
+    return res
+
+
+def group_ids(src: str) -> list:
+    from specpride_tpu_torch.data.peaks import group_into_clusters
+    from specpride_tpu_torch.io.mgf import read_mgf
+
+    return [c.cluster_id for c in group_into_clusters(read_mgf(src))]
+
+
+# The process-start split: a child interpreter marks each step with
+# time.perf_counter (CLOCK_MONOTONIC, one clock for the whole host, so
+# the parent's spawn time is on the same axis).  Measurement only.
+PROC_START = r"""
+import time
+t_start = time.perf_counter()
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+t_torch = time.perf_counter()
+import specpride_tpu_torch.cli
+t_cli = time.perf_counter()
+torch.cuda.init()
+torch.empty(1, device="cuda")
+torch.cuda.synchronize()
+t_cuda = time.perf_counter()
+from specpride_tpu_torch.ops import _build
+_build.load()
+t_lib = time.perf_counter()
+_build.load_host()
+t_host = time.perf_counter()
+print(json.dumps({"t_start": t_start, "t_torch": t_torch, "t_cli": t_cli,
+                  "t_cuda": t_cuda, "t_lib": t_lib, "t_host": t_host}))
+"""
+PROC_START_ROUNDS = 2
+
+
+def process_start_phase(src: str) -> dict:
+    """process start: ``PROC_START`` in a child interpreter, twice: the
+    interpreter's own start (the parent's spawn to the child's first
+    mark), ``import torch``, ``import specpride_tpu_torch.cli``, CUDA
+    init (``torch.cuda.init()`` and a first allocation), the kernel
+    library's source-hash check and ``ctypes`` load (``_build.load``), the
+    host library's (``_build.load_host``), and the exit; beside them the
+    wall of a 3-cluster ``consensus --qc-report`` CLI run."""
+    from specpride_tpu_torch.io.mgf import read_mgf, write_mgf
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "process_start")
+    os.makedirs(work, exist_ok=True)
+    rounds = []
+    for _ in range(PROC_START_ROUNDS):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", PROC_START, ROOT],
+                              capture_output=True, text=True, timeout=300)
+        t_end = time.perf_counter()
+        if proc.returncode != 0:
+            raise AssertionError(f"process start: {proc.stderr[-2000:]}")
+        m = json.loads(proc.stdout.strip().splitlines()[-1])
+        rounds.append({
+            "interpreter_s": m["t_start"] - t0,
+            "import_torch_s": m["t_torch"] - m["t_start"],
+            "import_cli_s": m["t_cli"] - m["t_torch"],
+            "cuda_init_s": m["t_cuda"] - m["t_cli"],
+            "kernel_lib_s": m["t_lib"] - m["t_cuda"],
+            "host_lib_s": m["t_host"] - m["t_lib"],
+            "exit_s": t_end - m["t_host"],
+            "wall_s": t_end - t0,
+        })
+    small = os.path.join(work, "three.mgf")
+    ids = set(group_ids(src)[:3])
+    write_mgf([s for s in read_mgf(src) if s.cluster_id in ids], small)
+    wall, summary = run_cli("consensus", small,
+                            os.path.join(work, "three.out.mgf"),
+                            "--qc-report", os.path.join(work, "three.qc"))
+    res = {"rounds": rounds, "cli_3_clusters_wall_s": wall,
+           "cli_3_clusters_elapsed_s": summary["elapsed_s"]}
+    print(f"process start {json.dumps(res)}", flush=True)
+    return res
+
+
 def main() -> int:
     start_launcher()  # before torch: see LAUNCHER
     try:
@@ -2964,7 +3376,7 @@ def smoke() -> int:
     exres = executor_phase(kernels, clusters, slice_cos, picks)
     fres = files_phase(kernels, clusters, slice_cos, sres["cos_chunks"],
                        exres.pop("bytes"))
-    del clusters, slice_reps
+    del slice_reps
     pres = path_scan_phase(kernels, sres.pop("scan_shapes"))
     cres = cli_phase()
     cli_src = os.path.join(ROOT, "build", "chip_smoke", "in.mgf")
@@ -2974,6 +3386,11 @@ def smoke() -> int:
     oomres = real_oom_phase(kernels)
     rankres = ranks_phase(cli_src)
     telres = telemetry_phase(kernels, cli_src)
+    trres = tracing_phase(kernels, cli_src, clusters)
+    cacheres = result_cache_phase(kernels, cli_src, clusters,
+                                  trres.pop("exec_bytes"))
+    del clusters
+    startres = process_start_phase(cli_src)
 
     main_case = mres["cases"][0]
     path_case = pres["cases"][0]
@@ -2992,10 +3409,11 @@ def smoke() -> int:
     bucket = {k: sum(r["launches"][k] for r in
                      [*bres.values(), *meshres.values(), rankres])
               for k in main_run}
-    # the telemetry phase's runs: the journaled main path, the gap average
-    # and evaluate
+    # the telemetry phase's runs (the journaled main path, the gap average
+    # and evaluate), and the tracing and result-cache phases' runs
     tele = {k: sum(telres[what]["launches"][k]
                    for what in ("journal", "gap", "evaluate"))
+            + trres["all_launches"][k] + cacheres["launches"][k]
             for k in main_run}
     entries = [{
         "name": "seg_mean",
@@ -3059,7 +3477,8 @@ def smoke() -> int:
                    "quarantine": quarres, "chaos": chaosres,
                    "real_oom": oomres, "bucketized": bres,
                    "mesh": meshres, "ranks": rankres,
-                   "telemetry": telres,
+                   "telemetry": telres, "tracing": trres,
+                   "result_cache": cacheres, "process_start": startres,
                    "build": info.get("seconds"),
                    "wall_s": time.perf_counter() - start}, fh, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -22,6 +22,7 @@ from specpride_tpu_torch.config import (
     MedoidConfig,
 )
 from specpride_tpu_torch.data.peaks import Cluster, Spectrum
+from specpride_tpu_torch.observability import tracing
 from specpride_tpu_torch.ops import quantize
 
 PROTON_MASS = 1.00727646677
@@ -251,6 +252,7 @@ def _best_index(members: list[Spectrum], norm_scores: dict[str, float]) -> int:
     return best_i
 
 
+@tracing.traced("method:medoid", backend="numpy")
 def run_medoid(
     clusters: list[Cluster], config: MedoidConfig = MedoidConfig()
 ) -> list[Spectrum]:
@@ -258,6 +260,7 @@ def run_medoid(
     return [c.members[medoid_index(c.members, config)] for c in clusters]
 
 
+@tracing.traced("method:best", backend="numpy")
 def run_best_spectrum(
     clusters: list[Cluster],
     scores: dict[str, float],

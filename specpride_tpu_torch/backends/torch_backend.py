@@ -77,10 +77,15 @@ from specpride_tpu_torch.data.packed import (
     pack_flat_gap,
 )
 from specpride_tpu_torch.data.peaks import Cluster, Spectrum
+from specpride_tpu_torch.observability import tracing
 from specpride_tpu_torch.observability.journal import NullJournal
 from specpride_tpu_torch.observability.registry import MetricsRegistry
 from specpride_tpu_torch.ops import binning, gap_average, quantize, similarity
-from specpride_tpu_torch.parallel.mesh import DeviceMesh, row_align
+from specpride_tpu_torch.parallel.mesh import (
+    DeviceMesh,
+    row_align,
+    shard_span,
+)
 from specpride_tpu_torch.robustness import faults
 from specpride_tpu_torch.ops.segsort import (
     searchsorted_right_i32,
@@ -92,6 +97,12 @@ PHASES = (
     "qc_pack", "qc_h2d", "qc_kernel", "qc_d2h",
 )
 PREPARED_METHODS = ("bin-mean", "gap-average", "medoid")
+# the method span of a prepared chunk: the name of its one-shot entry's
+# span (and of the JAX package's), so executor and one-shot traces read
+# alike
+_METHOD_SPANS = {"bin-mean": "method:bin_mean",
+                 "gap-average": "method:gap_average",
+                 "medoid": "method:medoid"}
 LAYOUTS = ("auto", "flat", "bucketized")
 
 
@@ -277,7 +288,11 @@ class TorchBackend:
         for bin-mean prepared with a ``cos_config``.  The ``dispatch``
         fault site."""
         faults.check("dispatch")
-        return self._run_prepared(prepared)
+        name = _METHOD_SPANS[prepared.method]
+        if prepared.method == "bin-mean" and prepared.cos_config is not None:
+            name = "method:bin_mean_with_cosines"
+        with tracing.span(name, backend="torch", prepared=True):
+            return self._run_prepared(prepared)
 
     def _run_prepared(self, prepared: PreparedChunk):
         self._merge_prepared(prepared)
@@ -343,6 +358,7 @@ class TorchBackend:
 
     # -- binned-mean consensus -------------------------------------------
 
+    @tracing.traced("method:bin_mean", backend="torch")
     def run_bin_mean(
         self, clusters: list[Cluster], config: BinMeanConfig = BinMeanConfig()
     ) -> list[Spectrum]:
@@ -447,12 +463,16 @@ class TorchBackend:
             "specpride_bytes_h2d_total", "bytes shipped host->device",
         ).inc(nbytes)
 
-    def _note_dispatch(self, kernel: str, shape_key: tuple, *, rows: int,
-                       padded_rows: int, real_elems: int | None = None,
+    def _note_dispatch(self, kernel: str, shape_key: tuple,
+                       dispatch: tuple, *, rows: int, padded_rows: int,
+                       real_elems: int | None = None,
                        padded_elems: int | None = None) -> None:
         """One device dispatch, on the dispatch lane: the per-kernel
         dispatch counters, the real and padded rows and (given) elements,
-        and the journal's ``dispatch`` event; the first dispatch of a
+        the journal's ``dispatch`` event and a ``kernel:<kernel>`` span
+        over ``dispatch``, the host's ``(t0, seconds)`` of the call (as
+        ``_timed`` returns it; asynchronous to the card, as the JAX
+        package's dispatch seconds are); the first dispatch of a
         (kernel, shape class) counts in ``specpride_compiles_total`` and
         journals ``compile``, as the JAX package's first XLA compile of a
         shape does (the port compiles nothing per shape: the counter
@@ -463,7 +483,8 @@ class TorchBackend:
         ones."""
         m = self.metrics
         key = (kernel, *shape_key)
-        if key not in self._seen_shapes:
+        is_new_shape = key not in self._seen_shapes
+        if is_new_shape:
             self._seen_shapes.add(key)
             m.counter(
                 "specpride_compiles_total",
@@ -492,6 +513,10 @@ class TorchBackend:
                     "padded_elems": int(padded_elems)}
         self.journal.emit("dispatch", kernel=kernel, rows=rows,
                           padded_rows=padded_rows, **pack)
+        tracing.current().complete(
+            f"kernel:{kernel}", *dispatch, kernel=kernel,
+            shape_key=list(shape_key), rows=rows, padded_rows=padded_rows,
+            compile=is_new_shape, **pack)
 
     def _note_device_memory(self, device: torch.device) -> None:
         """The device memory high-water gauge: the caching allocator's
@@ -507,20 +532,25 @@ class TorchBackend:
     def _timed(self, phase: str, fn, device: torch.device | None = None):
         """``fn()``, its time added to ``phase``: CUDA events around it on
         the current stream of the card (the caller has synchronized, so
-        only ``fn``'s work is timed), the host clock on the CPU."""
+        only ``fn``'s work is timed), the host clock on the CPU.  Returns
+        ``(fn's result, (t0, seconds))``: the host's call of ``fn``, its
+        dispatch on the card (the ``kernel:*`` span's interval)."""
         if (device or self.device).type != "cuda":
             t0 = time.perf_counter()
             out = fn()
-            self.phase_seconds[phase] += time.perf_counter() - t0
-            return out
+            dt = time.perf_counter() - t0
+            self.phase_seconds[phase] += dt
+            return out, (t0, dt)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
+        t0 = time.perf_counter()
         out = fn()
+        dt = time.perf_counter() - t0
         end.record()
         end.synchronize()
         self.phase_seconds[phase] += start.elapsed_time(end) / 1e3
-        return out
+        return out, (t0, dt)
 
     def _host_run_pass(self, batch, config: BinMeanConfig) -> dict:
         """Per-run host pass over one chunk's sorted composite: counts,
@@ -585,7 +615,7 @@ class TorchBackend:
         args = (self._put("h2d", tensors) if staged is None
                 else self._take_staged(staged))
         total_cap = int(aux["row_out_offsets"][-1])
-        fused = self._timed("kernel", lambda: kernel(
+        fused, dispatch = self._timed("kernel", lambda: kernel(
             *args, total_cap=total_cap, rcap=batch.n_distinct_total
         ))
         fused = self._fetch("d2h", fused)
@@ -593,7 +623,7 @@ class TorchBackend:
         rows = len(batch.source_indices)
         self._note_dispatch(
             "bin_mean_flat_intensity" if batch.codes is None
-            else "bin_mean_flat_q", (batch.precision,),
+            else "bin_mean_flat_q", (batch.precision,), dispatch,
             rows=rows, padded_rows=rows)
         return fused, aux
 
@@ -630,15 +660,17 @@ class TorchBackend:
         devices (``DeviceMesh.map_rows``, each on its own stream):
         ``host(b0, b1)``'s tensors copied to the block's device,
         ``kernel(args, b0, b1)`` timed there, its tensor fetched.  Returns
-        ``[(b0, b1, numpy result)]`` in row order.  The ``qc_`` phases
-        when ``qc``, else the consensus's."""
+        ``[(b0, b1, numpy result, dispatch interval)]`` in row order.  The
+        ``qc_`` phases when ``qc``, else the consensus's."""
         pre = "qc_" if qc else ""
 
         def run(dev, b0, b1):
-            args = self._put(pre + "h2d", host(b0, b1), dev)
-            res = self._timed(pre + "kernel", lambda: kernel(args, b0, b1),
-                              dev)
-            return b0, b1, self._fetch(pre + "d2h", res)
+            tensors = host(b0, b1)
+            with shard_span(tensors):
+                args = self._put(pre + "h2d", tensors, dev)
+            res, dispatch = self._timed(
+                pre + "kernel", lambda: kernel(args, b0, b1), dev)
+            return b0, b1, self._fetch(pre + "d2h", res), dispatch
 
         return self._rows.map_rows(lo, hi, run, align)
 
@@ -697,10 +729,10 @@ class TorchBackend:
                     total_cap=int(distinct[b0:b1].sum()))
 
             for lo, hi in self._chunk_rows(b, k):
-                for b0, b1, fused in self._map_rows(lo, hi, host, kernel,
-                                                    row_align(k)):
+                for b0, b1, fused, dispatch in self._map_rows(
+                        lo, hi, host, kernel, row_align(k)):
                     self._count_block("bin_mean_bucketized",
-                                      batch.n_valid[b0:b1], k)
+                                      batch.n_valid[b0:b1], k, dispatch)
                     t0 = time.perf_counter()
                     cap = int(distinct[b0:b1].sum())
                     for ci, r_mz, r_int in _iter_compacted(fused, cap,
@@ -723,15 +755,15 @@ class TorchBackend:
                     _add_time(self.phase_seconds, "finalize", t0)
         return out
 
-    def _count_block(self, kernel: str, n_valid: np.ndarray, k: int
-                     ) -> None:
+    def _count_block(self, kernel: str, n_valid: np.ndarray, k: int,
+                     dispatch: tuple) -> None:
         """One bucketized consensus dispatch: a chunk, its real and padded
         peak slots."""
         self.chunks += 1
         real, b = int(n_valid.sum()), int(n_valid.size)
         self.bucket_elements["real"] += real
         self.bucket_elements["padded"] += b * k
-        self._note_dispatch(kernel, (k, self.precision), rows=b,
+        self._note_dispatch(kernel, (k, self.precision), dispatch, rows=b,
                             padded_rows=b, real_elems=real,
                             padded_elems=b * k)
 
@@ -776,10 +808,10 @@ class TorchBackend:
                     total_cap=int(batch.n_groups[b0:b1].sum()))
 
             for lo, hi in self._chunk_rows(b, k):
-                for b0, b1, fused in self._map_rows(lo, hi, host, kernel,
-                                                    row_align(k)):
+                for b0, b1, fused, dispatch in self._map_rows(
+                        lo, hi, host, kernel, row_align(k)):
                     self._count_block("gap_average_compact",
-                                      batch.n_valid[b0:b1], k)
+                                      batch.n_valid[b0:b1], k, dispatch)
                     t0 = time.perf_counter()
                     cap = int(batch.n_groups[b0:b1].sum())
                     for ci, r_mz, r_int in _iter_compacted(fused, cap,
@@ -800,6 +832,7 @@ class TorchBackend:
 
     # -- gap-average consensus --------------------------------------------
 
+    @tracing.traced("method:gap_average", backend="torch")
     def run_gap_average(
         self,
         clusters: list[Cluster],
@@ -838,7 +871,7 @@ class TorchBackend:
         for batch, host in prepared.data["batches"]:
             total = int(batch.n_groups.sum())
             args = self._put("h2d", host)
-            fused = self._timed("kernel", lambda: (
+            fused, dispatch = self._timed("kernel", lambda: (
                 gap_average.gap_average_groups(
                     *args, dyn_range=config.dyn_range, total_cap=total
                 )
@@ -846,7 +879,7 @@ class TorchBackend:
             fused = self._fetch("d2h", fused)
             self.chunks += 1
             self._note_dispatch("gap_average_compact", (batch.precision,),
-                                rows=len(batch.source_indices),
+                                dispatch, rows=len(batch.source_indices),
                                 padded_rows=len(batch.source_indices))
 
             t0 = time.perf_counter()
@@ -920,7 +953,7 @@ class TorchBackend:
             for lo in range(0, batch.n_clusters, chunk):
                 hi = min(lo + chunk, batch.n_clusters)
                 # integer counts: any cut of the rows gives the same bytes
-                for b0, b1, shared in self._map_rows(
+                for b0, b1, shared, dispatch in self._map_rows(
                     lo, hi,
                     lambda b0, b1: [torch.from_numpy(sbins[b0:b1]),
                                     torch.from_numpy(smm[b0:b1])],
@@ -932,7 +965,7 @@ class TorchBackend:
                     self.medoid_encodings[encoding] += 1
                     self._note_dispatch("shared_bins_packed",
                                         (sbins.shape[1], m, encoding),
-                                        rows=b1 - b0, padded_rows=b1 - b0)
+                                        dispatch, rows=b1 - b0, padded_rows=b1 - b0)
                     t0 = time.perf_counter()
                     picks = similarity.medoid_finalize(
                         shared, batch.n_peaks[b0:b1],
@@ -974,6 +1007,7 @@ class TorchBackend:
                 return b16, smm.astype(np.int16), runs, "i16"
         return sbins, smm, runs, "i32"
 
+    @tracing.traced("method:medoid", backend="torch")
     def run_medoid(
         self, clusters: list[Cluster], config: MedoidConfig = MedoidConfig()
     ) -> list[Spectrum]:
@@ -1024,6 +1058,7 @@ class TorchBackend:
 
     # -- QC cosine -------------------------------------------------------
 
+    @tracing.traced("method:bin_mean_with_cosines", backend="torch")
     def run_bin_mean_with_cosines(
         self,
         clusters: list[Cluster],
@@ -1035,6 +1070,7 @@ class TorchBackend:
         the consensus pack's ``SpectraTable``."""
         return self._one_shot("bin-mean", clusters, bin_config, cos_config)
 
+    @tracing.traced("method:cosine", backend="torch")
     def average_cosines(
         self,
         representatives: list[Spectrum],
@@ -1123,7 +1159,7 @@ class TorchBackend:
             chunk = max(1, self.max_grid_elements // max((k + pr) * 6, 1))
             for lo in range(0, b, chunk):
                 hi = min(lo + chunk, b)
-                for b0, b1, cos in self._map_rows(
+                for b0, b1, cos, dispatch in self._map_rows(
                     lo, hi,
                     lambda b0, b1: [torch.from_numpy(a[b0:b1])
                                     for a in arrays],
@@ -1133,7 +1169,7 @@ class TorchBackend:
                 ):
                     self.cos_chunks += 1
                     self._note_dispatch("cosine_packed", (k, pr, m),
-                                        rows=b1 - b0, padded_rows=b1 - b0)
+                                        dispatch, rows=b1 - b0, padded_rows=b1 - b0)
                     nm = np.maximum(batch.n_members[b0:b1], 1)
                     mean = cos.astype(np.float64).sum(axis=1) / nm
                     for ci in range(b1 - b0):
@@ -1336,12 +1372,12 @@ class TorchBackend:
             ph["qc_pack"] += time.perf_counter() - t0
 
             args = self._put("qc_h2d", [torch.from_numpy(a) for a in arrays])
-            mean = self._timed("qc_kernel", lambda: similarity.cosine_flat(
-                *args, shift=prep["shift"]
-            ))
+            mean, dispatch = self._timed(
+                "qc_kernel",
+                lambda: similarity.cosine_flat(*args, shift=prep["shift"]))
 
             out[lo:hi] = self._fetch("qc_d2h", mean)
             self.cos_chunks += 1
-            self._note_dispatch("cosine_flat", (), rows=hi - lo,
+            self._note_dispatch("cosine_flat", (), dispatch, rows=hi - lo,
                                 padded_rows=hi - lo)
         return out

@@ -14,7 +14,10 @@
         [--checkpoint BASE] [--qc-report QC.json] [--remove-parts]
     python -m specpride_tpu_torch plot CLUSTERED CLUSTER_ID OUT_PREFIX \
         [--consensus REPS.mgf | --peptide PEPTIDE]
-    python -m specpride_tpu_torch stats JOURNAL [JOURNAL ...] [--json F]
+    python -m specpride_tpu_torch stats JOURNAL [JOURNAL ...] [--json F] \
+        [--top-spans N] [--trace TRACE_ID]
+    python -m specpride_tpu_torch trace JOURNAL [JOURNAL ...] [-o T.json] \
+        [--trace-id TRACE_ID | --job JOBID]
 
 ``consensus`` and ``select`` read the clustered MGF (or, with
 ``--clusters``, an mzML file and a MaRaCluster TSV) and group it into
@@ -61,10 +64,18 @@ is read and written through the host library (``io/native.py``).
 Telemetry, in the JAX package's formats: ``--journal FILE`` appends the
 run's events (``run_start``, chunk heartbeats, ``compile`` / ``dispatch``,
 ``checkpoint_write``, ``resume``, the robustness events, ``precision``,
-``run_end``) as JSON lines, which ``stats`` summarizes; ``--metrics-out
-FILE`` writes the run's metrics as a Prometheus textfile; ``--trace-dir
-DIR`` captures the run's compute with ``torch.profiler`` as a Chrome
-trace; the global ``-v`` and ``--log-json`` set the logging.
+the spans, ``run_end``) as JSON lines, each with the run's ``trace_id``,
+which ``stats`` summarizes (``--top-spans``, ``--trace``) and ``trace``
+turns into a Chrome trace; ``--chrome-trace FILE`` writes the run's spans
+(parse, pack lanes, chunks, method and ``kernel:*`` dispatches, writes)
+as a Chrome trace directly; ``--metrics-out FILE`` writes the run's
+metrics as a Prometheus textfile; ``--trace-dir DIR`` captures the run's
+compute with ``torch.profiler`` as a Chrome trace; the global ``-v`` and
+``--log-json`` set the logging.  ``--result-cache DIR[:MB]`` keeps each
+computed representative (and its QC cosine) under a digest of its
+cluster and the run's method, config and precision; a rerun replays the
+stored ones with the bytes of a run without it, and computes only the
+clusters it has not seen.
 """
 
 from __future__ import annotations
@@ -107,9 +118,11 @@ from specpride_tpu_torch.io.mgf import (
     write_mgf,
 )
 from specpride_tpu_torch.io.mzml import read_mzml_scans
+from specpride_tpu_torch.observability import tracing
 from specpride_tpu_torch.observability.journal import (
     NullJournal,
     emit_clock_anchor,
+    expand_parts,
     open_journal,
 )
 from specpride_tpu_torch.observability.registry import (
@@ -121,9 +134,11 @@ from specpride_tpu_torch.observability.stats import (
     configure_logging,
     device_trace,
 )
+from specpride_tpu_torch.observability.tracing import TraceContext, Tracer
 from specpride_tpu_torch.ops import kernels, quantize
 from specpride_tpu_torch.parallel.mesh import (
     DeviceMesh,
+    broadcast_from_rank0,
     initialize_distributed,
     shutdown_distributed,
 )
@@ -284,6 +299,43 @@ def build_parser() -> argparse.ArgumentParser:
                      "shards merges them in rank order")
     pst.add_argument("--json", metavar="FILE",
                      help="also write the machine-readable aggregate here")
+    pst.add_argument(
+        "--top-spans", type=int, default=0, metavar="N",
+        help="also render the N slowest tracing spans (self time, count, "
+        "p50/p99) from the journals' span events",
+    )
+    pst.add_argument(
+        "--trace", metavar="HEX32", default=None,
+        help="render the critical path of one causal trace (by trace_id) "
+        "across the given journal shards: per-hop exclusive seconds on "
+        "one clock-anchored axis",
+    )
+
+    pt = sub.add_parser(
+        "trace",
+        help="reconstruct a Chrome trace-event JSON from run journals "
+        "(multi-host .part<rank> shards merge onto one timeline, pid = "
+        "rank; view in Perfetto or chrome://tracing)",
+    )
+    pt.add_argument(
+        "journals", nargs="+",
+        help="journal file(s) or base paths from --journal runs (a base "
+        "path expands to its .part<rank> shards)",
+    )
+    pt.add_argument("-o", "--out", default="trace.json",
+                    help="trace-event JSON output path (default trace.json)")
+    pt.add_argument(
+        "--job", type=int, default=None, metavar="JOBID",
+        help="causal mode: the one trace of this served job (resolved "
+        "through a serving daemon journal's job events), every shard's "
+        "spans aligned on one wall axis by the clock anchors, with flow "
+        "arrows across process tracks",
+    )
+    pt.add_argument(
+        "--trace-id", default=None, metavar="HEX32",
+        help="causal mode with an explicit trace id (e.g. a journal "
+        "event's trace_id)",
+    )
     return ap
 
 
@@ -435,6 +487,24 @@ def _add_common(p: argparse.ArgumentParser, what: str) -> None:
         "(counters and gauges; node_exporter textfile format)",
     )
     _add_trace_dir(p, "the compute")
+    p.add_argument(
+        "--chrome-trace", metavar="FILE",
+        help="export the run's span timeline (parse, pack lanes, chunks, "
+        "method and per-kernel dispatch, write) as Chrome trace-event "
+        "JSON, loadable in Perfetto or chrome://tracing; multi-host runs "
+        "write one <FILE>.part<rank> per rank (`trace` over the --journal "
+        "shards merges them onto one timeline)",
+    )
+    p.add_argument(
+        "--result-cache", metavar="DIR[:MB]",
+        help="content-addressed result cache: per-cluster results keyed by "
+        "(cluster content digest, method, config digest, precision, schema "
+        "rev) in a bounded local LRU directory (default cap 256 MB; DIR:MB "
+        "overrides).  Hits replay the stored representative and QC cosine, "
+        "so the output and QC report bytes equal a run without the cache; "
+        "a corrupt entry is quarantined and recomputed (bin-mean, "
+        "gap-average and medoid)",
+    )
 
 
 def _host_cores() -> int:
@@ -508,6 +578,16 @@ def precision_gate(backend: TorchBackend, method: str, clusters, config,
     if precision == "f32" or method == "best":
         return None
     sample = [c for c in clusters[:PRECISION_GATE_SAMPLE] if c.n_members]
+    with tracing.span("precision_gate", n_clusters=len(sample),
+                      precision=precision):
+        return _gate(backend, method, sample, config, cos_config, journal)
+
+
+def _gate(backend: TorchBackend, method: str, sample, config,
+          cos_config: CosineConfig, journal) -> dict:
+    """``precision_gate``'s comparison of the run's precision against f32
+    on ``sample``."""
+    precision = backend.precision
     tol = quantize.precision_tolerance(method, precision)
 
     def twin(prec: str):
@@ -656,13 +736,15 @@ class _ChunkItem:
     inline when serial)."""
 
     __slots__ = ("index", "idxs", "part", "prepared", "pack_stats", "error",
-                 "wait_s")
+                 "wait_s", "cached")
 
     def __init__(self, index: int, idxs: list[int]):
         self.index = index
         self.idxs = idxs
         self.part = None  # the chunk's clusters (None if packing died)
         self.prepared = None  # the backend's PreparedChunk (None: one-shot)
+        # the result cache's consult of the chunk (None: not consulted)
+        self.cached = None
         self.pack_stats = None  # the pack lane's RunStats, merged at handoff
         self.error = None  # the exception packing raised
         self.wait_s = 0.0  # the dispatch lane's wait for this item
@@ -677,15 +759,18 @@ def _serial_chunks(clusters, worklist):
 
 
 def _pack_chunk(clusters, chunk_index: int, idxs: list, prepare,
-                method: str, config, cos_config, harness: Harness):
-    """THE pack stage, the one copy every pack worker runs: the chunk's
-    clusters (on a streamed input, the MGF window parse) and the backend's
-    host pack (``prepare_chunk``) into a private RunStats, retried whole
-    at ``pack`` on a transient error (both halves are pure functions of
-    the chunk).  The ``parse`` site fires before the clusters are made,
-    ``pack`` before the backend's pack, ``prepare`` inside it.  An error
-    that outlives the retries is kept on the item for the dispatch lane's
-    ``--on-error`` policy.  Returns ``(item, busy seconds)``."""
+                method: str, config, cos_config, harness: Harness,
+                span_name: str, rc=None, **span_labels):
+    """THE pack stage, the one copy every pack worker runs, under a
+    ``span_name`` span: the chunk's clusters (on a streamed input, the MGF
+    window parse), the result cache's consult (``rc``), and the backend's
+    host pack (``prepare_chunk``) of the clusters it missed into a private
+    RunStats, retried whole at ``pack`` on a transient error (each step is
+    a pure function of the chunk).  The ``parse`` site fires before the
+    clusters are made, ``pack`` before the backend's pack, ``prepare``
+    inside it.  An error that outlives the retries is kept on the item for
+    the dispatch lane's ``--on-error`` policy.  Returns ``(item, busy
+    seconds)``."""
     item = _ChunkItem(chunk_index, idxs)
     item.pack_stats = RunStats()
     t0 = time.perf_counter()
@@ -693,12 +778,22 @@ def _pack_chunk(clusters, chunk_index: int, idxs: list, prepare,
     def _stage() -> None:
         # the watchdog section covers one attempt: the backoff between
         # attempts is no stall
-        with harness.section("pack"):
+        with harness.section("pack"), tracing.span(
+                span_name, chunk_index=chunk_index, n_clusters=len(idxs),
+                **span_labels):
             faults.check("parse")
             item.part = [clusters[i] for i in idxs]
             faults.check("pack")
-            if prepare is not None and item.part:
-                item.prepared = prepare(method, item.part, config,
+            if rc is not None and item.cached is None:
+                # the consult rides the pack lane, so digesting overlaps
+                # the dispatch lane; a retry keeps the first verdict
+                item.cached = rc.consult(item.part)
+            to_pack = item.part
+            if item.cached:
+                hit = rc.hit_ids(item.cached)
+                to_pack = [c for c in item.part if c.cluster_id not in hit]
+            if prepare is not None and to_pack:
+                item.prepared = prepare(method, to_pack, config,
                                         cos_config=cos_config,
                                         phases=item.pack_stats.phases)
 
@@ -746,9 +841,14 @@ def _pooled_chunks(clusters, worklist, backend, method, args, prefetch: int,
     ``max(prefetch, N)`` chunks are out
     (packing or buffered) at once.  Worker i's busy seconds go to
     ``lanes["pack_busy_s"][i]``; the dispatch lane's waits for chunk s
-    while later chunks sat finished go to ``lanes["reorder_stall_s"]``."""
+    while later chunks sat finished go to ``lanes["reorder_stall_s"]``.
+    Worker i packs under ``pipeline:pack[i]`` spans (``pipeline:pack``
+    for the one packer of ``N = 0``), and a wait of the dispatch lane of
+    a millisecond or more is a ``pipeline:idle`` span."""
     prepare, config, cos_config = _lane_inputs(backend, method, args,
                                                want_qc)
+    rc = getattr(args, "_result_cache", None)
+    single = n_workers == 0
     n_workers = max(1, min(n_workers, len(worklist)))
     if isinstance(clusters, StreamedClusters):
         # one window slot per worker plus the dispatch lane's walk again
@@ -763,8 +863,14 @@ def _pooled_chunks(clusters, worklist, backend, method, args, prefetch: int,
     state = {"next_task": 0, "exited": 0}
     busy = [0.0] * n_workers
     lanes["pack_busy_s"] = busy
+    # the lanes adopt the run's tracer, so their spans reach its journal
+    # whatever scope installed it
+    tracer = tracing.current()
 
     def _worker(wid: int) -> None:
+        tracing.set_thread_current(tracer)
+        span_name, labels = (("pipeline:pack", {}) if single
+                             else (f"pipeline:pack[{wid}]", {"worker": wid}))
         claimed: int | None = None  # claimed but not yet delivered
         try:
             while True:
@@ -780,7 +886,8 @@ def _pooled_chunks(clusters, worklist, backend, method, args, prefetch: int,
                 chunk_index, idxs = worklist[seq]
                 item, elapsed = _pack_chunk(clusters, chunk_index, idxs,
                                             prepare, method, config,
-                                            cos_config, harness)
+                                            cos_config, harness, span_name,
+                                            rc=rc, **labels)
                 busy[wid] += elapsed
                 with cond:
                     buf[seq] = item
@@ -822,6 +929,10 @@ def _pooled_chunks(clusters, worklist, backend, method, args, prefetch: int,
                         stall += time.perf_counter() - seg0
                 item = buf.pop(seq)
             item.wait_s = time.perf_counter() - t_wait
+            if item.wait_s >= 1e-3:
+                tracing.current().complete("pipeline:idle", t_wait,
+                                           item.wait_s,
+                                           chunk_index=item.index)
             admit.release()
             yield item
     finally:
@@ -843,9 +954,11 @@ def _h2d_staged_chunks(items, backend: TorchBackend, slots: int,
     tensors, a side stream, its own event) into a queue of ``slots``, so
     chunk i+1's copy runs while chunk i dispatches.  A staging failure
     lands on ``item.error``; an upstream failure is raised on the dispatch
-    lane."""
+    lane.  Each copy is a ``pipeline:h2d`` span, a wait of the dispatch
+    lane of a millisecond or more a ``pipeline:idle`` span."""
     q: queue.Queue = queue.Queue(maxsize=max(slots, 1))
     stop = threading.Event()
+    tracer = tracing.current()
     busy, staged_bytes, upstream_wait = [0.0], [0], [0.0]
     lanes["h2d_busy_s"] = busy
     lanes["h2d_bytes"] = staged_bytes
@@ -853,6 +966,7 @@ def _h2d_staged_chunks(items, backend: TorchBackend, slots: int,
     upstream_error: list = [None]
 
     def _stager() -> None:
+        tracing.set_thread_current(tracer)
         it = iter(items)
         try:
             while True:
@@ -873,7 +987,10 @@ def _h2d_staged_chunks(items, backend: TorchBackend, slots: int,
                         item.prepared):
                     t0 = time.perf_counter()
                     try:
-                        staged_bytes[0] += backend.stage_chunk(item.prepared)
+                        with tracing.span("pipeline:h2d",
+                                          chunk_index=item.index):
+                            staged_bytes[0] += backend.stage_chunk(
+                                item.prepared)
                     except Exception as e:  # noqa: BLE001 - to dispatch lane
                         item.error = e
                     busy[0] += time.perf_counter() - t0
@@ -893,6 +1010,9 @@ def _h2d_staged_chunks(items, backend: TorchBackend, slots: int,
                     raise upstream_error[0]
                 break
             item.wait_s = time.perf_counter() - t0
+            if item.wait_s >= 1e-3:
+                tracing.current().complete("pipeline:idle", t0, item.wait_s,
+                                           chunk_index=item.index)
             yield item
     finally:
         stop.set()
@@ -914,15 +1034,19 @@ class _CommitItem:
     everything the commit needs taken on the dispatch lane."""
 
     __slots__ = ("index", "reps", "part_ids", "qc_rows", "failed",
-                 "chunk_t0")
+                 "chunk_t0", "populate")
 
-    def __init__(self, index, reps, part_ids, qc_rows, failed, chunk_t0):
+    def __init__(self, index, reps, part_ids, qc_rows, failed, chunk_t0,
+                 populate=None):
         self.index = index
         self.reps = reps
         self.part_ids = part_ids
         self.qc_rows = qc_rows  # the chunk's QC rows (or None)
         self.failed = failed  # sorted failures at submit time (or None)
         self.chunk_t0 = chunk_t0  # perf_counter at the chunk's start
+        # the result cache's entries to commit after the append lands:
+        # (key, rep, cluster, cosine) per cluster computed this run
+        self.populate = populate
 
 
 def _commit_chunk(item: _CommitItem, args, stats: RunStats, qc: list,
@@ -937,7 +1061,9 @@ def _commit_chunk(item: _CommitItem, args, stats: RunStats, qc: list,
     the two leaves output past the manifest, which a resume truncates.
     The append retries at ``write``, each retry after truncating a
     partial append back to the offset before it (so no record is written
-    twice); the manifest replace retries at ``checkpoint_write``."""
+    twice); the manifest replace retries at ``checkpoint_write``.  The
+    result cache's entries of the chunk are committed last, so a kill
+    never leaves an entry for output a resume truncates away."""
     if item.qc_rows:
         qc.extend(item.qc_rows)
     pre_bytes = (os.path.getsize(args.output)
@@ -976,15 +1102,20 @@ def _commit_chunk(item: _CommitItem, args, stats: RunStats, qc: list,
         def _replace_manifest() -> None:
             with harness.section("write"):
                 faults.check("checkpoint_write")
-                tmp = args.checkpoint + ".tmp"
-                with open(tmp, "w") as fh:
-                    json.dump(manifest_payload(done, output_bytes, integrity,
-                                               failed=item.failed), fh)
-                os.replace(tmp, args.checkpoint)
+                with tracing.span("checkpoint_write", n_done=len(done)):
+                    tmp = args.checkpoint + ".tmp"
+                    with open(tmp, "w") as fh:
+                        json.dump(manifest_payload(done, output_bytes,
+                                                   integrity,
+                                                   failed=item.failed), fh)
+                    os.replace(tmp, args.checkpoint)
 
         harness.retry_call("checkpoint_write", _replace_manifest)
         journal.emit("checkpoint_write", n_done=len(done),
                      output_bytes=output_bytes)
+    rc = getattr(args, "_result_cache", None)
+    if rc is not None and item.populate:
+        rc.populate(item.populate)  # contains its own failures
 
 
 class _Committer:
@@ -1012,6 +1143,7 @@ class _Committer:
         self.error: BaseException | None = None
         self._merged = False
         self._q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
+        self._tracer = tracing.current()
         self._thread = threading.Thread(target=self._run,
                                         name="specpride-committer",
                                         daemon=True)
@@ -1023,6 +1155,7 @@ class _Committer:
         self._q.put(item)
 
     def _run(self) -> None:
+        tracing.set_thread_current(self._tracer)
         while True:
             item = self._q.get()
             if item is None:
@@ -1031,9 +1164,12 @@ class _Committer:
                 continue  # drain; submit() re-raises
             t0 = time.perf_counter()
             try:
-                _commit_chunk(item, self._args, self.stats, self._qc,
-                              self._done, self._first_write,
-                              self._integrity, self._harness, self._journal)
+                with tracing.span("pipeline:write", chunk_index=item.index,
+                                  n_clusters=len(item.part_ids)):
+                    _commit_chunk(item, self._args, self.stats, self._qc,
+                                  self._done, self._first_write,
+                                  self._integrity, self._harness,
+                                  self._journal)
                 self._first_write = False
             except BaseException as e:  # noqa: BLE001 - re-raised on submit
                 self.error = e
@@ -1119,6 +1255,140 @@ def _dispatch_chunk(backend: TorchBackend, method: str, item: _ChunkItem,
 
     with stats.phase("compute"):
         return _run_parts(part, item.prepared)
+
+
+def _run_chunk(backend: TorchBackend, method: str, item: _ChunkItem,
+               clusters, args, stats: RunStats, scores, qc: list | None,
+               failed: dict, qc_failed: dict, harness: Harness,
+               journal) -> _CommitItem:
+    """One chunk on the dispatch lane, up to its commit: the result
+    cache's consult (unless a pack lane made it), the dispatch of the
+    clusters it missed (``_dispatch_chunk``; with ``--on-error skip`` a
+    failed chunk again cluster by cluster, the failures recorded in
+    ``failed``), the QC of every non-fused method, and the hits replayed
+    at their input positions.  Returns the chunk's ``_CommitItem``."""
+    rc = getattr(args, "_result_cache", None)
+    part = item.part
+    chunk_t0 = time.perf_counter()
+    # the chunk's QC rows reach the shared list only at commit
+    chunk_qc: list | None = [] if qc is not None else None
+    if (rc is not None and item.cached is None and item.error is None
+            and part is not None):
+        item.cached = rc.consult(part)
+    hit_ids = rc.hit_ids(item.cached) if rc is not None else set()
+    miss_part = ([c for c in part if c.cluster_id not in hit_ids]
+                 if part is not None and hit_ids else part)
+    try:
+        if item.error is not None:
+            raise item.error
+        reps = (_dispatch_chunk(backend, method, item, miss_part, args,
+                                stats, scores, chunk_qc, harness)
+                if miss_part else [])  # every cluster a cache hit
+    except (ValueError, RuntimeError, OSError) as e:
+        # --on-error skip: retry the chunk cluster by cluster, so only the
+        # offending clusters are dropped, and record them (OSError here
+        # includes an I/O fault or a lane hang that outlived its retries);
+        # a sticky CUDA error always aborts: the context is dead, and
+        # every cluster would fail
+        if args.on_error != "skip" or errors.is_sticky(e):
+            raise
+        if part is None:
+            part = miss_part = [clusters[i] for i in item.idxs]
+        logger.warning("chunk of %d clusters failed (%s); retrying one by "
+                       "one", len(miss_part), e)
+        if chunk_qc is not None:
+            chunk_qc.clear()  # rows of halves that got through
+        reps, bad = [], []
+        with stats.phase("compute"):
+            for c in miss_part:
+                try:
+                    reps.extend(_run_method(
+                        backend, method, [c], method_config(args), scores,
+                        chunk_qc, _cosine_config(args)))
+                except (ValueError, RuntimeError, OSError) as ce:
+                    logger.warning("skipping cluster %s: %s", c.cluster_id,
+                                   ce)
+                    bad.append(c.cluster_id)
+        failed.update(dict.fromkeys(bad))
+        stats.count("clusters_failed", len(bad))
+    if chunk_qc is not None and not chunk_qc and reps:
+        # the QC of every non-fused method, on the dispatch lane: reps
+        # align to clusters by id (best drops the scoreless); under
+        # --on-error skip a QC failure omits the chunk's rows and keeps
+        # its representatives, else it aborts the run
+        try:
+            by_id = {r.cluster_id: r for r in reps}
+            kept = [c for c in miss_part if c.cluster_id in by_id]
+
+            def _qc_pass(kept=kept, by_id=by_id):
+                with stats.phase("compute"), tracing.span(
+                        "qc", n_clusters=len(kept)):
+                    faults.check("qc")
+                    return backend.average_cosines(
+                        [by_id[c.cluster_id] for c in kept], kept,
+                        _cosine_config(args))
+
+            # a transient QC failure retries like any lane; what outlives
+            # the retries is handled below
+            _append_qc_rows(chunk_qc, kept,
+                            harness.retry_call("qc", _qc_pass))
+        except (ValueError, RuntimeError, OSError) as e:
+            if args.on_error != "skip" or errors.is_sticky(e):
+                raise
+            logger.warning("QC cosines failed for a %d-cluster chunk (%s); "
+                           "their rows are omitted from the report",
+                           len(miss_part), e)
+            qc_failed.update(dict.fromkeys(c.cluster_id for c in miss_part))
+            journal.emit("qc_failure",
+                         cluster_ids=[c.cluster_id for c in miss_part],
+                         error=str(e))
+    populate = None
+    if rc is not None and part is not None:
+        reps, populate = _merge_cache_hits(rc, part, miss_part, item.cached,
+                                           hit_ids, reps, chunk_qc)
+    return _CommitItem(item.index, reps, [c.cluster_id for c in part],
+                       chunk_qc, sorted(failed) if failed else None,
+                       chunk_t0, populate)
+
+
+def _merge_cache_hits(rc, part, miss_part, cached, hit_ids, reps,
+                      chunk_qc):
+    """The result cache's side of a chunk: the entries to commit for the
+    clusters computed this run (a QC run's only with their cosine, so a
+    later hit always replays a QC row), and the chunk's representatives
+    with the hits' stored ones at their input positions and the hits' QC
+    rows appended (the report is sorted by input order when written, so
+    the bytes are those of a run without the cache).  Returns ``(reps,
+    populate)``."""
+    qc_by_id = ({row["cluster_id"]: row["avg_cosine"] for row in chunk_qc}
+                if chunk_qc is not None else None)
+    got = {r.cluster_id: r for r in reps}
+    populate = []
+    for c in miss_part:
+        r = got.get(c.cluster_id)
+        if r is None:
+            continue  # dropped by the method or skipped
+        cos = None
+        if qc_by_id is not None:
+            cos = qc_by_id.get(c.cluster_id)
+            if cos is None:
+                continue  # the QC failed: no partial entry
+        key = (cached or {}).get(c.cluster_id)
+        populate.append((key[2] if key is not None else rc.key_of(c),
+                         r, c, cos))
+    if not hit_ids:
+        return reps, populate
+    reps = [cached[c.cluster_id][0] if c.cluster_id in hit_ids
+            else got[c.cluster_id]
+            for c in part if c.cluster_id in hit_ids or c.cluster_id in got]
+    if chunk_qc is not None:
+        for c in part:
+            cos = cached[c.cluster_id][1] if c.cluster_id in hit_ids else None
+            if cos is not None:
+                chunk_qc.append({"cluster_id": c.cluster_id,
+                                 "n_members": c.n_members,
+                                 "avg_cosine": float(cos)})
+    return reps, populate
 
 
 def _read_manifest(args, integ: OutputIntegrity, harness: Harness,
@@ -1304,8 +1574,8 @@ def _checkpointed_run_impl(backend: TorchBackend, method: str, clusters,
     if pipelined:
         # --pack-workers 0 (the JAX package's single packer) is one worker
         items = _pooled_chunks(clusters, worklist, backend, method, args,
-                               prefetch, qc is not None, max(n_workers, 1),
-                               lanes, harness)
+                               prefetch, qc is not None, n_workers, lanes,
+                               harness)
     else:
         items = _serial_chunks(clusters, worklist)
     h2d_slots = max(int(args.h2d_buffer or 0), 0)
@@ -1324,84 +1594,20 @@ def _checkpointed_run_impl(backend: TorchBackend, method: str, clusters,
     loop_t0 = time.perf_counter()
     try:
         for item in items:
-            part = item.part
             idle_s += item.wait_s
             if item.pack_stats is not None:
                 # pack-lane time lands in `pack`, not in the dispatch
                 # lane's `compute`
                 stats.merge(item.pack_stats)
-            chunk_t0 = time.perf_counter()
             journal.emit("chunk_start", chunk_index=item.index,
                          n_clusters=len(item.idxs))
-            # the chunk's QC rows reach the shared list only at commit
-            chunk_qc: list | None = [] if qc is not None else None
-            try:
-                if item.error is not None:
-                    raise item.error
-                reps = _dispatch_chunk(backend, method, item, part, args,
-                                       stats, scores, chunk_qc, harness)
-            except (ValueError, RuntimeError, OSError) as e:
-                # --on-error skip: retry the chunk cluster by cluster, so
-                # only the offending clusters are dropped, and record them
-                # (OSError here includes an I/O fault or a lane hang that
-                # outlived its retries); a sticky CUDA error always aborts:
-                # the context is dead, and every cluster would fail
-                if args.on_error != "skip" or errors.is_sticky(e):
-                    raise
-                if part is None:
-                    part = [clusters[i] for i in item.idxs]
-                logger.warning("chunk of %d clusters failed (%s); retrying "
-                               "one by one", len(part), e)
-                if chunk_qc is not None:
-                    chunk_qc.clear()  # rows of halves that got through
-                reps, bad = [], []
-                with stats.phase("compute"):
-                    for c in part:
-                        try:
-                            reps.extend(_run_method(
-                                backend, method, [c], method_config(args),
-                                scores, chunk_qc, _cosine_config(args)))
-                        except (ValueError, RuntimeError, OSError) as ce:
-                            logger.warning("skipping cluster %s: %s",
-                                           c.cluster_id, ce)
-                            bad.append(c.cluster_id)
-                failed.update(dict.fromkeys(bad))
-                stats.count("clusters_failed", len(bad))
-            if chunk_qc is not None and not chunk_qc and reps:
-                # the QC of every non-fused method, on the dispatch lane:
-                # reps align to clusters by id (best drops the scoreless);
-                # under --on-error skip a QC failure omits the chunk's rows
-                # and keeps its representatives, else it aborts the run
-                try:
-                    by_id = {r.cluster_id: r for r in reps}
-                    kept = [c for c in part if c.cluster_id in by_id]
-
-                    def _qc_pass(kept=kept, by_id=by_id):
-                        with stats.phase("compute"):
-                            faults.check("qc")
-                            return backend.average_cosines(
-                                [by_id[c.cluster_id] for c in kept], kept,
-                                _cosine_config(args))
-
-                    # a transient QC failure retries like any lane; what
-                    # outlives the retries is handled below
-                    _append_qc_rows(chunk_qc, kept,
-                                    harness.retry_call("qc", _qc_pass))
-                except (ValueError, RuntimeError, OSError) as e:
-                    if args.on_error != "skip" or errors.is_sticky(e):
-                        raise
-                    logger.warning("QC cosines failed for a %d-cluster chunk "
-                                   "(%s); their rows are omitted from the "
-                                   "report", len(part), e)
-                    qc_failed.update(dict.fromkeys(c.cluster_id
-                                                   for c in part))
-                    journal.emit("qc_failure",
-                                 cluster_ids=[c.cluster_id for c in part],
-                                 error=str(e))
-            commit_item = _CommitItem(item.index, reps,
-                                      [c.cluster_id for c in part], chunk_qc,
-                                      sorted(failed) if failed else None,
-                                      chunk_t0)
+            # the chunk's span is the trace's unit of progress: its
+            # compute, QC and (inline) write nest under it
+            with tracing.span("chunk", chunk_index=item.index,
+                              n_clusters=len(item.idxs)):
+                commit_item = _run_chunk(
+                    backend, method, item, clusters, args, stats, scores,
+                    qc, failed, qc_failed, harness, journal)
             if committer is not None:
                 committer.submit(commit_item)
             else:
@@ -1552,8 +1758,8 @@ def _shard_for_process(clusters, args, rank: int, world: int,
     ``world`` takes the rank-th contiguous block of the clusters (block
     order makes ``merge-parts`` give the single-process bytes) and writes
     ``<output>.part<rank>``; its ``--checkpoint``, ``--qc-report``,
-    ``--journal``, ``--metrics-out`` and quarantine file get the same
-    suffix, so ranks never share a file.
+    ``--journal``, ``--metrics-out``, ``--chrome-trace`` and quarantine
+    file get the same suffix, so ranks never share a file.
     Without a coordinator the clusters and output pass through.  Returns
     ``(clusters, output)``."""
     if not args.coordinator:
@@ -1573,32 +1779,84 @@ def _shard_for_process(clusters, args, rank: int, world: int,
         args.journal = part_path(args.journal, rank)
     if args.metrics_out:
         args.metrics_out = part_path(args.metrics_out, rank)
+    if args.chrome_trace:
+        args.chrome_trace = part_path(args.chrome_trace, rank)
     logger.info("process %d/%d: %d of %d clusters -> %s", rank, world,
                 len(mine), len(clusters), part)
     return mine, part
 
 
+_TRACER_UNSET = object()
+
+
+def _install_tracer_early(args) -> None:
+    """With ``--journal`` or ``--chrome-trace``, install the run's span
+    tracer before the input is parsed, so the parse phase is on the
+    timeline too; its spans wait in memory until ``_open_run_journal``
+    replays them into the journal.  Paired with ``_restore_tracer`` in a
+    ``finally``: an early exit never leaves a process-wide tracer
+    behind.  Without either flag the tracer stays the no-op one."""
+    if args.journal or args.chrome_trace:
+        args._prev_tracer = tracing.set_current(Tracer(keep=True))
+
+
+def _restore_tracer(args) -> None:
+    """Restore the tracer ``_install_tracer_early`` replaced; idempotent
+    (``_finish_run`` restores on success, the command's ``finally`` on
+    every exit)."""
+    prev = args.__dict__.pop("_prev_tracer", _TRACER_UNSET)
+    if prev is not _TRACER_UNSET:
+        tracing.set_current(prev)
+
+
 def _open_run_journal(args, backend: TorchBackend, n_clusters: int):
     """The ``--journal`` stream (a ``NullJournal`` without one), hooked
-    into the backend's dispatch events, with ``run_start`` and a clock
-    anchor written."""
+    into the backend's dispatch events and bound to the run's trace
+    context (``args._trace_ctx``, else ``SPECPRIDE_TRACE``'s, else a new
+    one), with ``run_start`` and a clock anchor written; then the span
+    tracer, which replays the parse phase's spans after ``run_start``
+    and keeps its spans in memory for ``--chrome-trace``."""
     journal = open_journal(args.journal)
     backend.journal = journal
+    ctx = (getattr(args, "_trace_ctx", None) or TraceContext.from_env()
+           or TraceContext.mint())
+    args._trace_ctx = ctx
+    journal.bind_trace(ctx.trace_id)
     journal.emit("run_start", command=args.command, method=args.method,
                  backend="torch", n_clusters=int(n_clusters),
                  output=args.output, device=str(backend.device),
                  precision=backend.precision)
     if journal.enabled:
+        # right after run_start: the trace merger fits clocks per run
         emit_clock_anchor(journal)
+    if hasattr(args, "_prev_tracer"):
+        # parse-phase spans predate the context and carry no span ids;
+        # every span from here on does
+        tracer = tracing.current()
+        tracer.ctx = ctx
+        tracer.attach_journal(journal, keep=bool(args.chrome_trace))
     return journal
 
 
 def _finish_run(args, backend: TorchBackend, stats: RunStats,
                 journal) -> None:
-    """``run_end`` (the summary and the device counters, the JAX
-    package's keys) and, with ``--metrics-out``, the Prometheus
-    textfile."""
+    """The result cache's ``result_cache`` event (with a cache), then
+    ``run_end`` (the summary and the device counters, the JAX package's
+    keys); the tracer restored, and with ``--chrome-trace`` its spans
+    written; with ``--metrics-out``, the Prometheus textfile."""
     device = device_summary(backend.metrics)
+    rc = args.__dict__.pop("_result_cache", None)
+    if rc is not None:
+        snap = rc.snapshot()
+        journal.emit("result_cache", hits=snap["hits"],
+                     misses=snap["misses"], populated=snap["populated"],
+                     evictions=snap["evictions"],
+                     bytes_saved=snap["bytes_saved"],
+                     shared_hits=snap["shared_hits"],
+                     corrupt=snap["corrupt"], entries=snap["entries"],
+                     bytes=snap["bytes"])
+        stats.count("result_cache_hits", snap["hits"])
+        stats.count("result_cache_misses", snap["misses"])
     extra = {}
     for key in ("pipeline", "robustness", "precision"):
         value = getattr(stats, key)
@@ -1612,6 +1870,12 @@ def _finish_run(args, backend: TorchBackend, stats: RunStats,
         clusters_per_sec=round(stats.throughput("clusters"), 2),
         device=device, **extra,
     )
+    tracer = tracing.current()
+    _restore_tracer(args)  # only what this run installed
+    if args.chrome_trace and tracer.enabled:
+        n = tracer.write_chrome_trace(
+            args.chrome_trace, pid=tracing.rank_of_path(args.chrome_trace))
+        logger.info("chrome trace (%d spans) -> %s", n, args.chrome_trace)
     if args.metrics_out:
         export_run_metrics(backend.metrics, stats, device)
         backend.metrics.write_textfile(args.metrics_out)
@@ -1620,12 +1884,22 @@ def _finish_run(args, backend: TorchBackend, stats: RunStats,
 
 def _run_pipeline_command(args, backend: TorchBackend, rank: int = 0,
                           world: int = 1) -> dict:
-    """THE consensus/select body: parse, the rank's block of the clusters
+    """THE consensus/select body: the span tracer (with ``--journal`` or
+    ``--chrome-trace``), parse, the result cache's run context
+    (``--result-cache``), the rank's block of the clusters
     (``_shard_for_process``), the journal, the chunked run (under
     ``--trace-dir``'s capture), the QC report, then the precision gate
     (after the outputs, so a breach leaves them on disk to diagnose) and
-    ``run_end``.  Returns the run summary."""
+    ``run_end``.  The ranks of a ``--coordinator`` run share rank 0's
+    trace context unless ``SPECPRIDE_TRACE`` hands them one.  Returns
+    the run summary."""
+    from specpride_tpu_torch.cache import result_cache
+
     stats = RunStats()
+    if args.coordinator and TraceContext.from_env() is None:
+        args._trace_ctx = TraceContext.from_env(broadcast_from_rank0(
+            TraceContext.mint().to_env() if rank == 0 else None))
+    _install_tracer_early(args)
     # --on-error skip arms the quarantine: fresh for each run
     quarantine = (Quarantine(args.output + ".quarantine.mgf")
                   if args.on_error == "skip" else None)
@@ -1634,6 +1908,8 @@ def _run_pipeline_command(args, backend: TorchBackend, rank: int = 0,
         with stats.phase("parse"):
             clusters = load_clusters(args, quarantine)
         scores = load_scores(args) if args.method == "best" else None
+        args._result_cache = result_cache.runtime_for(args, args.command,
+                                                      backend)
         clusters, args.output = _shard_for_process(clusters, args, rank,
                                                    world, quarantine)
         journal = _open_run_journal(args, backend, len(clusters))
@@ -1652,6 +1928,8 @@ def _run_pipeline_command(args, backend: TorchBackend, rank: int = 0,
             _cosine_config(args), journal)
         _finish_run(args, backend, stats, journal)
     finally:
+        _restore_tracer(args)
+        args.__dict__.pop("_result_cache", None)
         journal.close()
         if quarantine is not None:
             quarantine.close()
@@ -1713,6 +1991,79 @@ def run_evaluate(args, backend: TorchBackend) -> dict:
     if args.report:
         metrics.write_report(results, args.report, args.format)
     return metrics.summarize(results)
+
+
+def run_stats_command(args) -> int:
+    """``stats``: the journals' summary (``--top-spans N`` adds the N
+    slowest spans), or with ``--trace ID`` the critical path of that
+    causal trace across the journals."""
+    from specpride_tpu_torch.observability import traceplane
+    from specpride_tpu_torch.observability.stats_cli import run_stats
+
+    if args.trace:
+        view = traceplane.extract_trace(args.journals, args.trace)
+        for w in view.warnings:
+            print(f"warning: {w}", file=sys.stderr)
+        traceplane.render_critical_path(view, sys.stdout)
+        return 0 if view.spans else 1
+    return run_stats(args.journals, json_out=args.json,
+                     top_spans=args.top_spans)
+
+
+def run_trace(args) -> int:
+    """``trace``: one Chrome trace from run journals, ``.part<rank>``
+    shards merged onto one timeline (pid = rank).  Schema violations (a
+    killed run's torn last line) are reported on stderr and dropped.
+    ``--trace-id`` (or ``--job``, resolved through a serving daemon's job
+    events) takes exactly one trace's spans from every shard instead,
+    aligned on one wall axis by the clock anchors, with flow arrows
+    across process tracks."""
+    from specpride_tpu_torch.observability import traceplane
+
+    if args.job is not None or args.trace_id:
+        trace_id = args.trace_id
+        if trace_id is None:
+            files: list[str] = []
+            for p in args.journals:
+                got, warn = expand_parts(p)
+                files.extend(got)
+                for w in warn:
+                    print(f"warning: {w}", file=sys.stderr)
+            trace_id = traceplane.resolve_job_trace(files, args.job)
+            if trace_id is None:
+                print(f"no trace_id found for job {args.job} in the given "
+                      "journals", file=sys.stderr)
+                return 1
+        view = traceplane.build_trace_chrome(args.journals, trace_id,
+                                             args.out)
+        for w in view.warnings:
+            print(f"warning: {w}", file=sys.stderr)
+        for v in view.violations:
+            print(f"dropped: {v}", file=sys.stderr)
+        if not view.spans and not view.instants:
+            print(f"trace {trace_id}: no matching events in the given "
+                  "journals", file=sys.stderr)
+            return 1
+        print(f"trace {trace_id}: {len(view.spans)} spans across "
+              f"{len(view.shards)} process track(s), clock-skew bound "
+              f"{view.skew_bound_s:.4f}s -> {args.out}", file=sys.stderr)
+        return 0
+    n_spans, n_files, warnings, violations = tracing.build_chrome_trace(
+        args.journals, args.out)
+    for w in warnings:
+        print(f"warning: {w}", file=sys.stderr)
+    for v in violations:
+        print(f"dropped: {v}", file=sys.stderr)
+    if n_files == 0:
+        print("no journal files to read", file=sys.stderr)
+        return 1
+    if n_spans == 0 and violations:
+        # every span line was invalid: almost always the wrong input
+        print("no valid span events read: pass the --journal files, not "
+              "the --chrome-trace output", file=sys.stderr)
+        return 1
+    print(f"{n_spans} spans -> {args.out}", file=sys.stderr)
+    return 0
 
 
 def run_merge_parts(args) -> int:
@@ -1788,9 +2139,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.command == "plot":
         return run_plot(args)
     if args.command == "stats":
-        from specpride_tpu_torch.observability.stats_cli import run_stats
-
-        return run_stats(args.journals, json_out=args.json)
+        return run_stats_command(args)
+    if args.command == "trace":
+        return run_trace(args)
     if args.command == "convert":
         print(json.dumps(run_convert(args)), file=sys.stderr)
         return 0

@@ -21,7 +21,7 @@ over several cards; a flat peak axis would split clusters.
 
 All passes are vectorized numpy over a ``SpectraTable``.  With a reduced
 ``precision`` the packers also encode the channels the card receives
-(``ops.quantize``).
+(``ops.quantize``).  Each packer runs under a ``pack:*`` tracing span.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import numpy as np
 
 from specpride_tpu_torch.config import BatchConfig
 from specpride_tpu_torch.data.table import ClusterIndex, SpectraTable
+from specpride_tpu_torch.observability import tracing
 from specpride_tpu_torch.ops import quantize
 from specpride_tpu_torch.ops.segsort import seg_argsort
 
@@ -226,6 +227,7 @@ def _row_chunks(row_peak_offsets: np.ndarray, max_elements: int,
         lo = hi
 
 
+@tracing.traced("pack:flat_bin_mean")
 def pack_flat_bin_mean(
     clusters_or_table,
     bin_config,
@@ -308,6 +310,7 @@ def pack_flat_bin_mean(
 # ---------------------------------------------------------------------------
 
 
+@tracing.traced("pack:gap_segments")
 def gap_global_segments(table: SpectraTable, idx, config) -> dict:
     """Sort and gap-segment every cluster in one vectorized global pass,
     in float64 (ref src/average_spectrum_clustering.py:55-90).
@@ -633,6 +636,7 @@ def _peak_layout(table: SpectraTable, idx: ClusterIndex, plan: _BucketPlan):
     return spec_ids, row_of_spec, member_idx, counts, src, dest
 
 
+@tracing.traced("pack:bucketize")
 def pack_bucketize(
     clusters_or_table,
     config: BatchConfig = BatchConfig(),
@@ -724,6 +728,7 @@ class BinPackedBatch:
     source_indices: list[int]
 
 
+@tracing.traced("pack:bucketize_bin_mean")
 def pack_bucketize_bin_mean(
     clusters_or_table,
     bin_config,
@@ -795,6 +800,7 @@ class GapPackedBatch:
     source_indices: list[int]
 
 
+@tracing.traced("pack:bucketize_gap")
 def pack_bucketize_gap(
     clusters_or_table,
     config,

@@ -22,6 +22,7 @@ import numpy as np
 
 from specpride_tpu_torch.data.peaks import Cluster, Spectrum, parse_title
 from specpride_tpu_torch.io import native
+from specpride_tpu_torch.observability import tracing
 
 
 def _open_text(path: str | os.PathLike) -> IO[str]:
@@ -161,10 +162,15 @@ def read_mgf(path: str | os.PathLike, malformed=None) -> list[Spectrum]:
     damaged record and cannot see a truncated one (a BEGIN resets it),
     and the quarantine exists to make both auditable.  Eager reads stay
     under the 256 MB streaming threshold, which bounds the cost."""
-    if malformed is not None:
-        with _open_text(path) as fh:
-            return list(parse_mgf_stream(fh, malformed=malformed))
-    return native.read_mgf_native(path)
+    with tracing.span("parse:mgf", path=os.fspath(path)) as sp:
+        if malformed is not None:
+            with _open_text(path) as fh:
+                spectra = list(parse_mgf_stream(fh, malformed=malformed))
+            sp.note(n_spectra=len(spectra), parser="python-quarantine")
+            return spectra
+        spectra = native.read_mgf_native(path)
+        sp.note(n_spectra=len(spectra), parser="native")
+        return spectra
 
 
 class IndexedMGF:
@@ -245,7 +251,8 @@ class StreamedClusters:
         if _groups is not None:
             self._groups, self._begins = _groups, _begins
         else:
-            records, self.malformed_spans = native.index_mgf(self.path)
+            with tracing.span("parse:mgf_index"):
+                records, self.malformed_spans = native.index_mgf(self.path)
             # every record's first byte, in file order: two records of a
             # window with no record between them parse as one span
             self._begins = np.fromiter((b for _, b, _ in records),
@@ -362,6 +369,7 @@ class StreamedClusters:
         for i in range(len(self._groups)):
             yield self[i]
 
+    @tracing.traced("parse:mgf_window")
     def _materialize(self, groups) -> list[Cluster]:
         """The window's clusters, each span of its records parsed once: by
         the host library's parser, or by the tolerant Python parser when
@@ -515,13 +523,21 @@ def write_mgf(
     at a path holds (ref src/average_spectrum_clustering.py:183-184,198);
     an open file is written where it stands."""
     if path_or_file is None:
-        buf = io.StringIO()
-        _write_records(buf, spectra)
-        return buf.getvalue()
+        with tracing.span("write:mgf", path=None, append=False) as sp:
+            buf = io.StringIO()
+            sp.note(n_spectra=_write_records(buf, spectra))
+            return buf.getvalue()
     if hasattr(path_or_file, "write"):
-        _write_records(path_or_file, spectra)
+        # the caller opened the file: its mode is unknown here
+        with tracing.span(
+            "write:mgf", path=str(getattr(path_or_file, "name", "<stream>")),
+            append=None,
+        ) as sp:
+            sp.note(n_spectra=_write_records(path_or_file, spectra))
         return None
-    with open(os.fspath(path_or_file), "a" if append else "w",
-              encoding="utf-8") as fh:
-        _write_records(fh, spectra)
+    with tracing.span("write:mgf", path=os.fspath(path_or_file),
+                      append=append) as sp:
+        with open(os.fspath(path_or_file), "a" if append else "w",
+                  encoding="utf-8") as fh:
+            sp.note(n_spectra=_write_records(fh, spectra))
     return None

@@ -29,6 +29,7 @@ from typing import IO, Iterator
 import numpy as np
 
 from specpride_tpu_torch.data.peaks import Spectrum
+from specpride_tpu_torch.observability import tracing
 
 # mzML controlled-vocabulary accessions
 _CV_MS_LEVEL = "MS:1000511"
@@ -238,9 +239,11 @@ def read_mzml_scans(
     pyOpenMS SpectrumLookup at ref src/convert_mgf_cluster.py:103-118,
     without the reference's O(scans × spectra) linear rescan)."""
     out: dict[int, Spectrum] = {}
-    for scan, spec in iter_mzml(path, ms_level):
-        if scan is None:
-            continue
-        if scans is None or scan in scans:
-            out[scan] = spec
+    with tracing.span("parse:mzml", path=os.fspath(path)) as sp:
+        for scan, spec in iter_mzml(path, ms_level):
+            if scan is None:
+                continue
+            if scans is None or scan in scans:
+                out[scan] = spec
+        sp.note(n_scans=len(out))
     return out

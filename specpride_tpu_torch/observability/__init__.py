@@ -7,5 +7,9 @@ package's ``observability/``):
                   textfile (``--metrics-out``);
 * ``stats``     — ``RunStats``, logging (``-v``, ``--log-json``) and the
                   ``torch.profiler`` capture (``--trace-dir``);
-* ``stats_cli`` — the ``stats`` command over journals.
+* ``stats_cli`` — the ``stats`` command over journals;
+* ``tracing``   — the span tracer (``--chrome-trace``, the journal's
+                  ``span`` events, ``trace``, ``stats --top-spans``);
+* ``traceplane``— one causal trace across journal shards (``trace
+                  --trace-id``, ``stats --trace``).
 """

@@ -10,9 +10,10 @@ read theirs.  The tables carry other names than the JAX package's: its
 lint finds its schema anchors by name across the repository, and each
 name must stay unique there.
 
-Left out: rotation (``--journal-rotate-mb``, a serving-daemon flag), the
-in-process taps (autotune, flight recorder) and the trace-context
-binding (the span tracer's).  Multi-host runs write one journal per rank
+A journal bound to a trace (``bind_trace``, the v4 causal envelope)
+stamps ``trace_id`` on every event it emits.  Left out: rotation
+(``--journal-rotate-mb``, a serving-daemon flag) and the in-process taps
+(autotune, flight recorder).  Multi-host runs write one journal per rank
 (``<journal>.part<id>``); ``expand_parts`` resolves a base path to its
 rank-ordered parts, each after its rotated segments if a JAX daemon left
 any.
@@ -137,6 +138,7 @@ class Journal:
 
     def __init__(self, path: str | os.PathLike):
         self.path = str(path)
+        self.trace_id: str | None = None
         self._lock = threading.Lock()
         self._fh = open(self.path, "a", buffering=1, encoding="utf-8")
         try:
@@ -149,9 +151,17 @@ class Journal:
         except OSError:
             pass
 
+    def bind_trace(self, trace_id: str | None) -> None:
+        """Stamp ``trace_id`` on every event emitted from now on, unless
+        the emit names its own (one run journal is one trace; None
+        unbinds)."""
+        self.trace_id = trace_id
+
     def emit(self, event: str, **fields) -> dict:
         rec = {"v": SCHEMA_VERSION, "ts": time.time(),
                "mono": time.perf_counter(), "event": event}
+        if self.trace_id is not None and "trace_id" not in fields:
+            rec["trace_id"] = self.trace_id
         rec.update(fields)
         line = json.dumps(rec, default=_json_default) + "\n"
         with self._lock:
@@ -182,6 +192,9 @@ class NullJournal:
 
     def emit(self, event: str, **fields) -> dict:
         return {}
+
+    def bind_trace(self, trace_id: str | None) -> None:
+        pass
 
     def close(self) -> None:
         pass

@@ -1,8 +1,9 @@
 """Run counters, phase timers, logging and the device trace (the port's
-copy of the JAX package's ``observability/stats.py``, without spans).
+copy of the JAX package's ``observability/stats.py``).
 
 ``configure_logging`` sets the global ``-v`` / ``--log-json`` logging;
-``RunStats`` holds one CLI run's counters and phase seconds;
+``RunStats`` holds one CLI run's counters and phase seconds, each phase
+also a tracing span;
 ``device_trace`` is ``--trace-dir``: a ``torch.profiler`` capture of the
 run (CPU activity, and the card's kernels and copies on CUDA) written as
 a Chrome trace, the counterpart of the JAX package's ``jax.profiler``
@@ -18,6 +19,8 @@ import os
 import sys
 import time
 from collections import defaultdict
+
+from specpride_tpu_torch.observability import tracing
 
 logger = logging.getLogger("specpride_tpu_torch")
 
@@ -75,11 +78,14 @@ class RunStats:
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.phases[name] += time.perf_counter() - t0
+        # every phase is also a span, and the span wraps the timer, so its
+        # own exit (the journal write) never makes the phase exceed it
+        with tracing.span(name):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.phases[name] += time.perf_counter() - t0
 
     @property
     def elapsed(self) -> float:

@@ -5,9 +5,11 @@ the JAX package's ``observability/stats_cli.py``.
 A base path with multi-host ``.part<id>`` shards resolves rank-aware, as
 ``merge-parts`` resolves outputs.  Exits non-zero on a schema violation,
 so a drifting event schema fails the run that reads it.  The port's
-journals and the JAX package's read alike (one schema).  Left out: the
-span tables (``--top-spans``), the elastic rank view, the serving,
-autotune, incident and result-cache views, and ``--follow``.
+journals and the JAX package's read alike (one schema).  ``--top-spans
+N`` adds the N slowest spans by self time (``tracing.aggregate_spans``);
+``--trace ID`` (``render_critical_path``, in the CLI) renders one causal
+trace's critical path instead.  Left out: the elastic rank view, the
+serving, autotune and incident views, and ``--follow``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,10 @@ import sys
 from specpride_tpu_torch.observability.journal import (
     expand_parts,
     read_events,
+)
+from specpride_tpu_torch.observability.tracing import (
+    aggregate_spans,
+    render_top_spans,
 )
 from specpride_tpu_torch.robustness.faults import audit_fault_recovery
 
@@ -91,6 +97,25 @@ def _summarize_run(path: str, events: list[dict]) -> dict:
     )
     if end.get("precision"):
         run["precision"] = end["precision"]
+    # the result cache's accounting, the event just before run_end
+    rc_ev = next((e for e in reversed(events)
+                  if e["event"] == "result_cache"), None)
+    if rc_ev is not None:
+        hits = int(rc_ev.get("hits") or 0)
+        misses = int(rc_ev.get("misses") or 0)
+        rc: dict = {
+            "hits": hits,
+            "misses": misses,
+            "hit_rate": (round(hits / (hits + misses), 4)
+                         if hits + misses else 0.0),
+            "populated": int(rc_ev.get("populated") or 0),
+            "evictions": int(rc_ev.get("evictions") or 0),
+            "bytes_saved": int(rc_ev.get("bytes_saved") or 0),
+        }
+        for opt in ("shared_hits", "corrupt", "entries", "bytes"):
+            if rc_ev.get(opt) is not None:
+                rc[opt] = rc_ev[opt]
+        run["result_cache"] = rc
     pipeline = end.get("pipeline")
     if pipeline:
         for key in ("prefetch", "device_idle_s", "overlap_efficiency",
@@ -144,6 +169,17 @@ def _render_run(run: dict, out) -> None:
           f"bucket_occupancy_frac={run['bucket_occupancy_frac']} "
           f"h2d={run['bytes_h2d']}B d2h={run['bytes_d2h']}B "
           f"peak_device_mem={run['device_peak_bytes_in_use']}B", file=out)
+    rc = run.get("result_cache")
+    if rc:
+        bits = [f"hits={rc['hits']}", f"misses={rc['misses']}",
+                f"hit_rate={rc['hit_rate']:.1%}",
+                f"evictions={rc['evictions']}",
+                f"bytes_saved={rc['bytes_saved']}"]
+        if rc.get("corrupt"):
+            bits.append(f"corrupt={rc['corrupt']}")
+        if rc.get("entries") is not None:
+            bits.append(f"entries={rc['entries']}")
+        print(f"  result-cache: {' '.join(bits)}", file=out)
     prec = run.get("precision")
     if prec:
         bits = [f"precision={prec.get('precision')}"]
@@ -156,9 +192,10 @@ def _render_run(run: dict, out) -> None:
 
 
 def run_stats(journal_paths: list[str], json_out: str | None = None,
-              out=None) -> int:
-    """Summarize the journals at ``journal_paths`` on ``out`` (stdout);
-    1 when no file was found or an event broke the schema."""
+              out=None, top_spans: int = 0) -> int:
+    """Summarize the journals at ``journal_paths`` on ``out`` (stdout),
+    with the ``top_spans`` slowest spans when above 0; 1 when no file was
+    found or an event broke the schema."""
     out = out or sys.stdout
     files: list[str] = []
     for p in journal_paths:
@@ -171,15 +208,20 @@ def run_stats(journal_paths: list[str], json_out: str | None = None,
         return 1
     runs: list[dict] = []
     violations: list[str] = []
+    events_per_file: list[list[dict]] = []
     for path in files:
         events, bad = read_events(path)
         violations.extend(bad)
+        events_per_file.append(events)
         segments = _split_runs(events) or [[]]
         for i, seg in enumerate(segments):
             label = path if len(segments) == 1 else f"{path}#run{i}"
             runs.append(_summarize_run(label, seg))
     for run in runs:
         _render_run(run, out)
+    span_rows = aggregate_spans(events_per_file) if top_spans else []
+    if top_spans:
+        render_top_spans(span_rows, top_spans, out)
     totals = {
         "n_journals": len(files),
         "n_runs_complete": sum(r["complete"] for r in runs),
@@ -196,9 +238,11 @@ def run_stats(journal_paths: list[str], json_out: str | None = None,
               f"{totals['representatives_written']} representatives, "
               f"{totals['compile_count']} compiles", file=out)
     if json_out:
+        agg = {"v": 1, "runs": runs, "totals": totals}
+        if top_spans:
+            agg["top_spans"] = span_rows[:top_spans]
         with open(json_out, "w", encoding="utf-8") as fh:
-            json.dump({"v": 1, "runs": runs, "totals": totals}, fh,
-                      indent=1)
+            json.dump(agg, fh, indent=1)
             fh.write("\n")
     if violations:
         for v in violations:

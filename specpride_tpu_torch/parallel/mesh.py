@@ -12,8 +12,9 @@ drives the devices one block after another.
 Several hosts split the input instead: each process takes a contiguous
 block of clusters and writes its own part file (``cli._shard_for_process``,
 joined by ``merge-parts``).  ``initialize_distributed`` only finds the
-ranks, through ``torch.distributed`` (gloo), and no tensor ever crosses
-between processes.
+ranks, through ``torch.distributed`` (gloo); the one thing that crosses
+between processes is rank 0's trace context at start
+(``broadcast_from_rank0``), so every rank's journal carries one trace.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import datetime
 import math
 
 import torch
+
+from specpride_tpu_torch.observability import tracing
 
 # elements per tile of the card's scans (ops/csrc/seg_scan_core.cuh kTile):
 # a row whose flattened offset keeps its residue modulo the tile is summed
@@ -109,6 +112,19 @@ class DeviceMesh:
         return out
 
 
+def shard_span(tensors):
+    """The ``h2d:shard`` span of one block's copy to its device: the
+    array count, the bytes and each channel's dtype (with ``--precision``
+    the channels cross narrowed, and a trace shows what was on the
+    wire)."""
+    return tracing.span(
+        "h2d:shard", n_arrays=len(tensors),
+        bytes=int(sum(t.numel() * t.element_size() for t in tensors)),
+        dtypes=",".join(str(t.dtype).removeprefix("torch.")
+                        for t in tensors),
+    )
+
+
 def row_align(*widths: int) -> int:
     """Rows per cut that keep every row's flattened offset at the same
     residue modulo ``SCAN_TILE``, for arrays of these row widths."""
@@ -152,6 +168,19 @@ def initialize_distributed(
             f"distributed bring-up failed: the group says rank {rank} of "
             f"{world}, the flags rank {process_id} of {num_processes}")
     return rank, world
+
+
+def broadcast_from_rank0(value):
+    """Rank 0's ``value`` (any picklable object) on every rank of the
+    process group; ``value`` itself without a group.  A collective: every
+    rank calls it at the same point."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def shutdown_distributed() -> None:

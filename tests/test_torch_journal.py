@@ -3,9 +3,9 @@ against the JAX package's.
 
 The port's journals are read by the JAX package's ``read_events`` (its
 schema, ``validate_event``) with no violation, carry the event names of a
-JAX CLI run with the same flags on the same input (less the span tracer's
-``span``, and the warm-start layer's ``warmup`` and ``compile_cache``,
-which the port has not got), pair every injected fault with its recovery
+JAX CLI run with the same flags on the same input, the span tracer's
+``span`` among them (less the warm-start layer's ``warmup`` and
+``compile_cache``, which the port has not got), pair every injected fault with its recovery
 under both packages' ``audit_fault_recovery``, and both ``stats`` read
 both packages' journals.  ``--metrics-out`` registers no metric name a
 JAX CLI run on the same input does not.  The JAX CLI runs in a
@@ -33,7 +33,7 @@ from specpride_tpu_torch.robustness.faults import audit_fault_recovery
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the JAX CLI's events from layers the port has not ported yet
-UNPORTED = {"span", "warmup", "compile_cache"}
+UNPORTED = {"warmup", "compile_cache"}
 N_CLUSTERS, EVERY = 40, 16
 
 
