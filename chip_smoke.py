@@ -124,14 +124,29 @@ NVIDIA GPU:
    and bytes of a run without it) and warm (every cluster a hit, no
    launch, no ``dispatch`` event, the same bytes), the digest, read,
    write and scan costs on one thread, then exec-20k's cold and warm
-   walls; process-start phase: a child interpreter's start,
+   walls; serve phase: a daemon process (``serve --journal
+   --metrics-port 0 --metrics-out``), its spawn-to-ping wall and
+   ``boot_s``; CLI-2k's bin-mean with QC, gap-average and medoid with QC
+   as ``submit`` children (no torch imported) beside cold one-shot CLI
+   children on the same argv, the same bytes, the job journals clean and
+   the bin-mean job's 4 + 4 ``dispatch`` events; ``profile --seconds 2``
+   during a CLI-2k job (both kernels in the trace); files-20k twice (the
+   MGF written anew; exec-20k's bytes, the repeat an ingest-cache hit),
+   the daemon's peak RSS; SIGTERM (exit 0 within 60 s, the journal
+   ending in ``serve_drain`` and ``run_end``, the drain exposition valid
+   and counting every job); then daemons in this process: CLI-2k's
+   halves on two lanes of the card (two streams) and as one batched pair
+   (``--batch-window 50``), each time the halves' solo bytes, with the
+   launches of each step against the solo runs'; process-start phase: a
+   child interpreter's start,
    ``import torch``, the package's import, CUDA init, the two libraries'
    hash check and load, each timed, beside a 3-cluster CLI run's wall;
 9. prints a ``{"kernels": [...]}`` line (launches: the executor's runs at
    the defaults, the files phase's consensus runs and evaluate, the chaos
    and real OOM runs, the bucketized, mesh and rank runs, the telemetry,
-   tracing and result-cache phases' runs) and, last, the ``{"ok": true,
-   "device": {...}}`` line.
+   tracing and result-cache phases' runs, the in-process serving
+   daemons' runs) and, last, the ``{"ok": true, "device": {...}}``
+   line.
 
 Every comparison of a kernel with its plain version prints its largest
 relative error beside the tolerance.
@@ -1668,6 +1683,8 @@ for line in sys.stdin:
         t0 = time.perf_counter()
         proc = subprocess.Popen(job["argv"], cwd=job["cwd"], env=job["env"],
                                 stdout=subprocess.DEVNULL, stderr=err)
+        if job.get("announce"):  # a long-lived child: its pid first
+            print(json.dumps({"pid": proc.pid}), flush=True)
         _, status, usage = os.wait4(proc.pid, 0)
         wall = time.perf_counter() - t0
         err.seek(0)
@@ -1696,6 +1713,27 @@ def stop_launcher() -> None:
             _launcher.kill()
             _launcher.wait()
         _launcher = None
+
+
+def start_launched(*argv) -> int:
+    """``python -m specpride_tpu_torch ARGV`` started by the launcher, which
+    reaps it later (``launched_result``): its pid."""
+    _launcher.stdin.write(json.dumps({
+        "argv": [sys.executable, "-m", "specpride_tpu_torch", *argv],
+        "cwd": ROOT, "env": dict(os.environ, PYTHONPATH=ROOT),
+        "announce": True,
+    }) + "\n")
+    _launcher.stdin.flush()
+    return json.loads(_launcher.stdout.readline())["pid"]
+
+
+def launched_result() -> dict:
+    """The exit of the child ``start_launched`` started: its exit code,
+    wall, peak resident set (KiB) and stderr."""
+    line = _launcher.stdout.readline()
+    if not line:
+        raise AssertionError("the launcher died")
+    return json.loads(line)
 
 
 def run_cli_rss(*argv, env=None, expect_ok: bool = True):
@@ -3314,6 +3352,379 @@ def process_start_phase(src: str) -> dict:
     return res
 
 
+# A child that runs ``python -m specpride_tpu_torch ARGV`` as the shell
+# does, then prints its exit code and whether torch was imported.
+TORCH_FREE = r"""
+import runpy, sys
+sys.argv = ["specpride_tpu_torch"] + sys.argv[1:]
+rc = 0
+try:
+    runpy.run_module("specpride_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    rc = e.code
+print("CHILD", rc, "torch" in sys.modules, file=sys.stderr, flush=True)
+"""
+SERVE_CLI_RUNS = (
+    ("bin-mean QC", ("consensus", "--qc-report")),
+    ("gap-average", ("consensus", "--method", "gap-average")),
+    ("medoid QC", ("select", "--method", "medoid", "--qc-report")),
+)
+SERVE_BATCH_WINDOW_MS = 50
+
+
+def socket_path(work: str) -> str:
+    """A unix socket path under the 108-byte limit: in ``work``, else in a
+    fresh directory under the temporary root."""
+    import tempfile
+
+    path = os.path.join(work, "s.sock")
+    if len(path) > 100:
+        path = os.path.join(tempfile.mkdtemp(prefix="sp"), "s.sock")
+    if len(path) > 100:
+        raise AssertionError(f"serve: no socket path under 100 bytes "
+                             f"({path})")
+    return path
+
+
+def run_child(*argv, timeout: float = 600) -> tuple[float, str]:
+    """``TORCH_FREE`` with ARGV: its wall and stdout; fails unless it
+    exited 0 without importing torch."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", TORCH_FREE, *argv],
+                          cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if "CHILD 0 False" not in proc.stderr:
+        raise AssertionError(f"serve child {argv}: rc {proc.returncode}, "
+                             f"{proc.stderr[-2000:]}\n{proc.stdout[-2000:]}")
+    return wall, proc.stdout
+
+
+def job_journal(path: str, what: str) -> list:
+    from specpride_tpu_torch.observability.journal import read_events
+
+    events, bad = read_events(path)
+    if bad:
+        raise AssertionError(f"{what}: journal violations {bad[:3]}")
+    return events
+
+
+def serve_daemon_phase(src: str, clusters, exec_bytes: dict, work: str
+                       ) -> dict:
+    """serve (a): a real daemon process (``serve --journal --metrics-port
+    0 --metrics-out``).  CLI-2k's bin-mean with QC, gap-average and medoid
+    with QC, each as a ``submit`` child (no torch in its modules) and as a
+    cold one-shot CLI child on the same argv: the same output and QC
+    report bytes, every job journal read back clean, the bin-mean job's
+    4 + 4 ``dispatch`` events; ``profile --seconds 2`` during a further
+    CLI-2k job: both kernels in the trace; then files-20k (20,000
+    clusters, the MGF written anew) twice: exec-20k's bytes both times,
+    the repeat an ingest-cache hit; SIGTERM: exit 0, the journal ending in
+    ``serve_drain`` and ``run_end``, the drain textfile valid and counting
+    every job."""
+    import signal
+    import threading
+
+    from specpride_tpu_torch.io import mgf
+    from specpride_tpu_torch.observability.exporter import (
+        parse_exposition,
+        validate_exposition,
+    )
+    from specpride_tpu_torch.serve import client as sc
+
+    def path(name: str) -> str:
+        return os.path.join(work, name)
+
+    sock = socket_path(work)
+    res: dict = {"socket": sock}
+    t0 = time.perf_counter()
+    # started by the launcher, which reports its peak resident set
+    pid = start_launched(
+        "serve", "--socket", sock, "--journal", path("serve.jsonl"),
+        "--metrics-port", "0", "--metrics-out", path("serve.prom"))
+    jobs = 0
+    reaped = None
+    try:
+        if not sc.wait_for_socket(sock, timeout=180):
+            raise AssertionError("serve: the daemon never answered a ping")
+        res["spawn_to_ping_s"] = time.perf_counter() - t0
+        (start,) = [e for e in job_journal(path("serve.jsonl"), "serve")
+                    if e["event"] == "serve_start"]
+        res["boot_s"] = start["boot_s"]
+        res["placement"] = start["placement"]
+        print(f"serve boot: ping {res['spawn_to_ping_s']:.3f} s after "
+              f"spawn, serve_start.boot_s {res['boot_s']}, placement "
+              f"{res['placement']}", flush=True)
+
+        for what, (command, *flags) in SERVE_CLI_RUNS:
+            tag = what.split()[0]
+
+            def argv(who, command=command, flags=flags, tag=tag):
+                out = [command, src, path(f"{who}_{tag}.mgf"), *flags]
+                if "--qc-report" in out:
+                    i = out.index("--qc-report")
+                    out.insert(i + 1, path(f"{who}_{tag}.qc.json"))
+                return out
+
+            cold, _ = run_cli(*argv("cold"))
+            wall, out = run_child(
+                "submit", "--socket", sock, "--journal",
+                path(f"client_{tag}.jsonl"), "--", *argv("served"),
+                "--journal", path(f"job_{tag}.jsonl"))
+            jobs += 1
+            term = json.loads(out.strip().splitlines()[-1])
+            if term.get("status") != "done":
+                raise AssertionError(f"serve {what}: {term}")
+            for ext in ("mgf", "qc.json") if "--qc-report" in flags \
+                    else ("mgf",):
+                if file_bytes(path(f"served_{tag}.{ext}")) != file_bytes(
+                        path(f"cold_{tag}.{ext}")):
+                    raise AssertionError(f"serve {what}: {ext} differs from "
+                                         "the one-shot CLI's")
+            events = job_journal(path(f"job_{tag}.jsonl"), f"serve {what}")
+            job_journal(path(f"client_{tag}.jsonl"), f"serve {what} client")
+            dispatch = {}
+            for e in events:
+                if e["event"] == "dispatch":
+                    dispatch[e["kernel"]] = dispatch.get(e["kernel"], 0) + 1
+            if tag == "bin-mean" and dispatch != {
+                    "bin_mean_flat_intensity": 4, "cosine_flat": 4}:
+                raise AssertionError(f"serve {what}: dispatch events "
+                                     f"{dispatch}")
+            res[what] = {"submit_wall_s": wall, "cold_cli_wall_s": cold,
+                         "job_wall_s": term["wall_s"],
+                         "dispatch_events": dispatch}
+            print(f"serve {what}: submit child {wall:.3f} s (job "
+                  f"{term['wall_s']} s) vs cold CLI child {cold:.3f} s, "
+                  f"bytes identical, dispatch {dispatch}", flush=True)
+
+        # profile --seconds 2 during a CLI-2k job: the capture first, the
+        # job once its window is open (the daemon journals profile_start)
+        prof = subprocess.Popen(
+            [sys.executable, "-c", TORCH_FREE, "profile", "--socket", sock,
+             "--seconds", "2", "--trace-dir", path("profile")], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=ROOT), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        t0 = time.perf_counter()
+        while not any(e["event"] == "profile_start" for e in
+                      job_journal(path("serve.jsonl"), "serve")):
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("serve profile: no window opened")
+            time.sleep(0.05)
+        _, out = run_child("submit", "--socket", sock, "--", "consensus",
+                           src, path("profiled.mgf"), "--qc-report",
+                           path("profiled.qc.json"))
+        jobs += 1
+        prof_out, prof_err = prof.communicate(timeout=300)
+        if "CHILD 0 False" not in prof_err:
+            raise AssertionError(f"serve profile: {prof_err[-2000:]}")
+        reply = json.loads(prof_out.strip().splitlines()[-1])
+        kern = trace_kernels(reply["trace"])
+        if not (kern["counts"]["seg_mean"] and kern["counts"]["seg_scan"]):
+            raise AssertionError(f"serve profile: trace kernels {kern}")
+        res["profile"] = {"wall_s": time.perf_counter() - t0,
+                          "window_s": reply["seconds"],
+                          "window_events": reply["window_events"],
+                          "trace_kernels": kern}
+        print(f"serve profile: {kern['counts']} kernels in a "
+              f"{reply['seconds']} s window, journal window "
+              f"{reply['window_events']}", flush=True)
+
+        # files-20k at full size (the MGF written anew), twice
+        big = path("files20k.mgf")
+        mgf.write_mgf([s for c in clusters for s in c.members], big)
+        res["files20k_bytes"] = os.path.getsize(big)
+        for i in range(2):
+            wall, out = run_child(
+                "submit", "--socket", sock, "--", "consensus", big,
+                path(f"big{i}.mgf"), "--method", "bin-mean", "--qc-report",
+                path(f"big{i}.qc.json"), "--stream-clusters", "off",
+                "--journal", path(f"big{i}.jsonl"))
+            jobs += 1
+            term = json.loads(out.strip().splitlines()[-1])
+            for ext, key in (("mgf", "mgf"), ("qc.json", "qc.json")):
+                if file_bytes(path(f"big{i}.{ext}"))[0] != exec_bytes[key]:
+                    raise AssertionError(f"serve files-20k {i}: {ext} "
+                                         "differs from exec-20k's")
+            (end,) = [e for e in job_journal(path(f"big{i}.jsonl"),
+                                             "serve files-20k")
+                      if e["event"] == "run_end"]
+            want = "ingest_cache_hits" if i else "ingest_cache_misses"
+            if end["counters"].get(want) != 1:
+                raise AssertionError(f"serve files-20k {i}: counters "
+                                     f"{end['counters']}")
+            res[f"files-20k {i}"] = {
+                "submit_wall_s": wall, "job_wall_s": term["wall_s"],
+                "phases_s": end["phases_s"], "counters": end["counters"]}
+            print(f"serve files-20k {'repeat' if i else 'first'}: submit "
+                  f"{wall:.3f} s, job {term['wall_s']} s, phases "
+                  f"{end['phases_s']}", flush=True)
+        os.remove(big)
+        os.kill(pid, signal.SIGTERM)
+        t0 = time.perf_counter()
+        # a drain past 60 s is killed (and fails below)
+        timer = threading.Timer(60.0, os.kill, (pid, signal.SIGKILL))
+        timer.start()
+        reaped = launched_result()
+        timer.cancel()
+        res["drain_s"] = time.perf_counter() - t0
+    finally:
+        if reaped is None:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            print(f"serve: the daemon's stderr:\n"
+                  f"{launched_result()['stderr'][-3000:]}", flush=True)
+    res["daemon_peak_rss_kib"] = reaped["maxrss_kib"]
+    if reaped["rc"] != 0 or res["drain_s"] > 60:
+        raise AssertionError(f"serve: the daemon exited {reaped['rc']} "
+                             f"{res['drain_s']:.1f} s after SIGTERM:\n"
+                             f"{reaped['stderr'][-2000:]}")
+    events = job_journal(path("serve.jsonl"), "serve")
+    if [e["event"] for e in events][-2:] != ["serve_drain", "run_end"]:
+        raise AssertionError("serve: the journal does not end in "
+                             "serve_drain, run_end")
+    with open(path("serve.prom")) as fh:
+        text = fh.read()
+    problems = validate_exposition(text)
+    samples, _ = parse_exposition(text)
+    done = sum(v for (name, _), v in samples.items()
+               if name == "specpride_serve_jobs_done_total")
+    if problems or done != jobs:
+        raise AssertionError(f"serve: exposition problems {problems[:3]}, "
+                             f"{done} done jobs of {jobs}")
+    res["jobs"] = jobs
+    print(f"serve daemon {json.dumps(res)}", flush=True)
+    return res
+
+
+def serve_inprocess_phase(kernels, src: str, work: str) -> dict:
+    """serve (b): ``ServeDaemon(...).run()`` in a thread of this process,
+    so the launches can be read.  CLI-2k's two halves, bin-mean with QC:
+    their solo one-shot runs; then on a two-lane daemon (two streams on
+    the card) both jobs in flight at once, one on each lane; then on a
+    daemon with ``--batch-window 50`` both jobs batched (one
+    ``batch_dispatch`` event naming both).  The bytes are the solo runs'
+    each time, and the launches of the two daemon steps no more than the
+    solo runs' sum (the launch counts zeroed before each step)."""
+    import threading
+
+    import torch
+
+    from specpride_tpu_torch import cli
+    from specpride_tpu_torch.io import mgf
+    from specpride_tpu_torch.serve import client as sc
+    from specpride_tpu_torch.serve.daemon import ServeDaemon
+
+    def path(name: str) -> str:
+        return os.path.join(work, name)
+
+    spectra = mgf.read_mgf(src)
+    ids = group_ids(src)
+    halves = []
+    for k, keep in enumerate((set(ids[:len(ids) // 2]),
+                              set(ids[len(ids) // 2:]))):
+        halves.append(path(f"half{k}.mgf"))
+        mgf.write_mgf([s for s in spectra if s.cluster_id in keep],
+                      halves[-1])
+    res: dict = {}
+    zero_launches(kernels)
+    t0 = time.perf_counter()
+    for k, half in enumerate(halves):
+        if cli.main(["consensus", half, path(f"solo{k}.mgf"), "--qc-report",
+                     path(f"solo{k}.qc.json")]) != 0:
+            raise AssertionError("serve: a solo run failed")
+    torch.cuda.synchronize()
+    res["solo"] = {"wall_s": time.perf_counter() - t0,
+                   "launches": dict(kernels.launches)}
+
+    def step(name: str, **kw) -> dict:
+        d = ServeDaemon(socket_path(work), device=DEV,
+                        journal_path=path(f"{name}.jsonl"), **kw)
+        t = threading.Thread(target=d.run, daemon=True)
+        t.start()
+        terms: dict = {}
+        try:
+            if not sc.wait_for_socket(d.socket_path, timeout=120):
+                raise AssertionError(f"serve {name}: no ping")
+
+            def submit(k):
+                terms[k] = sc.submit_wait(d.socket_path, [
+                    "consensus", halves[k], path(f"{name}{k}.mgf"),
+                    "--qc-report", path(f"{name}{k}.qc.json")],
+                    client=f"client{k}", timeout=120)
+
+            d._gate.clear()
+            zero_launches(kernels)
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=submit, args=(k,))
+                       for k in (0, 1)]
+            for th in threads:
+                th.start()
+            deadline = time.time() + 60
+            while (len(d._inflight_by) + len(d.queue) < 2
+                   and time.time() < deadline):
+                time.sleep(0.005)
+            d._gate.set()
+            for th in threads:
+                th.join(timeout=300)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.launches)
+        finally:
+            d._gate.set()
+            d.drain()
+            t.join(timeout=120)
+        for k in (0, 1):
+            if terms.get(k, {}).get("status") != "done":
+                raise AssertionError(f"serve {name}: {terms.get(k)}")
+            for ext in ("mgf", "qc.json"):
+                if file_bytes(path(f"{name}{k}.{ext}")) != file_bytes(
+                        path(f"solo{k}.{ext}")):
+                    raise AssertionError(f"serve {name}: half {k} {ext} "
+                                         "differs from its solo run")
+        for kernel in ("seg_mean", "seg_scan"):
+            if not 0 < launches[kernel] <= res["solo"]["launches"][kernel]:
+                raise AssertionError(f"serve {name}: launches {launches} "
+                                     f"against solo {res['solo']}")
+        return {"wall_s": wall, "launches": launches,
+                "workers": sorted(terms[k]["worker"] for k in (0, 1)),
+                "events": job_journal(path(f"{name}.jsonl"), name)}
+
+    lanes = step("lanes", workers=2)
+    if lanes["workers"] != [0, 1]:
+        raise AssertionError(f"serve lanes: workers {lanes['workers']}")
+    lanes.pop("events")
+    res["two lanes"] = lanes
+    batched = step("batched", workers=1,
+                   batch_window=SERVE_BATCH_WINDOW_MS / 1000.0)
+    events = batched.pop("events")
+    batches = [e for e in events if e["event"] == "batch_dispatch"]
+    if len(batches) != 1 or batches[0]["n_jobs"] != 2 or \
+            batches[0]["status"] != "shared":
+        raise AssertionError(f"serve batched: {batches}")
+    res["batched"] = batched
+    print(f"serve in process: solo {res['solo']}, two lanes "
+          f"{res['two lanes']}, batched {res['batched']}", flush=True)
+    return res
+
+
+def serve_phase(kernels, src: str, clusters, exec_bytes: dict) -> dict:
+    """serve: (a) a daemon process (``serve_daemon_phase``), (b) daemons in
+    this process (``serve_inprocess_phase``)."""
+    import shutil
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "serve")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    res = {"daemon": serve_daemon_phase(src, clusters, exec_bytes, work),
+           "in_process": serve_inprocess_phase(kernels, src, work)}
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
     start_launcher()  # before torch: see LAUNCHER
     try:
@@ -3387,9 +3798,10 @@ def smoke() -> int:
     rankres = ranks_phase(cli_src)
     telres = telemetry_phase(kernels, cli_src)
     trres = tracing_phase(kernels, cli_src, clusters)
-    cacheres = result_cache_phase(kernels, cli_src, clusters,
-                                  trres.pop("exec_bytes"))
-    del clusters
+    exec_bytes = trres.pop("exec_bytes")
+    cacheres = result_cache_phase(kernels, cli_src, clusters, exec_bytes)
+    serveres = serve_phase(kernels, cli_src, clusters, exec_bytes)
+    del clusters, exec_bytes
     startres = process_start_phase(cli_src)
 
     main_case = mres["cases"][0]
@@ -3415,6 +3827,10 @@ def smoke() -> int:
                    for what in ("journal", "gap", "evaluate"))
             + trres["all_launches"][k] + cacheres["launches"][k]
             for k in main_run}
+    # the in-process serving daemons' runs (two lanes, then batched)
+    served = {k: sum(serveres["in_process"][what]["launches"][k]
+                     for what in ("two lanes", "batched"))
+              for k in main_run}
     entries = [{
         "name": "seg_mean",
         "route": "cuda",
@@ -3423,7 +3839,7 @@ def smoke() -> int:
         "launches": (main_run["seg_mean"]
                      + fres["consensus_launches"]["seg_mean"]
                      + robust["seg_mean"] + bucket["seg_mean"]
-                     + tele["seg_mean"]),
+                     + tele["seg_mean"] + served["seg_mean"]),
         "max_abs_err": max(c["max_abs_err"] for c in mres["cases"]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -3436,7 +3852,8 @@ def smoke() -> int:
         "source": "specpride_tpu_torch/ops/csrc/seg_mean.cu",
         "replaces": "specpride_tpu/ops/pallas_kernels.py:187",
         "launches": (heads_launches + robust["seg_mean_heads"]
-                     + bucket["seg_mean_heads"] + tele["seg_mean_heads"]),
+                     + bucket["seg_mean_heads"] + tele["seg_mean_heads"]
+                     + served["seg_mean_heads"]),
         "max_abs_err": max(c["max_abs_err"] for c in hres["cases"]),
         "ms": heads_case["ms"],
         "plain_ms": heads_case["plain_ms"],
@@ -3453,7 +3870,7 @@ def smoke() -> int:
                      + fres["consensus_launches"]["seg_scan"]
                      + fres["evaluate_launches"]["seg_scan"]
                      + robust["seg_scan"] + bucket["seg_scan"]
-                     + tele["seg_scan"]),
+                     + tele["seg_scan"] + served["seg_scan"]),
         "max_abs_err": max(
             c["max_abs_err"] for c in kres["cases"] + pres["cases"]
         ),
@@ -3478,7 +3895,8 @@ def smoke() -> int:
                    "real_oom": oomres, "bucketized": bres,
                    "mesh": meshres, "ranks": rankres,
                    "telemetry": telres, "tracing": trres,
-                   "result_cache": cacheres, "process_start": startres,
+                   "result_cache": cacheres, "serve": serveres,
+                   "process_start": startres,
                    "build": info.get("seconds"),
                    "wall_s": time.perf_counter() - start}, fh, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)

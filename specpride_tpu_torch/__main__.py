@@ -1,5 +1,11 @@
-"""``python -m specpride_tpu_torch`` entry point."""
-from specpride_tpu_torch.cli import main
+"""``python -m specpride_tpu_torch`` entry point.  ``submit`` and
+``profile`` go to the serving client before the CLI is imported, so they
+start without torch."""
+import sys
 
 if __name__ == "__main__":
+    if sys.argv[1:2] in (["submit"], ["profile"]):
+        from specpride_tpu_torch.serve.client import main
+    else:
+        from specpride_tpu_torch.cli import main
     raise SystemExit(main())

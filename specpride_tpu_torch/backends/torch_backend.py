@@ -215,14 +215,7 @@ class TorchBackend:
         self._rows = (mesh if mesh is not None
                       else DeviceMesh([self.device], own_streams=False))
         self.batch_config = batch_config or BatchConfig()
-        # real and padded peak slots of the bucketized consensus dispatches
-        self.bucket_elements = {"real": 0, "padded": 0}
-        self.phase_seconds = dict.fromkeys(PHASES, 0.0)
-        self.h2d_bytes = {"h2d": 0, "qc_h2d": 0}
-        self.d2h_bytes = {"d2h": 0, "qc_d2h": 0}
-        self.chunks = 0
-        self.cos_chunks = 0
-        self.medoid_encodings = {"i32": 0, "i16": 0}
+        self.reset_run_counters()
         # the staging lane's copy stream (stage_chunk); kernels never run
         # on it, so the per-(device, stream) workspaces stay one per lane
         self._h2d_stream = (torch.cuda.Stream(self.device)
@@ -233,6 +226,21 @@ class TorchBackend:
         self.metrics = MetricsRegistry()
         self.journal = NullJournal()
         self._seen_shapes: set[tuple] = set()
+
+    def reset_run_counters(self) -> None:
+        """Zero the per-run accounting (``phase_seconds``, the H2D and D2H
+        bytes, the chunk counts, ``bucket_elements``,
+        ``medoid_encodings``): a serving lane's backend runs many jobs,
+        and each job's summary reports its own.  The metrics registry,
+        the shape classes seen and the streams stay."""
+        # real and padded peak slots of the bucketized consensus dispatches
+        self.bucket_elements = {"real": 0, "padded": 0}
+        self.phase_seconds = dict.fromkeys(PHASES, 0.0)
+        self.h2d_bytes = {"h2d": 0, "qc_h2d": 0}
+        self.d2h_bytes = {"d2h": 0, "qc_d2h": 0}
+        self.chunks = 0
+        self.cos_chunks = 0
+        self.medoid_encodings = {"i32": 0, "i16": 0}
 
     # -- two-phase chunk protocol (the CLI's chunked executor) ----------
 
@@ -469,6 +477,7 @@ class TorchBackend:
                        padded_elems: int | None = None) -> None:
         """One device dispatch, on the dispatch lane: the per-kernel
         dispatch counters, the real and padded rows and (given) elements,
+        the ``specpride_dispatch_seconds`` histogram of the host seconds,
         the journal's ``dispatch`` event and a ``kernel:<kernel>`` span
         over ``dispatch``, the host's ``(t0, seconds)`` of the call (as
         ``_timed`` returns it; asynchronous to the card, as the JAX
@@ -511,6 +520,10 @@ class TorchBackend:
                       labels=("kernel",)).inc(padded_elems, kernel=kernel)
             pack = {"real_elems": int(real_elems),
                     "padded_elems": int(padded_elems)}
+        m.histogram("specpride_dispatch_seconds",
+                    "dispatch-call host wall time (asynchronous: "
+                    "excludes device execution)",
+                    labels=("kernel",)).observe(dispatch[1], kernel=kernel)
         self.journal.emit("dispatch", kernel=kernel, rows=rows,
                           padded_rows=padded_rows, **pack)
         tracing.current().complete(
@@ -1016,35 +1029,46 @@ class TorchBackend:
 
     def run_shared(self, method: str, parts, config, cos_config=None
                    ) -> list:
-        """One method over the clusters of several sources as one pack
-        and dispatch group (the device half of the JAX package's serving
-        micro-batcher, ``tpu_backend.py:1786``): the sources are merged
-        (``merge_cluster_sources``), so the buckets fill across them, and
-        the results sliced back.  Every method is per cluster, so each
+        """One method over the clusters of several sources in one pass
+        (the device half of the serving micro-batcher; the JAX package's
+        ``tpu_backend.py:1786``).  Every method is per cluster, so each
         source's representatives and QC cosines (with ``cos_config``) are
-        those of a run over that source alone.  Returns one
-        ``(representatives, cosines or None)`` per source."""
+        those of a run over that source alone.  On the (B, K) layout the
+        sources are merged (``merge_cluster_sources``) and share its
+        dispatches: every row starts a run at a tile-aligned offset, so
+        the card's float32 sums do not depend on a row's neighbours.  On
+        the flat layout they do (a run's sum rounds by its offset within
+        the scan's tiles), so each source keeps its own flat layout and
+        dispatches, and its bytes are those of a run over it alone.
+        Returns one ``(representatives, cosines or None)`` per source."""
         if method not in PREPARED_METHODS:
             raise ValueError(f"method {method!r} is not batchable")
+        if not self.bucketized:
+            return [self._run_source(method, part, config, cos_config)
+                    for part in parts]
         merged, spans = merge_cluster_sources(parts)
-        cosines = None
-        if method == "bin-mean" and cos_config is not None:
-            reps, cosines = self.run_bin_mean_with_cosines(merged, config,
-                                                           cos_config)
-        elif method == "bin-mean":
-            reps = self.run_bin_mean(merged, config)
-        elif method == "gap-average":
-            reps = self.run_gap_average(merged, config)
-        else:
-            reps = self.run_medoid(merged, config)
-        if len(reps) != len(merged):
-            raise RuntimeError(f"shared {method} dispatch returned "
-                               f"{len(reps)} representatives for "
-                               f"{len(merged)} clusters")
-        if cos_config is not None and cosines is None:
-            cosines = self.average_cosines(reps, merged, cos_config)
+        reps, cosines = self._run_source(method, merged, config, cos_config)
         return [(reps[a:b], None if cosines is None else cosines[a:b])
                 for a, b in spans]
+
+    def _run_source(self, method: str, clusters, config, cos_config):
+        cosines = None
+        if method == "bin-mean" and cos_config is not None:
+            reps, cosines = self.run_bin_mean_with_cosines(clusters, config,
+                                                           cos_config)
+        elif method == "bin-mean":
+            reps = self.run_bin_mean(clusters, config)
+        elif method == "gap-average":
+            reps = self.run_gap_average(clusters, config)
+        else:
+            reps = self.run_medoid(clusters, config)
+        if len(reps) != len(clusters):
+            raise RuntimeError(f"shared {method} dispatch returned "
+                               f"{len(reps)} representatives for "
+                               f"{len(clusters)} clusters")
+        if cos_config is not None and cosines is None:
+            cosines = self.average_cosines(reps, clusters, cos_config)
+        return reps, cosines
 
     def run_best_spectrum(
         self,

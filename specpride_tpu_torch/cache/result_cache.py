@@ -446,7 +446,10 @@ def reset() -> None:
 def runtime_for(args, command: str, backend=None):
     """The run's :class:`RunContext`, or None when the cache does not
     apply: no cache configured (the flag, else the process singleton), a
-    method that is not cacheable, or a config the digest cannot fix."""
+    method that is not cacheable, a config the digest cannot fix, or a
+    served batch member (its batch's leader consulted for it)."""
+    if getattr(backend, "is_batch_view", False):
+        return None
     method = getattr(args, "method", None)
     if command not in ("consensus", "select") or \
             method not in CACHEABLE_METHODS:

@@ -18,6 +18,11 @@
         [--top-spans N] [--trace TRACE_ID]
     python -m specpride_tpu_torch trace JOURNAL [JOURNAL ...] [-o T.json] \
         [--trace-id TRACE_ID | --job JOBID]
+    python -m specpride_tpu_torch serve [--socket S] [--workers N] \
+        [--batch-window MS] [--journal J] [--metrics-port P] [...]
+    python -m specpride_tpu_torch submit [--socket S] -- consensus IN OUT ...
+    python -m specpride_tpu_torch profile [--socket S] [--seconds T] \
+        [--trace-dir DIR]
 
 ``consensus`` and ``select`` read the clustered MGF (or, with
 ``--clusters``, an mzML file and a MaRaCluster TSV) and group it into
@@ -76,6 +81,13 @@ computed representative (and its QC cosine) under a digest of its
 cluster and the run's method, config and precision; a rerun replays the
 stored ones with the bytes of a run without it, and computes only the
 clusters it has not seen.
+
+``serve`` keeps the port resident (``serve/daemon.py``): it loads the
+libraries and makes each lane's CUDA context, stream and backend once,
+then runs ``consensus`` and ``select`` jobs sent by ``submit`` (the
+one-shot CLI's argv, its bytes) until SIGTERM drains it; ``profile``
+captures a ``torch.profiler`` trace of a running daemon.  ``submit`` and
+``profile`` start without torch (``serve/client.py``).
 """
 
 from __future__ import annotations
@@ -126,6 +138,7 @@ from specpride_tpu_torch.observability.journal import (
     open_journal,
 )
 from specpride_tpu_torch.observability.registry import (
+    device_counters_snapshot,
     device_summary,
     export_run_metrics,
 )
@@ -150,6 +163,7 @@ from specpride_tpu_torch.robustness.integrity import (
     manifest_payload,
 )
 from specpride_tpu_torch.robustness.quarantine import Quarantine
+from specpride_tpu_torch.serve.client import add_client_parsers
 
 logger = logging.getLogger("specpride_tpu_torch")
 
@@ -310,6 +324,18 @@ def build_parser() -> argparse.ArgumentParser:
         "across the given journal shards: per-hop exclusive seconds on "
         "one clock-anchored axis",
     )
+    pst.add_argument(
+        "--follow", action="store_true",
+        help="tail ONE live journal (a serving daemon's or a running "
+        "job's) and render the summary again as events land; Ctrl-C exits",
+    )
+    pst.add_argument("--interval", type=float, default=1.0, metavar="S",
+                     help="poll interval for --follow (default 1s)")
+    pst.add_argument(
+        "--slo", action="store_true",
+        help="also render the per-method SLO table (objective, jobs, "
+        "breaches, burn) from a serving daemon's job_done events",
+    )
 
     pt = sub.add_parser(
         "trace",
@@ -336,7 +362,85 @@ def build_parser() -> argparse.ArgumentParser:
         help="causal mode with an explicit trace id (e.g. a journal "
         "event's trace_id)",
     )
+    _add_serve(sub)
+    add_client_parsers(sub)
     return ap
+
+
+def _add_serve(sub) -> None:
+    """The ``serve`` subcommand: the JAX CLI's flags the port has."""
+    psv = sub.add_parser(
+        "serve",
+        help="resident daemon: boot once (libraries loaded, each lane's "
+        "CUDA context, stream and backend made), then serve consensus and "
+        "select jobs over a local unix socket (submit with `submit`; "
+        "SIGTERM drains)",
+    )
+    psv.add_argument("--socket", metavar="PATH", default=None,
+                     help="unix socket to serve on (default: "
+                     "$SPECPRIDE_SOCKET or "
+                     "~/.cache/specpride_tpu_torch/serve.sock)")
+    psv.add_argument("--max-queue", type=int, default=16, metavar="N",
+                     help="admission bound over all clients; at capacity a "
+                     "submit is rejected retriable (default 16)")
+    psv.add_argument("--workers", type=int, default=0, metavar="N",
+                     help="execution lanes, each with its own backend and "
+                     "CUDA stream, round robin over the cards (default 0 = "
+                     "min(#cards, 4))")
+    psv.add_argument("--batch-window", type=float, default=0.0, metavar="MS",
+                     help="cross-job micro-batching: a lane popping an "
+                     "eligible job waits up to MS milliseconds for "
+                     "compatible queued jobs and computes them in one "
+                     "shared pass, each job's bytes its solo run's "
+                     "(default 0 = off)")
+    psv.add_argument("--batch-max-clusters", type=int, default=4096,
+                     metavar="N",
+                     help="stop collecting a batch once its clusters reach "
+                     "N (default 4096)")
+    psv.add_argument("--quota", metavar="CLIENT=WEIGHT[:MAX_INFLIGHT],...",
+                     help="per-client scheduling quotas, e.g. "
+                     "'teamA=3:2,teamB=1,*=1:1': WEIGHT biases the fair "
+                     "queue, MAX_INFLIGHT caps queued + running jobs "
+                     "(beyond it a submit is rejected retriable)")
+    _add_layout(psv)
+    psv.add_argument("--precision", choices=list(quantize.PRECISIONS),
+                     default="f32",
+                     help="the lanes' packed channel precision (jobs cannot "
+                     "override it)")
+    psv.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                     help="where the lanes run (default: the GPU; cpu for "
+                     "the tests)")
+    psv.add_argument("--watchdog-timeout", type=float, default=0.0,
+                     metavar="S",
+                     help="journal a watchdog_stall when a job holds a lane "
+                     "longer than S seconds (default 0 = off)")
+    psv.add_argument("--journal", metavar="FILE",
+                     help="the daemon's journal: serve_start, job_queued / "
+                     "job_start / job_done / job_rejected, batch_dispatch, "
+                     "serve_drain (watch with `stats --follow`)")
+    psv.add_argument("--journal-rotate-mb", type=float, default=0.0,
+                     metavar="N",
+                     help="rotate the journal into numbered segments "
+                     "(<journal>.1, .2, ...) past N megabytes (default 0 = "
+                     "never)")
+    psv.add_argument("--metrics-port", type=int, default=None,
+                     metavar="PORT",
+                     help="serve a live Prometheus /metrics and /healthz on "
+                     "this port (0 = ephemeral; default: off)")
+    psv.add_argument("--metrics-host", default="127.0.0.1", metavar="HOST",
+                     help="bind address for --metrics-port (default "
+                     "127.0.0.1)")
+    psv.add_argument("--metrics-out", metavar="FILE",
+                     help="write the final Prometheus exposition here at "
+                     "drain")
+    psv.add_argument("--slo", metavar="METHOD=SECONDS,...",
+                     help="per-method latency objectives, e.g. "
+                     "'bin-mean=2,*=10': each job's queue wait + wall is "
+                     "held to its objective, journaled on job_done and "
+                     "counted on /metrics (`stats --slo` renders them)")
+    psv.add_argument("--result-cache", metavar="DIR[:MB]",
+                     help="the result cache every lane shares (jobs cannot "
+                     "carry their own)")
 
 
 def _add_layout(p: argparse.ArgumentParser) -> None:
@@ -1482,6 +1586,18 @@ def _manifest_state(args, integ: OutputIntegrity, harness: Harness,
     return done, output_bytes, False, prior_failed
 
 
+def chunk_clusters(args, can_prepare: bool, streamed: bool) -> int:
+    """The executor's chunk size in clusters, 0 for one chunk of the
+    whole input: ``--checkpoint-every`` with a checkpoint, when the pack
+    lanes prepare this method ahead (``--prefetch`` > 0), or for a
+    streamed input.  The chunks set the flat layouts the card's float32
+    sums round by, so the serving batcher cuts a job's clusters by the
+    same rule (``serve.batcher.solo_chunk``)."""
+    if args.checkpoint or can_prepare or streamed:
+        return int(args.checkpoint_every)
+    return 0
+
+
 def _checkpointed_run(backend: TorchBackend, method: str, clusters, args,
                       stats: RunStats, scores=None, qc: list | None = None,
                       quarantine: Quarantine | None = None,
@@ -1551,9 +1667,9 @@ def _checkpointed_run_impl(backend: TorchBackend, method: str, clusters,
     # bytes.
     prefetch = max(int(args.prefetch or 0), 0)
     can_prepare = prefetch > 0 and backend.supports_prepare(method)
-    chunk = (args.checkpoint_every if args.checkpoint or can_prepare
-             or isinstance(clusters, StreamedClusters) else 0
-             ) or len(todo_idx) or 1
+    chunk = chunk_clusters(args, can_prepare,
+                           isinstance(clusters, StreamedClusters)
+                           ) or len(todo_idx) or 1
 
     if not todo_idx:
         # still produce an output file ('a' creates without truncating)
@@ -1735,17 +1851,52 @@ def _load_mgf_clusters(path: str, stream: str,
     return clusters
 
 
-def load_clusters(args, quarantine: Quarantine | None = None):
+def _load_clusters_served(args, stats: RunStats,
+                          quarantine: Quarantine | None):
+    """An MGF's clusters (``_load_mgf_clusters``), on a serving lane
+    (``args._serve_worker``) through the daemon's parsed-input residency
+    (``serve.ingest_cache``) when the parse is eager, quarantine-free and
+    not of a ``.gz``: a repeat job over an unchanged input skips its
+    parse.  A one-shot run never consults it."""
+    mode = (args.stream_clusters or "off").lower()
+    eager = mode == "off" or (
+        mode == "auto" and os.path.exists(args.input)
+        and os.path.getsize(args.input) < _STREAM_AUTO_BYTES)
+    cacheable = (getattr(args, "_serve_worker", None) is not None
+                 and quarantine is None and eager
+                 and not args.input.endswith(".gz"))
+    if cacheable:
+        from specpride_tpu_torch.serve import ingest_cache
+
+        clusters, kind = ingest_cache.lookup(args.input)
+        if clusters is not None:
+            stats.count("ingest_cache_hits", 1)
+            if kind == "content":
+                stats.count("ingest_cache_content_hits", 1)
+            return clusters
+    clusters = _load_mgf_clusters(args.input, args.stream_clusters,
+                                  quarantine)
+    if cacheable and isinstance(clusters, list):
+        from specpride_tpu_torch.serve import ingest_cache
+
+        stats.count("ingest_cache_misses", 1)
+        ingest_cache.put(args.input, clusters)
+    return clusters
+
+
+def load_clusters(args, quarantine: Quarantine | None = None,
+                  stats: RunStats | None = None):
     """The clusters of a consensus or select run: an MGF (whole, or
-    streamed by ``--stream-clusters``), or an mzML with ``--clusters``;
-    ``consensus --single`` makes the whole input one cluster titled with
-    the output path (ref average_spectrum_clustering.py:203-205), and no
-    spectra no cluster."""
+    streamed by ``--stream-clusters``; on a serving lane through the
+    ingest cache), or an mzML with ``--clusters``; ``consensus --single``
+    makes the whole input one cluster titled with the output path (ref
+    average_spectrum_clustering.py:203-205), and no spectra no
+    cluster."""
     if _is_mzml(args.input):
         clusters = _clusters_from_mzml(args.input, args)
     else:
-        clusters = _load_mgf_clusters(args.input, args.stream_clusters,
-                                      quarantine)
+        clusters = _load_clusters_served(args, stats or RunStats(),
+                                         quarantine)
     if args.command == "consensus" and args.single:
         spectra = [s for c in clusters for s in c.members]
         clusters = [Cluster(args.output, spectra)] if spectra else []
@@ -1789,15 +1940,24 @@ def _shard_for_process(clusters, args, rank: int, world: int,
 _TRACER_UNSET = object()
 
 
+def _served(args) -> bool:
+    """True on a serving daemon's lane (``args._serve_worker``)."""
+    return getattr(args, "_serve_worker", None) is not None
+
+
 def _install_tracer_early(args) -> None:
     """With ``--journal`` or ``--chrome-trace``, install the run's span
     tracer before the input is parsed, so the parse phase is on the
     timeline too; its spans wait in memory until ``_open_run_journal``
     replays them into the journal.  Paired with ``_restore_tracer`` in a
-    ``finally``: an early exit never leaves a process-wide tracer
-    behind.  Without either flag the tracer stays the no-op one."""
+    ``finally``: an early exit never leaves a tracer behind.  A served
+    job installs it for its lane's thread only (the lane threads its run
+    starts adopt it), so two lanes' spans never cross; a one-shot run
+    process-wide.  Without either flag the tracer stays the no-op one."""
     if args.journal or args.chrome_trace:
-        args._prev_tracer = tracing.set_current(Tracer(keep=True))
+        install = (tracing.set_thread_current if _served(args)
+                   else tracing.set_current)
+        args._prev_tracer = install(Tracer(keep=True))
 
 
 def _restore_tracer(args) -> None:
@@ -1806,7 +1966,10 @@ def _restore_tracer(args) -> None:
     every exit)."""
     prev = args.__dict__.pop("_prev_tracer", _TRACER_UNSET)
     if prev is not _TRACER_UNSET:
-        tracing.set_current(prev)
+        if _served(args):
+            tracing.set_thread_current(prev)
+        else:
+            tracing.set_current(prev)
 
 
 def _open_run_journal(args, backend: TorchBackend, n_clusters: int):
@@ -1818,6 +1981,9 @@ def _open_run_journal(args, backend: TorchBackend, n_clusters: int):
     and keeps its spans in memory for ``--chrome-trace``."""
     journal = open_journal(args.journal)
     backend.journal = journal
+    # a serving lane's registry outlives the job: run_end reports the
+    # counters' growth since here
+    args._device_snapshot = device_counters_snapshot(backend.metrics)
     ctx = (getattr(args, "_trace_ctx", None) or TraceContext.from_env()
            or TraceContext.mint())
     args._trace_ctx = ctx
@@ -1842,9 +2008,11 @@ def _finish_run(args, backend: TorchBackend, stats: RunStats,
                 journal) -> None:
     """The result cache's ``result_cache`` event (with a cache), then
     ``run_end`` (the summary and the device counters, the JAX package's
-    keys); the tracer restored, and with ``--chrome-trace`` its spans
-    written; with ``--metrics-out``, the Prometheus textfile."""
-    device = device_summary(backend.metrics)
+    keys, and on a serving lane the lane's ``worker``); the tracer
+    restored, and with ``--chrome-trace`` its spans written; with
+    ``--metrics-out``, the Prometheus textfile."""
+    device = device_summary(backend.metrics,
+                            since=getattr(args, "_device_snapshot", None))
     rc = args.__dict__.pop("_result_cache", None)
     if rc is not None:
         snap = rc.snapshot()
@@ -1869,6 +2037,7 @@ def _finish_run(args, backend: TorchBackend, stats: RunStats,
         representatives_written=stats.counters.get("representatives", 0),
         clusters_per_sec=round(stats.throughput("clusters"), 2),
         device=device, **extra,
+        **({"worker": args._serve_worker} if _served(args) else {}),
     )
     tracer = tracing.current()
     _restore_tracer(args)  # only what this run installed
@@ -1906,7 +2075,7 @@ def _run_pipeline_command(args, backend: TorchBackend, rank: int = 0,
     journal = NullJournal()
     try:
         with stats.phase("parse"):
-            clusters = load_clusters(args, quarantine)
+            clusters = load_clusters(args, quarantine, stats)
         scores = load_scores(args) if args.method == "best" else None
         args._result_cache = result_cache.runtime_for(args, args.command,
                                                       backend)
@@ -1995,8 +2164,9 @@ def run_evaluate(args, backend: TorchBackend) -> dict:
 
 def run_stats_command(args) -> int:
     """``stats``: the journals' summary (``--top-spans N`` adds the N
-    slowest spans), or with ``--trace ID`` the critical path of that
-    causal trace across the journals."""
+    slowest spans, ``--slo`` a serving daemon's SLO table), with
+    ``--follow`` again as one live journal grows, or with ``--trace ID``
+    the critical path of that causal trace across the journals."""
     from specpride_tpu_torch.observability import traceplane
     from specpride_tpu_torch.observability.stats_cli import run_stats
 
@@ -2006,8 +2176,15 @@ def run_stats_command(args) -> int:
             print(f"warning: {w}", file=sys.stderr)
         traceplane.render_critical_path(view, sys.stdout)
         return 0 if view.spans else 1
+    if args.follow:
+        from specpride_tpu_torch.observability.stats_cli import follow_stats
+
+        if len(args.journals) != 1:
+            raise SystemExit("--follow tails exactly one journal")
+        return follow_stats(args.journals[0], interval=args.interval,
+                            top_spans=args.top_spans, slo=args.slo)
     return run_stats(args.journals, json_out=args.json,
-                     top_spans=args.top_spans)
+                     top_spans=args.top_spans, slo=args.slo)
 
 
 def run_trace(args) -> int:
@@ -2130,12 +2307,54 @@ def run_plot(args) -> int:
     return 0
 
 
+def run_serve(args) -> int:
+    """``serve``: boot the daemon and serve until SIGTERM (drain); 1
+    after a sticky CUDA error."""
+    from specpride_tpu_torch.observability.exporter import parse_slo_spec
+    from specpride_tpu_torch.serve.daemon import ServeDaemon
+    from specpride_tpu_torch.serve.scheduler import parse_quota_spec
+
+    try:
+        slo = parse_slo_spec(args.slo)
+        quotas = parse_quota_spec(args.quota)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if args.workers < 0:
+        raise SystemExit(f"--workers must be >= 0 (got {args.workers})")
+    if args.batch_window < 0:
+        raise SystemExit(
+            f"--batch-window must be >= 0 ms (got {args.batch_window})")
+    if args.batch_max_clusters < 1:
+        raise SystemExit("--batch-max-clusters must be >= 1 "
+                         f"(got {args.batch_max_clusters})")
+    return ServeDaemon(
+        args.socket, device=args.device, max_queue=args.max_queue,
+        workers=args.workers, batch_window=args.batch_window / 1000.0,
+        batch_max_clusters=args.batch_max_clusters, quotas=quotas,
+        layout=args.layout, precision=args.precision,
+        watchdog_timeout=args.watchdog_timeout, journal_path=args.journal,
+        journal_rotate_mb=args.journal_rotate_mb,
+        metrics_port=args.metrics_port, metrics_host=args.metrics_host,
+        metrics_out=args.metrics_out, slo=slo,
+        result_cache=args.result_cache,
+    ).run()
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.verbose or args.log_json:
         # only when asked: a process that calls main() keeps its logging
         configure_logging(args.verbose, args.log_json)
+    if args.command in ("submit", "profile"):
+        from specpride_tpu_torch.serve.client import CLIENT_COMMANDS
+
+        return CLIENT_COMMANDS[args.command](args)
+    if args.command == "serve":
+        try:
+            return run_serve(args)
+        except RuntimeError as exc:  # no CUDA for the default --device cuda
+            ap.error(f"{exc} (here: --device cpu)")
     if args.command == "plot":
         return run_plot(args)
     if args.command == "stats":

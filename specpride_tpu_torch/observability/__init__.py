@@ -3,8 +3,11 @@ package's ``observability/``):
 
 * ``journal``   — the append-only JSONL event stream (``--journal``), in
                   the JAX package's schema;
-* ``registry``  — counters and gauges, exported as a Prometheus
-                  textfile (``--metrics-out``);
+* ``registry``  — counters, gauges and histograms, exported as a
+                  Prometheus textfile (``--metrics-out``);
+* ``exporter``  — the serving daemon's live ``/metrics`` and
+                  ``/healthz``, its SLO accounting and the exposition
+                  checker;
 * ``stats``     — ``RunStats``, logging (``-v``, ``--log-json``) and the
                   ``torch.profiler`` capture (``--trace-dir``);
 * ``stats_cli`` — the ``stats`` command over journals;

@@ -11,12 +11,12 @@ lint finds its schema anchors by name across the repository, and each
 name must stay unique there.
 
 A journal bound to a trace (``bind_trace``, the v4 causal envelope)
-stamps ``trace_id`` on every event it emits.  Left out: rotation
-(``--journal-rotate-mb``, a serving-daemon flag) and the in-process taps
-(autotune, flight recorder).  Multi-host runs write one journal per rank
-(``<journal>.part<id>``); ``expand_parts`` resolves a base path to its
-rank-ordered parts, each after its rotated segments if a JAX daemon left
-any.
+stamps ``trace_id`` on every event it emits.  With ``rotate_mb`` (the
+serving daemon's ``--journal-rotate-mb``) the live file rolls over into
+numbered segments (``<journal>.1``, ``.2``, ...).  Left out: the
+in-process taps (autotune, flight recorder).  Multi-host runs write one
+journal per rank (``<journal>.part<id>``); ``expand_parts`` resolves a
+base path to its rank-ordered parts, each after its rotated segments.
 """
 
 from __future__ import annotations
@@ -132,22 +132,33 @@ class Journal:
     write lane and the watchdog share one journal: a lock keeps each line
     whole.  A torn last line left by a killed run is ended before the
     first new event, so a resumed run appending to the same path writes
-    whole lines."""
+    whole lines.
+
+    ``rotate_mb`` > 0 bounds the live file: once an event takes it past
+    the bound, it is renamed to the next numbered segment (``<path>.1``,
+    ``.2``, ...) and a fresh live file opens with a clock anchor of its
+    own, so a daemon's journal stays bounded and every segment aligns on
+    its own; ``expand_segments`` and ``stats --follow`` read across
+    them."""
 
     enabled = True
 
-    def __init__(self, path: str | os.PathLike):
+    def __init__(self, path: str | os.PathLike, rotate_mb: float = 0.0):
         self.path = str(path)
         self.trace_id: str | None = None
+        self.rotate_bytes = int(max(float(rotate_mb), 0.0) * 1024 * 1024)
         self._lock = threading.Lock()
         self._fh = open(self.path, "a", buffering=1, encoding="utf-8")
+        self._bytes = 0
         try:
             with open(self.path, "rb") as fh:
                 fh.seek(0, os.SEEK_END)
+                self._bytes = fh.tell()
                 if fh.tell() > 0:
                     fh.seek(-1, os.SEEK_END)
                     if fh.read(1) != b"\n":
                         self._fh.write("\n")
+                        self._bytes += 1
         except OSError:
             pass
 
@@ -169,7 +180,33 @@ class Journal:
             # written to a closed file
             if not self._fh.closed:
                 self._fh.write(line)
+                # ASCII JSON: the character count is the byte count
+                self._bytes += len(line)
+                if self.rotate_bytes and self._bytes >= self.rotate_bytes:
+                    self._rotate_locked()
         return rec
+
+    def _rotate_locked(self) -> None:
+        """Rename the live file to the next numbered segment and reopen
+        (the caller holds the lock): no line is split across segments.
+        The fresh file starts with a clock anchor, written inline."""
+        self._fh.close()
+        segments = expand_segments(self.path)[:-1]
+        n = 1 + max((int(p.rsplit(".", 1)[1]) for p in segments),
+                    default=0)
+        try:
+            os.replace(self.path, f"{self.path}.{n}")
+        except OSError:
+            pass  # a failed rename keeps appending to the live file
+        self._fh = open(self.path, "a", buffering=1, encoding="utf-8")
+        rec = {"v": SCHEMA_VERSION, "event": "clock_anchor",
+               **_anchor_fields()}
+        rec["ts"] = rec["wall"]
+        if self.trace_id is not None:
+            rec["trace_id"] = self.trace_id
+        line = json.dumps(rec, default=_json_default) + "\n"
+        self._fh.write(line)
+        self._bytes = len(line)
 
     def close(self) -> None:
         with self._lock:
@@ -200,20 +237,26 @@ class NullJournal:
         pass
 
 
-def open_journal(path: str | None) -> Journal | NullJournal:
-    return Journal(path) if path else NullJournal()
+def open_journal(path: str | None,
+                 rotate_mb: float = 0.0) -> Journal | NullJournal:
+    return Journal(path, rotate_mb=rotate_mb) if path else NullJournal()
 
 
-def emit_clock_anchor(journal) -> dict:
+def _anchor_fields() -> dict:
     """One wall<->mono pair: ``wall`` read between two ``perf_counter``
-    reads, the envelope ``mono`` their midpoint, ``uncertainty_s`` half
-    their distance (the JAX package's anchor, which its trace merger
-    aligns processes by)."""
+    reads, ``mono`` their midpoint, ``uncertainty_s`` half their
+    distance (the JAX package's anchor, which its trace merger aligns
+    processes by)."""
     t0 = time.perf_counter()
     wall = time.time()
     t1 = time.perf_counter()
-    return journal.emit("clock_anchor", mono=(t0 + t1) / 2.0, wall=wall,
-                        uncertainty_s=round((t1 - t0) / 2.0, 9))
+    return {"mono": (t0 + t1) / 2.0, "wall": wall,
+            "uncertainty_s": round((t1 - t0) / 2.0, 9)}
+
+
+def emit_clock_anchor(journal) -> dict:
+    """Journal one wall<->mono pair (``_anchor_fields``)."""
+    return journal.emit("clock_anchor", **_anchor_fields())
 
 
 def validate_event(rec: object) -> list[str]:

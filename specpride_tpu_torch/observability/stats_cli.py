@@ -8,8 +8,11 @@ so a drifting event schema fails the run that reads it.  The port's
 journals and the JAX package's read alike (one schema).  ``--top-spans
 N`` adds the N slowest spans by self time (``tracing.aggregate_spans``);
 ``--trace ID`` (``render_critical_path``, in the CLI) renders one causal
-trace's critical path instead.  Left out: the elastic rank view, the
-serving, autotune and incident views, and ``--follow``.
+trace's critical path instead.  A serving daemon's journal renders its
+``serving:`` line (jobs, latency, lanes, batching), with ``--slo`` the
+per-method SLO table; ``--follow`` tails one live journal, across its
+rotated segments, and renders again as events land.  Left out: the
+elastic rank view and the autotune and incident views.
 """
 
 from __future__ import annotations
@@ -19,7 +22,9 @@ import sys
 
 from specpride_tpu_torch.observability.journal import (
     expand_parts,
+    expand_segments,
     read_events,
+    validate_event,
 )
 from specpride_tpu_torch.observability.tracing import (
     aggregate_spans,
@@ -73,6 +78,9 @@ def _summarize_run(path: str, events: list[dict]) -> dict:
         rates = [c["clusters_per_sec"] for c in chunks]
         run["mean_chunk_clusters_per_sec"] = round(sum(rates) / len(rates),
                                                    2)
+    serving = _summarize_serving(events)
+    if serving is not None:
+        run["serving"] = serving
     compiles, dispatches = names.count("compile"), names.count("dispatch")
     if not end:
         # a dead run: the heartbeats are all there is
@@ -126,18 +134,170 @@ def _summarize_run(path: str, events: list[dict]) -> dict:
     return run
 
 
-def _render_run(run: dict, out) -> None:
+def _summarize_serving(events: list[dict]) -> dict | None:
+    """A serving daemon's journal (the JAX package's rollup): job
+    outcomes, latency and queue wait, per-lane work, the SLO evaluations
+    and the shared passes; None for a journal without serving events."""
+    serve_ev = next((e for e in events if e["event"] == "serve_start"),
+                    None)
+    jobs = [e for e in events if e["event"] == "job_done"]
+    rejected = [e for e in events if e["event"] == "job_rejected"]
+    if not (serve_ev or jobs or rejected):
+        return None
+    sv: dict = {
+        "jobs_done": sum(1 for e in jobs if e.get("status") == "done"),
+        "jobs_failed": sum(1 for e in jobs if e.get("status") != "done"),
+        "jobs_rejected": len(rejected),
+    }
+    if serve_ev:
+        sv["socket"] = serve_ev.get("socket")
+        sv["warmed_kernels"] = serve_ev.get("warmed_kernels", 0)
+        if serve_ev.get("workers") is not None:
+            sv["n_workers"] = serve_ev.get("workers")
+    workers: dict[str, dict] = {}
+    for e in jobs:
+        w = e.get("worker")
+        if w is None:
+            continue
+        row = workers.setdefault(str(w), {"jobs": 0, "failed": 0,
+                                          "busy_s": 0.0})
+        row["jobs"] += 1
+        if e.get("status") != "done":
+            row["failed"] += 1
+        if isinstance(e.get("wall_s"), (int, float)):
+            row["busy_s"] = round(row["busy_s"] + e["wall_s"], 4)
+    if workers:
+        sv["workers"] = workers
+    walls = [e["wall_s"] for e in jobs]
+    if walls:
+        sv["mean_wall_s"] = round(sum(walls) / len(walls), 4)
+        sv["max_wall_s"] = round(max(walls), 4)
+    waits = [e["queue_wait_s"] for e in jobs
+             if isinstance(e.get("queue_wait_s"), (int, float))]
+    if waits:
+        sv["max_queue_wait_s"] = round(max(waits), 4)
+    # jobs with no fresh compile (the port compiles nothing per job: all)
+    fresh = [e["fresh_compiles"] for e in jobs
+             if isinstance(e.get("fresh_compiles"), int)]
+    if fresh:
+        sv["warm_jobs"] = sum(1 for f in fresh if f == 0)
+    slo_jobs = [e for e in jobs if "slo_objective_s" in e]
+    if slo_jobs:
+        slo: dict = {}
+        for e in slo_jobs:
+            row = slo.setdefault(str(e.get("method") or "-"), {
+                "objective_s": e["slo_objective_s"], "jobs": 0,
+                "breaches": 0, "max_latency_s": 0.0})
+            row["objective_s"] = e["slo_objective_s"]
+            row["jobs"] += 1
+            if not e.get("slo_ok", True):
+                row["breaches"] += 1
+            lat = e.get("slo_latency_s")
+            if isinstance(lat, (int, float)):
+                row["max_latency_s"] = max(row["max_latency_s"], lat)
+        for row in slo.values():
+            row["burn_frac"] = round(row["breaches"] / row["jobs"], 4)
+            row["max_latency_s"] = round(row["max_latency_s"], 4)
+        sv["slo"] = slo
+        sv["slo_breaches"] = sum(r["breaches"] for r in slo.values())
+    shared = [e for e in events if e["event"] == "batch_dispatch"
+              and e.get("status") == "shared"]
+    fellback = sum(1 for e in events if e["event"] == "batch_dispatch"
+                   and e.get("status") == "fallback_solo")
+    if shared or fellback:
+        bt: dict = {
+            "dispatches": len(shared),
+            "batched_jobs": sum(e.get("n_jobs", 0) for e in shared),
+            "clusters": sum(e.get("n_clusters", 0) for e in shared),
+        }
+        if shared:
+            bt["max_jobs"] = max(e.get("n_jobs", 0) for e in shared)
+            bt["mean_occupancy"] = round(
+                sum(e.get("bucket_occupancy_frac", 0.0) for e in shared)
+                / len(shared), 4)
+            bt["mean_window_wait_s"] = round(
+                sum(e.get("window_wait_s", 0.0) for e in shared)
+                / len(shared), 4)
+        if fellback:
+            bt["fallback_solo"] = fellback
+        sv["batching"] = bt
+    monos = [e["mono"] for e in jobs if isinstance(e.get("mono"),
+                                                   (int, float))]
+    anchor = (serve_ev.get("mono") if serve_ev
+              else (min(monos) if monos else 0))
+    if jobs and isinstance(anchor, (int, float)) and monos:
+        span = max(monos) - anchor
+        if span > 0:
+            sv["jobs_per_sec"] = round(len(jobs) / span, 3)
+    return sv
+
+
+def _render_serving(sv: dict, out) -> None:
+    """The daemon's line: job outcomes, warm jobs, latency, queue
+    pressure, lanes; then the shared passes and each lane's work."""
+    bits = [f"jobs_done={sv.get('jobs_done', 0)}",
+            f"failed={sv.get('jobs_failed', 0)}",
+            f"rejected={sv.get('jobs_rejected', 0)}"]
+    for key, label in (("warm_jobs", "warm"), ("mean_wall_s", None),
+                       ("max_queue_wait_s", None), ("jobs_per_sec", None),
+                       ("warmed_kernels", None), ("slo_breaches", None),
+                       ("n_workers", "workers")):
+        if key in sv:
+            bits.append(f"{label or key}={sv[key]}")
+    print(f"  serving: {' '.join(bits)}", file=out)
+    bt = sv.get("batching")
+    if bt:
+        bbits = [f"dispatches={bt.get('dispatches', 0)}",
+                 f"jobs={bt.get('batched_jobs', 0)}",
+                 f"clusters={bt.get('clusters', 0)}"]
+        for key in ("max_jobs", "mean_occupancy", "mean_window_wait_s"):
+            if key in bt:
+                bbits.append(f"{key}={bt[key]}")
+        if bt.get("fallback_solo"):
+            bbits.append(f"fallback_solo={bt['fallback_solo']}")
+        print(f"  batching: {' '.join(bbits)}", file=out)
+    workers = sv.get("workers") or {}
+    for w in sorted(workers, key=lambda k: (len(k), k)):
+        row = workers[w]
+        failed = f" failed={row['failed']}" if row.get("failed") else ""
+        print(f"    worker {w}: jobs={row['jobs']}{failed} "
+              f"busy_s={row['busy_s']}", file=out)
+
+
+def _render_slo(run: dict, out) -> None:
+    """``stats --slo``: the per-method SLO table of a serving journal."""
+    slo = (run.get("serving") or {}).get("slo")
+    if not slo:
+        print("  slo: no SLO-evaluated jobs in this journal (was the "
+              "daemon booted with --slo?)", file=out)
+        return
+    for method in sorted(slo):
+        row = slo[method]
+        print(f"  slo: method={method} objective_s={row['objective_s']} "
+              f"jobs={row['jobs']} breaches={row['breaches']} "
+              f"burn={row['burn_frac']:.1%} "
+              f"max_latency_s={row['max_latency_s']}", file=out)
+
+
+def _render_run(run: dict, out, slo: bool = False) -> None:
     print(f"{run['journal']}: {run.get('command', '?')}"
           f"/{run.get('method', '?')} backend={run.get('backend', '?')}",
           file=out)
+    live = run.get("serving")
     if not run["complete"]:
-        print("  INCOMPLETE — no run_end event (crashed or still running); "
-              f"{run['chunks']} chunk(s) journaled", file=out)
+        print("  INCOMPLETE — no run_end event ("
+              + ("live daemon or crashed" if live
+                 else "crashed or still running")
+              + f"); {run['chunks']} chunk(s) journaled", file=out)
         if "last_chunk" in run:
             lc = run["last_chunk"]
             print(f"  last heartbeat: chunk {lc['chunk_index']} "
                   f"({lc['n_clusters']} clusters, "
                   f"{lc['clusters_per_sec']:.1f} cl/s)", file=out)
+        if live:
+            _render_serving(live, out)
+            if slo:
+                _render_slo(run, out)
         return
     counters = run.get("counters", {})
     print(f"  clusters={counters.get('clusters', 0)} "
@@ -156,6 +316,10 @@ def _render_run(run: dict, out) -> None:
               f"device_idle_s={run['device_idle_s']:.3f} "
               f"overlap_efficiency={run.get('overlap_efficiency')}",
               file=out)
+    if live:
+        _render_serving(live, out)
+        if slo:
+            _render_slo(run, out)
     rb = run.get("robustness")
     if rb:
         bits = " ".join(f"{k}={rb[k]}" for k in ROBUSTNESS_EVENTS
@@ -191,11 +355,109 @@ def _render_run(run: dict, out) -> None:
         print(f"  precision: {' '.join(bits)}", file=out)
 
 
+def _read_new_events(path: str, offset: int) -> tuple[list[dict], int]:
+    """The complete journal lines past ``offset``: ``(events, new
+    offset)``.  Reads only up to the last newline, so a line being
+    written is read whole on a later poll; a missing file is nothing new;
+    a line that breaks the schema is skipped (a live tail keeps
+    rendering)."""
+    try:
+        with open(path, "rb") as fh:
+            fh.seek(offset)
+            blob = fh.read()
+    except FileNotFoundError:
+        return [], offset
+    end = blob.rfind(b"\n")
+    if end < 0:
+        return [], offset
+    chunk = blob[:end + 1]
+    events: list[dict] = []
+    for line in chunk.decode("utf-8", errors="replace").splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            rec = json.loads(line)
+        except json.JSONDecodeError:
+            continue
+        if not validate_event(rec):
+            events.append(rec)
+    return events, offset + len(chunk)
+
+
+def _poll_rotated(path: str, offset: int,
+                  segs_seen: int) -> tuple[list[dict], int, int]:
+    """One ``--follow`` poll across a rotation: when new numbered
+    segments appeared, the file being tailed was renamed; the first new
+    segment is read on from the old offset, later ones whole, then the
+    fresh live file from 0.  Returns ``(events, offset, segs_seen)``."""
+    rotated = [p for p in expand_segments(path) if p != path]
+    events: list[dict] = []
+    if len(rotated) > segs_seen:
+        for i, seg in enumerate(rotated[segs_seen:]):
+            evs, _ = _read_new_events(seg, offset if i == 0 else 0)
+            events.extend(evs)
+        segs_seen = len(rotated)
+        offset = 0
+    evs, offset = _read_new_events(path, offset)
+    events.extend(evs)
+    return events, offset, segs_seen
+
+
+def follow_stats(path: str, out=None, interval: float = 1.0, stop=None,
+                 max_updates: int = 0, top_spans: int = 0,
+                 slo: bool = False) -> int:
+    """``stats --follow``: tail one live journal and render its last run
+    again each time complete events land.  ``stop`` (a
+    ``threading.Event``) and ``max_updates`` end it from a program;
+    Ctrl-C ends it with 0."""
+    import time
+
+    out = out or sys.stdout
+    offset = 0
+    # segments rotated before the follow began are history
+    segs_seen = len([p for p in expand_segments(path) if p != path])
+    events: list[dict] = []
+    updates = 0
+    try:
+        while True:
+            new_events, offset, segs_seen = _poll_rotated(path, offset,
+                                                          segs_seen)
+            if new_events:
+                events.extend(new_events)
+                # only the last run is rendered: keep O(current run)
+                for i in range(len(events) - 1, 0, -1):
+                    if events[i]["event"] == "run_start":
+                        del events[:i]
+                        break
+                updates += 1
+                segments = _split_runs(events) or [[]]
+                print(f"--- {time.strftime('%H:%M:%S')} update {updates}: "
+                      f"{len(events)} event(s) ---", file=out)
+                _render_run(_summarize_run(path, segments[-1]), out,
+                            slo=slo)
+                if top_spans:
+                    render_top_spans(aggregate_spans([events]), top_spans,
+                                     out)
+                try:
+                    out.flush()
+                except (AttributeError, OSError):
+                    pass
+            if stop is not None and stop.is_set():
+                return 0
+            if max_updates and updates >= max_updates:
+                return 0
+            time.sleep(interval)
+    except KeyboardInterrupt:
+        return 0
+
+
 def run_stats(journal_paths: list[str], json_out: str | None = None,
-              out=None, top_spans: int = 0) -> int:
+              out=None, top_spans: int = 0, slo: bool = False) -> int:
     """Summarize the journals at ``journal_paths`` on ``out`` (stdout),
-    with the ``top_spans`` slowest spans when above 0; 1 when no file was
-    found or an event broke the schema."""
+    with the ``top_spans`` slowest spans when above 0 and, with ``slo``,
+    a serving daemon's SLO table; 1 when no file was found or an event
+    broke the schema."""
     out = out or sys.stdout
     files: list[str] = []
     for p in journal_paths:
@@ -218,7 +480,7 @@ def run_stats(journal_paths: list[str], json_out: str | None = None,
             label = path if len(segments) == 1 else f"{path}#run{i}"
             runs.append(_summarize_run(label, seg))
     for run in runs:
-        _render_run(run, out)
+        _render_run(run, out, slo=slo)
     span_rows = aggregate_spans(events_per_file) if top_spans else []
     if top_spans:
         render_top_spans(span_rows, top_spans, out)

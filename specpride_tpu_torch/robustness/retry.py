@@ -18,8 +18,6 @@ import logging
 import threading
 import time
 
-from specpride_tpu_torch.robustness import errors
-
 logger = logging.getLogger("specpride_tpu_torch")
 
 
@@ -67,6 +65,9 @@ class RetryPolicy:
         times; ``before_retry`` runs before each re-run (the write lane
         truncates a partial append there, so a retry never duplicates
         bytes).  The last error, or any permanent one, propagates."""
+        # here, not at the top: the serving client's backoff needs no torch
+        from specpride_tpu_torch.robustness import errors
+
         attempt = 0
         while True:
             try:

@@ -90,6 +90,18 @@ class Watchdog:
                 if self.on_stall is not None:
                     self.on_stall()
 
+    def stalled(self) -> list[tuple[str, float]]:
+        """The open sections the monitor flagged, ``(lane, elapsed_s)``:
+        the serving daemon's ``/healthz`` view (a section that ended
+        clears itself)."""
+        if not self.enabled:
+            return []
+        now = time.perf_counter()
+        with self._lock:
+            return [(lane, round(now - t0, 3))
+                    for key, (lane, t0) in self._sections.items()
+                    if key in self._flagged]
+
     def stop(self) -> None:
         if self._thread is not None:
             self._stop.set()

@@ -270,12 +270,14 @@ def test_package_source_imports_no_jax():
     # the port builds its own host library: none of the JAX package's
     # native libraries (native/lib*.so) is named, let alone loaded, and no
     # environment variable of the JAX package is read but the fault plan's
-    # two (robustness/faults.py arms a child process through them) and the
-    # trace context's handoff (observability/tracing.py)
+    # two (robustness/faults.py arms a child process through them), the
+    # trace context's handoff (observability/tracing.py) and the serving
+    # daemon's two (serve/protocol.py's socket, serve/ingest_cache.py's
+    # bound)
     for f in files:
         with open(f) as fh:
             text = fh.read()
-        for allowed in FAULT_PLAN_ENV + (TRACE_ENV,):
+        for allowed in FAULT_PLAN_ENV + (TRACE_ENV,) + SERVE_ENV:
             text = text.replace(allowed, "")
         for name in ("libsegsort", "libmedoid", "libcosine",
                      "libgap_average", "libmgf_parser", "SPECPRIDE_"):
@@ -284,6 +286,7 @@ def test_package_source_imports_no_jax():
 
 FAULT_PLAN_ENV = ("SPECPRIDE_FAULTS", "SPECPRIDE_FAULT_SEED")
 TRACE_ENV = "SPECPRIDE_TRACE"
+SERVE_ENV = ("SPECPRIDE_SOCKET", "SPECPRIDE_INGEST_CACHE")
 
 # the names the JAX package's lint finds its anchors by, across the whole
 # repository (specpride_tpu/analysis/core.py::Project.one_constant): a
