@@ -62,7 +62,7 @@ NVIDIA GPU:
    ``seg_mean`` and five ``seg_scan`` launches per chunk; medoid, gap f32
    and bin-mean int8 through it at the defaults; files phase: the same
    clusters as a clustered MGF written by the native writer (its first
-   2,000 clusters also by the numpy writer, the same bytes) and parsed
+   500 clusters also by the numpy writer, the same bytes) and parsed
    back by the native parser (the head also by the Python parser), the
    spectra written bit for bit; ``consensus --qc-report`` on the file as
    a subprocess, its output and report the executor's bytes; ``evaluate``
@@ -74,8 +74,8 @@ NVIDIA GPU:
    uninterrupted run;
 5. robustness: stream phase (inside the files phase): ``consensus
    --qc-report --checkpoint`` on the 1.0 GB file at the default
-   ``--stream-clusters auto`` (it streams), ``off`` and ``512``, the
-   executor's bytes each, with each run's wall, phases and peak RSS, and
+   ``--stream-clusters auto`` (it streams) and ``off``, the executor's
+   bytes each, with each run's wall, phases and peak RSS, and
    the host library's byte index timed and held to the Python scan;
    quarantine phase: CLI-2k with a truncated and an unparseable block
    under ``--on-error skip``, eager and streamed (the same output and
@@ -99,7 +99,13 @@ NVIDIA GPU:
    ``--coordinator`` ranks on the card joined by ``merge-parts``, against
    the single-process ``--mesh`` run: the medoid and int8 bytes, the f32
    bin-mean and its QC report at the tolerances with the changed bits
-   counted;
+   counted; elastic phase (``elastic_phase``): files-20k as two
+   ``--elastic`` ranks joined by ``merge-parts --elastic``, exec-20k's
+   bytes and launches, each rank's wall and peak RSS; then on CLI-2k a
+   forced steal, a killed rank taken over, an object-store run on a
+   ``cas-server`` process with the result cache's shared tier cold and
+   warm (no launch, a rank's live ``/metrics`` scraped), and ``fleet
+   --ranks 2``, each merged to the single-process bytes;
 7. telemetry phase, on CLI-2k: ``consensus --qc-report --journal
    --metrics-out --trace-dir`` on the card, the journal read back with no
    schema violation, its ``dispatch`` and ``chunk_done`` events counted
@@ -143,17 +149,18 @@ NVIDIA GPU:
    hash check and load, each timed, beside a 3-cluster CLI run's wall;
 9. prints a ``{"kernels": [...]}`` line (launches: the executor's runs at
    the defaults, the files phase's consensus runs and evaluate, the chaos
-   and real OOM runs, the bucketized, mesh and rank runs, the telemetry,
-   tracing and result-cache phases' runs, the in-process serving
-   daemons' runs) and, last, the ``{"ok": true, "device": {...}}``
-   line.
+   and real OOM runs, the bucketized, mesh and rank runs, the elastic
+   ranks whose summaries are read, the telemetry, tracing and
+   result-cache phases' runs, the in-process serving daemons' runs) and,
+   last, the ``{"ok": true, "device": {...}}`` line.
 
 Every comparison of a kernel with its plain version prints its largest
 relative error beside the tolerance.
 
 Any failed phase exits non-zero.  It exits non-zero, printing no result,
 where CUDA is unavailable or the package is not beside it.  Full
-measurements also go to ``chiprun_out/chip_smoke.json``.
+measurements, each phase's wall among them (``phase_s``), also go to
+``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -284,10 +291,17 @@ def device_split(fn, calls: int = PROFILE_CALLS):
     # on the H100 (in a full smoke, never in a short process profiling one
     # case; a try may lose the same number again in the next run, and three
     # tries in a row have lost some): a warm-up step of the same calls comes
-    # first, and a try that saw fewer kernels than calls is taken again.  A
-    # lost event can only lower the count, so one over it ends the tries.
+    # first, and a try that saw fewer kernels than calls is taken again; a
+    # count over the calls ends the tries (``one_kernel`` fails it).  A
+    # record a try lost can arrive late, in the next session (one H100 run
+    # saw 6, then 23, of 20), so before a try again an empty session takes
+    # what is left and is dropped.
     names, counts = set(), []
-    for _ in range(PROFILE_TRIES):
+    for attempt in range(PROFILE_TRIES):
+        if attempt:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]):
+                torch.cuda.synchronize()
         split = {}
         kernels = 0
         events = []  # the active step's, read before the profiler clears them
@@ -1634,7 +1648,7 @@ def cli_phase() -> dict:
     return res
 
 
-FILES_CHECK_CLUSTERS = 2_000  # the head of files-20k held to plain / CPU
+FILES_CHECK_CLUSTERS = 500  # the head of files-20k held to plain / CPU
 
 
 def same_spectra(got, want, what: str) -> None:
@@ -1679,19 +1693,27 @@ LAUNCHER = r"""
 import json, os, subprocess, sys, tempfile, time
 for line in sys.stdin:
     job = json.loads(line)
-    with tempfile.TemporaryFile() as err:
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(job["argv"], cwd=job["cwd"], env=job["env"],
-                                stdout=subprocess.DEVNULL, stderr=err)
-        if job.get("announce"):  # a long-lived child: its pid first
-            print(json.dumps({"pid": proc.pid}), flush=True)
-        _, status, usage = os.wait4(proc.pid, 0)
-        wall = time.perf_counter() - t0
+    argvs = job.get("argvs") or [job["argv"]]
+    errs = [tempfile.TemporaryFile() for _ in argvs]
+    t0 = time.perf_counter()
+    pids = [subprocess.Popen(argv, cwd=job["cwd"], env=job["env"],
+                             stdout=subprocess.DEVNULL, stderr=err).pid
+            for argv, err in zip(argvs, errs)]
+    if job.get("announce"):  # a long-lived child: its pid first
+        print(json.dumps({"pid": pids[0]}), flush=True)
+    results = [None] * len(pids)
+    for _ in pids:  # each reaped as it exits: its own wall
+        pid, status, usage = os.wait4(-1, 0)
+        results[pids.index(pid)] = {
+            "rc": os.waitstatus_to_exitcode(status),
+            "wall_s": time.perf_counter() - t0,
+            "maxrss_kib": usage.ru_maxrss}
+    for res, err in zip(results, errs):
         err.seek(0)
-        text = err.read().decode(errors="replace")
-    print(json.dumps({"rc": os.waitstatus_to_exitcode(status),
-                      "wall_s": wall, "maxrss_kib": usage.ru_maxrss,
-                      "stderr": text}), flush=True)
+        res["stderr"] = err.read().decode(errors="replace")
+        err.close()
+    print(json.dumps({"group": results} if "argvs" in job else results[0]),
+          flush=True)
 """
 _launcher: subprocess.Popen | None = None
 
@@ -1760,20 +1782,22 @@ def run_cli_rss(*argv, env=None, expect_ok: bool = True):
     return res
 
 
-STREAM_MODES = (("auto", ()), ("off", ("--stream-clusters", "off")),
-                ("512", ("--stream-clusters", "512")))
+# `auto` streams files-20k in windows of 512, the value of an explicit
+# `--stream-clusters 512`, which is therefore not run again
+STREAM_MODES = (("auto", ()), ("off", ("--stream-clusters", "off")))
 
 
 def stream_phase(src: str, head: str, work: str, exec_bytes: dict,
                  n_chunks: int) -> dict:
     """stream (files-20k): ``consensus --qc-report --checkpoint`` on the
     1.0 GB file as a subprocess at the default ``--stream-clusters auto``
-    (over 256 MB: it streams), ``off`` and ``512``: output, QC report and
-    manifest identical across the three and the executor phase's bytes,
+    (over 256 MB: it streams, in windows of 512) and ``off``: output, QC
+    report and manifest identical across the two and the executor phase's
+    bytes,
     ``n_chunks`` ``seg_mean`` and five times as many ``seg_scan``
     launches each; each run's wall, phases and peak resident set; the
     host library's byte index of the whole file timed, and on the
-    2,000-cluster head held to the Python scan."""
+    500-cluster head held to the Python scan."""
     from specpride_tpu_torch.io import mgf, native
 
     res = {}
@@ -1832,10 +1856,9 @@ def stream_phase(src: str, head: str, work: str, exec_bytes: dict,
         raise AssertionError("stream: the streamed run's peak RSS is not "
                              "below the eager run's")
     print(f"compare stream: output, QC report and manifest identical at "
-          f"--stream-clusters auto, off and 512 (= the executor phase's); "
-          f"peak RSS {res['auto']['maxrss_kib']} / {res['off']['maxrss_kib']}"
-          f" / {res['512']['maxrss_kib']} KiB (a 3-cluster run: "
-          f"{res['baseline']['maxrss_kib']})", flush=True)
+          f"--stream-clusters auto and off (= the executor phase's); peak "
+          f"RSS {res['auto']['maxrss_kib']} / {res['off']['maxrss_kib']} KiB "
+          f"(a 3-cluster run: {res['baseline']['maxrss_kib']})", flush=True)
     return res
 
 
@@ -2754,6 +2777,431 @@ def ranks_phase(src: str) -> dict:
     return res
 
 
+ELASTIC_EVERY = 128  # CLI-2k's elastic runs: 16 chunks of a 2,000 range
+ELASTIC_SLOW_S = "1.5"  # the steal's donor: a stall per dispatch
+ELASTIC_KILL_AT = "15"  # write visit: ranges 1-7 whole, range 0's 1st chunk
+
+
+def launch_group(*argvs) -> list:
+    """``python -m specpride_tpu_torch ARGV`` for each argv, started
+    together by the launcher and reaped as each exits: per child its exit
+    code, wall from the common start, peak resident set (KiB), stderr and
+    the run summary it prints last there."""
+    _launcher.stdin.write(json.dumps({
+        "argvs": [[sys.executable, "-m", "specpride_tpu_torch", *argv]
+                  for argv in argvs],
+        "cwd": ROOT, "env": dict(os.environ, PYTHONPATH=ROOT),
+    }) + "\n")
+    _launcher.stdin.flush()
+    line = _launcher.stdout.readline()
+    if not line:
+        raise AssertionError("the launcher died")
+    out = json.loads(line)["group"]
+    for argv, res in zip(argvs, out):
+        if res["rc"] != 0:
+            raise AssertionError(f"rank {argv[:2]} exited {res['rc']}:\n"
+                                 f"{res['stderr'][-3000:]}")
+        lines = res["stderr"].strip().splitlines()
+        res["summary"] = json.loads(lines[-1])
+    return out
+
+
+def rank_events(journal: str, ranks, what: str) -> list:
+    """The events of every rank's ``.part<rank>`` journal, schema-clean."""
+    from specpride_tpu_torch.observability.journal import read_events
+
+    events = []
+    for r in ranks:
+        ev, bad = read_events(f"{journal}.part{r:05d}")
+        if bad:
+            raise AssertionError(f"{what}: rank {r} journal {bad[:3]}")
+        events += ev
+    return events
+
+
+def add_launches(total: dict, *summaries) -> None:
+    for summary in summaries:
+        for k, v in summary["backend"]["launches"].items():
+            total[k] += v
+
+
+def elastic_phase(src: str, clusters, exec_bytes: dict, single: dict
+                  ) -> dict:
+    """elastic: the port's elastic runs as CLI processes on the card.
+
+    (a) elastic-20k: files-20k (the MGF written anew) as ``consensus
+    --qc-report --checkpoint-every 512 --elastic DIR``, two ranks started
+    together, joined by ``merge-parts --elastic`` in process: the output
+    and QC report exec-20k's bytes (the stream phase's single run with
+    these flags and a checkpoint), the ranks' launches summing to 40
+    ``seg_mean`` and 200 ``seg_scan``; each rank's wall, ranges and peak
+    RSS beside the single run's wall, and ``run_end.elastic``'s counters.
+    Then CLI-2k at ``--checkpoint-every 128``, each run against the
+    single-process run with a checkpoint at those chunks (in process):
+    (b) steal: one 2,048-cluster range; the donor stalls
+    ``ELASTIC_SLOW_S`` at every dispatch (``rank_slow``) and the thief
+    starts once the donor's ``lease_claim`` is journaled: a
+    ``lease_split`` paired with ``chunk_reassign via=lease_split``,
+    ``audit_elastic`` clean; (c) kill: rank 1 alone, killed by
+    ``rank_kill`` after range 0's first committed chunk, then rank 0 (in
+    process) takes it over: a ``resume`` with ``n_done`` 128,
+    ``lease_expire`` paired with ``chunk_reassign``,
+    ``audit_fault_recovery`` clean; (d) object store: a ``cas-server``
+    process, two ranks with ``--elastic URL --result-cache DIR
+    --result-store URL`` cold, then (the store's run records cleared, a
+    fresh local tier) warm: no launch, every cluster a shared hit, and
+    rank 0's ``/metrics`` scraped during the run (its first claim held
+    3 s by a ``cas`` ``rank_slow``) valid with
+    ``specpride_rank_heartbeat_age_seconds``; (e) ``fleet --ranks 2``: two
+    ``rank_spawn`` events.  Every merge gives the single-process bytes."""
+    import shutil
+    import socket
+    import tempfile
+    import urllib.request
+
+    from specpride_tpu_torch.io import mgf
+    from specpride_tpu_torch.observability.exporter import (
+        validate_exposition,
+    )
+    from specpride_tpu_torch.parallel.elastic import audit_elastic
+    from specpride_tpu_torch.parallel.store import HttpCasStore
+    from specpride_tpu_torch.robustness.faults import audit_fault_recovery
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "elastic")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    def path(name):
+        return os.path.join(work, name)
+
+    res = {"launches": {"seg_mean": 0, "seg_mean_heads": 0, "seg_scan": 0}}
+    # the object-store server imports torch while the ranks below run
+    cas = subprocess.Popen(
+        [sys.executable, "-m", "specpride_tpu_torch", "cas-server",
+         "--url-file", path("cas.url")], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    try:
+        # (a) elastic-20k
+        big = path("files20k.mgf")
+        mgf.write_mgf([s for c in clusters for s in c.members], big)
+        out, qc, journal = path("e20k.mgf"), path("e20k.qc.json"), \
+            path("e20k.jsonl")
+        ranks = launch_group(*(
+            ["consensus", big, out, "--method", "bin-mean", "--qc-report", qc,
+             "--checkpoint-every", "512", "--elastic", path("coord20k"),
+             "--process-id", str(i), "--journal", journal]
+            for i in range(2)))
+        launches = {"seg_mean": 0, "seg_mean_heads": 0, "seg_scan": 0}
+        add_launches(launches, *(r["summary"] for r in ranks))
+        if launches != {"seg_mean": 40, "seg_mean_heads": 0,
+                        "seg_scan": 200}:
+            raise AssertionError(f"elastic-20k: the ranks launched "
+                                 f"{launches}")
+        t0 = time.perf_counter()
+        merge = run_main("merge-parts", out, "--elastic", path("coord20k"),
+                         "--qc-report", qc)
+        merge_s = time.perf_counter() - t0
+        if merge["rc"] != 0:
+            raise AssertionError(f"elastic-20k merge: {merge['stderr']}")
+        if file_bytes(out, qc) != [exec_bytes["mgf"], exec_bytes["qc.json"]]:
+            raise AssertionError("elastic-20k: the merged output or QC "
+                                 "report differs from the single run's")
+        ends = [e for e in rank_events(journal, (0, 1), "elastic-20k")
+                if e["event"] == "run_end"]
+        add_launches(res["launches"], *(r["summary"] for r in ranks))
+        res["elastic-20k"] = {
+            "single_wall_s": single["wall_s"],
+            "single_maxrss_kib": single["maxrss_kib"],
+            "ranks": [{"wall_s": r["wall_s"], "maxrss_kib": r["maxrss_kib"],
+                       "phases_s": r["summary"]["phases_s"],
+                       "launches": r["summary"]["backend"]["launches"],
+                       "elastic": end["elastic"]}
+                      for r, end in zip(ranks, sorted(
+                          ends, key=lambda e: e["elastic"]["rank"]))],
+            "merge_s": merge_s,
+        }
+        os.remove(big)
+        runs = [r["elastic"]["ranges_run"]
+                for r in res["elastic-20k"]["ranks"]]
+        print(f"compare elastic-20k: two ranks + merge-parts --elastic = "
+              f"exec-20k's output and QC report bytes, launches "
+              f"{launches}; walls {[r['wall_s'] for r in ranks]} s against "
+              f"the single run's {single['wall_s']} s, peak RSS "
+              f"{[r['maxrss_kib'] for r in ranks]} KiB (single "
+              f"{single['maxrss_kib']}), ranges {runs}, run_end.elastic "
+              f"{[e['elastic'] for e in ends]}", flush=True)
+
+        # the CLI-2k reference: one process, a checkpoint at these chunks
+        ref = run_main("consensus", src, path("single.mgf"), "--qc-report",
+                       path("single.qc.json"), "--checkpoint",
+                       path("single.ck"), "--checkpoint-every",
+                       str(ELASTIC_EVERY))
+        if ref["rc"] != 0:
+            raise AssertionError(f"elastic single: {ref['stderr']}")
+        golden = file_bytes(path("single.mgf"), path("single.qc.json"))
+        ref_launches = ref["summary"]["backend"]["launches"]
+        add_launches(res["launches"], ref["summary"])
+
+        def rank_argv(rank, name, coord, *extra):
+            return ["consensus", src, path(f"{name}.mgf"), "--qc-report",
+                    path(f"{name}.qc.json"), "--checkpoint-every",
+                    str(ELASTIC_EVERY), "--elastic", coord, "--process-id",
+                    str(rank), "--journal", path(f"{name}.jsonl"), *extra]
+
+        def merged(name, coord, what):
+            got = run_main("merge-parts", path(f"{name}.mgf"), "--elastic",
+                           coord, "--qc-report", path(f"{name}.qc.json"))
+            if got["rc"] != 0:
+                raise AssertionError(f"{what} merge: {got['stderr']}")
+            if file_bytes(path(f"{name}.mgf"),
+                          path(f"{name}.qc.json")) != golden:
+                raise AssertionError(f"{what}: the merged bytes differ from "
+                                     "the single-process run's")
+
+        def child(argv, env=None):
+            err = tempfile.TemporaryFile("w+")
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "specpride_tpu_torch", *argv],
+                cwd=ROOT, env=dict(env or os.environ, PYTHONPATH=ROOT),
+                stdout=subprocess.DEVNULL, stderr=err, text=True)
+            proc.err = err
+            return proc
+
+        def finish(procs, what, rcs=(0,)):
+            out = []
+            for proc in procs:
+                rc = proc.wait(timeout=600)
+                proc.err.seek(0)
+                text = proc.err.read()
+                proc.err.close()
+                if rc not in rcs:
+                    raise AssertionError(f"{what}: a rank exited {rc}:\n"
+                                         f"{text[-3000:]}")
+                lines = text.strip().splitlines()
+                out.append(json.loads(lines[-1]) if rc == 0 else None)
+            return out
+
+        # (b) steal
+        t0 = time.perf_counter()
+        coord = path("coord_steal")
+        steal_flags = ("--elastic-range", "2048", "--elastic-ttl", "5")
+        donor = child(rank_argv(0, "steal", coord, *steal_flags),
+                      env=dict(os.environ, SPECPRIDE_FAULTS=(
+                          "dispatch:rank_slow:1:0:9999"),
+                          SPECPRIDE_SLOW_S=ELASTIC_SLOW_S))
+        procs = [donor]
+        try:
+            deadline = time.perf_counter() + 300
+            while True:
+                try:
+                    with open(path("steal.jsonl.part00000")) as fh:
+                        if '"lease_claim"' in fh.read():
+                            break
+                except OSError:
+                    pass
+                if donor.poll() is not None or time.perf_counter() > deadline:
+                    raise AssertionError("steal: the donor never claimed")
+                time.sleep(0.05)
+            claimed_s = time.perf_counter() - t0
+            procs.append(child(rank_argv(1, "steal", coord, *steal_flags)))
+            summaries = finish(procs, "steal")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        steal_wall = time.perf_counter() - t0
+        merged("steal", coord, "steal")
+        events = rank_events(path("steal.jsonl"), (0, 1), "steal")
+        splits = [e for e in events if e["event"] == "lease_split"]
+        moved = [e for e in events if e["event"] == "chunk_reassign"
+                 and e.get("via") == "lease_split"]
+        if not splits or sorted(e["new_range"] for e in splits) != sorted(
+                e["range"] for e in moved) or audit_elastic(events):
+            raise AssertionError(f"steal: splits {splits}, reassignments "
+                                 f"{moved}, audit {audit_elastic(events)}")
+        add_launches(res["launches"], *summaries)
+        res["steal"] = {"wall_s": steal_wall, "donor_claimed_s": claimed_s,
+                        "splits": [{k: e[k] for k in ("range", "new_range",
+                                                      "split_at",
+                                                      "n_clusters_split")}
+                                   for e in splits],
+                        "elastic": [s["elastic"] for s in summaries]}
+        print(f"compare elastic steal (CLI-2k): {len(splits)} lease_split "
+              f"paired with chunk_reassign via=lease_split, audit clean, "
+              f"merged bytes = the single run's; splits "
+              f"{res['steal']['splits']}, wall {steal_wall:.3f} s",
+              flush=True)
+
+        # (c) kill, then a survivor in process
+        t0 = time.perf_counter()
+        coord = path("coord_kill")
+        kill_flags = ("--elastic-range", str(2 * ELASTIC_EVERY),
+                      "--elastic-ttl", "2")
+        (victim,) = [child(rank_argv(1, "kill", coord, *kill_flags),
+                           env=dict(os.environ, SPECPRIDE_FAULTS=(
+                               f"write:rank_kill:1:{ELASTIC_KILL_AT}")))]
+        finish([victim], "kill victim", rcs=(-9, 137))
+        victim_s = time.perf_counter() - t0
+        done = sorted(os.listdir(os.path.join(coord, "done")))
+        if done != [f"range_{k:05d}.json" for k in range(1, 8)]:
+            raise AssertionError(f"kill: the victim committed {done}")
+        survivor = run_main(*rank_argv(0, "kill", coord, *kill_flags))
+        if survivor["rc"] != 0:
+            raise AssertionError(f"kill survivor: {survivor['stderr']}")
+        merged("kill", coord, "kill")
+        victim_ev = rank_events(path("kill.jsonl"), (1,), "kill victim")
+        survivor_ev = rank_events(path("kill.jsonl"), (0,), "kill survivor")
+        resumes = [e["n_done"] for e in survivor_ev if e["event"] == "resume"]
+        pair = [e["event"] for e in survivor_ev
+                if e["event"] in ("lease_expire", "chunk_reassign")]
+        merged_ev = victim_ev + survivor_ev
+        if (resumes != [ELASTIC_EVERY]
+                or pair != ["lease_expire", "chunk_reassign"]
+                or audit_elastic(merged_ev)
+                or audit_fault_recovery(merged_ev)):
+            raise AssertionError(f"kill: resumes {resumes}, events {pair}, "
+                                 f"audits {audit_elastic(merged_ev)} "
+                                 f"{audit_fault_recovery(merged_ev)}")
+        add_launches(res["launches"], survivor["summary"])
+        res["kill"] = {"victim_wall_s": victim_s,
+                       "survivor_wall_s": survivor["wall_s"],
+                       "resume_n_done": resumes[0],
+                       "elastic": survivor["summary"]["elastic"]}
+        print(f"compare elastic kill (CLI-2k): the survivor resumed "
+              f"{resumes[0]} clusters of range 0, lease_expire + "
+              f"chunk_reassign, audits clean, merged bytes = the single "
+              f"run's; victim {victim_s:.3f} s, survivor "
+              f"{survivor['wall_s']:.3f} s", flush=True)
+
+        # (d) the object store and the shared tier, cold then warm
+        url = cas.stdout.readline().strip()
+        if not url.startswith("http://"):
+            raise AssertionError(f"cas-server printed {url!r}")
+        t0 = time.perf_counter()
+        cold = launch_group(*(rank_argv(
+            i, "cold", url, "--elastic-local", path("local_cold"),
+            "--result-cache", path("tier_a"), "--result-store", url)
+            for i in range(2)))
+        cold_wall = time.perf_counter() - t0
+        merged("cold", url, "object store cold")
+        cold_launches = {"seg_mean": 0, "seg_mean_heads": 0, "seg_scan": 0}
+        add_launches(cold_launches, *(r["summary"] for r in cold))
+        if cold_launches != ref_launches:
+            raise AssertionError(f"object store cold: launches "
+                                 f"{cold_launches}, single {ref_launches}")
+        add_launches(res["launches"], *(r["summary"] for r in cold))
+        # a new run on the same store: its run records go, the cache stays
+        store = HttpCasStore(url)
+        for key in store.list_keys(""):
+            if not key.startswith("rc-"):
+                store.delete(key)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        warm_flags = ("--elastic-local", path("local_warm"),
+                      "--result-cache", path("tier_b"), "--result-store", url)
+        procs = [child(rank_argv(0, "warm", url, *warm_flags,
+                                 "--metrics-port", str(port)),
+                       env=dict(os.environ,
+                                SPECPRIDE_FAULTS="cas:rank_slow:1:0:1",
+                                SPECPRIDE_SLOW_S="3")),
+                 child(rank_argv(1, "warm", url, *warm_flags))]
+        try:
+            deadline = time.perf_counter() + 120
+            while True:
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{port}/metrics",
+                            timeout=5) as resp:
+                        text = resp.read().decode()
+                    break
+                except OSError:
+                    if (procs[0].poll() is not None
+                            or time.perf_counter() > deadline):
+                        raise AssertionError("warm: rank 0's /metrics never "
+                                             "answered")
+                    time.sleep(0.05)
+            scraped_s = time.perf_counter() - t0
+            summaries = finish(procs, "object store warm")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        warm_wall = time.perf_counter() - t0
+        problems = validate_exposition(text)
+        if problems or "specpride_rank_heartbeat_age_seconds" not in text:
+            raise AssertionError(f"warm /metrics: {problems[:3]}")
+        merged("warm", url, "object store warm")
+        warm_launches = {"seg_mean": 0, "seg_mean_heads": 0, "seg_scan": 0}
+        add_launches(warm_launches, *summaries)
+        rc_events = [e for e in rank_events(path("warm.jsonl"), (0, 1),
+                                            "warm")
+                     if e["event"] == "result_cache"]
+        shared_hits = sum(e["shared_hits"] for e in rc_events)
+        if any(warm_launches.values()) or shared_hits != len(
+                golden_ids(path("single.qc.json"))):
+            raise AssertionError(f"warm: launches {warm_launches}, shared "
+                                 f"hits {shared_hits}")
+        res["object_store"] = {
+            "cold_wall_s": cold_wall, "warm_wall_s": warm_wall,
+            "warm_scraped_s": scraped_s, "shared_hits": shared_hits,
+            "cold": [r["summary"]["elastic"] for r in cold],
+            "warm": [s["elastic"] for s in summaries],
+            "cold_maxrss_kib": [r["maxrss_kib"] for r in cold]}
+        print(f"compare elastic object store (CLI-2k, cas-server): cold "
+              f"launches = the single run's {ref_launches}, warm 0 launches "
+              f"and {shared_hits} shared hits, both merges = the single "
+              f"run's bytes; rank 0's /metrics valid with "
+              f"specpride_rank_heartbeat_age_seconds {scraped_s:.3f} s into "
+              f"the warm run; walls cold {cold_wall:.3f} s, warm "
+              f"{warm_wall:.3f} s", flush=True)
+
+        # (e) fleet
+        t0 = time.perf_counter()
+        fleet = subprocess.run(
+            [sys.executable, "-m", "specpride_tpu_torch", "fleet", "--ranks",
+             "2", "--timeout", "300", "--journal", path("fleet.jsonl"), "--",
+             "consensus", src, path("fleet.mgf"), "--qc-report",
+             path("fleet.qc.json"), "--checkpoint-every", str(ELASTIC_EVERY),
+             "--elastic", path("coord_fleet"), "--elastic-ttl", "3"],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            capture_output=True, text=True, timeout=600)
+        fleet_wall = time.perf_counter() - t0
+        if fleet.returncode != 0:
+            raise AssertionError(f"fleet exited {fleet.returncode}:\n"
+                                 f"{fleet.stderr[-3000:]}")
+        merged("fleet", path("coord_fleet"), "fleet")
+        spawns = [e["reason"] for e in job_journal(path("fleet.jsonl"),
+                                                   "fleet")
+                  if e["event"] == "rank_spawn"]
+        if spawns != ["boot", "boot"]:
+            raise AssertionError(f"fleet: rank_spawn {spawns}")
+        res["fleet"] = {"wall_s": fleet_wall,
+                        "summary": json.loads(
+                            fleet.stderr.strip().splitlines()[-1])}
+        print(f"compare elastic fleet (CLI-2k): exit 0, two rank_spawn "
+              f"(boot), merged bytes = the single run's; wall "
+              f"{fleet_wall:.3f} s", flush=True)
+    finally:
+        cas.terminate()
+        try:
+            cas.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            cas.kill()
+            cas.wait()
+    print(f"elastic {json.dumps(res)}", flush=True)
+    return res
+
+
+def golden_ids(qc_path: str) -> list:
+    with open(qc_path) as fh:
+        return [r["cluster_id"] for r in json.load(fh)["clusters"]]
+
+
 # the hand-written kernels' instantiations of seg_onepass (the name
 # device_split matches) as the profiler's trace names them: the Load of
 # seg_mean on int32 keys, the Store of seg_scan
@@ -3306,11 +3754,11 @@ t_host = time.perf_counter()
 print(json.dumps({"t_start": t_start, "t_torch": t_torch, "t_cli": t_cli,
                   "t_cuda": t_cuda, "t_lib": t_lib, "t_host": t_host}))
 """
-PROC_START_ROUNDS = 2
+PROC_START_ROUNDS = 1
 
 
 def process_start_phase(src: str) -> dict:
-    """process start: ``PROC_START`` in a child interpreter, twice: the
+    """process start: ``PROC_START`` in a child interpreter: the
     interpreter's own start (the parent's spawn to the child's first
     mark), ``import torch``, ``import specpride_tpu_torch.cli``, CUDA
     init (``torch.cuda.init()`` and a first allocation), the kernel
@@ -3725,6 +4173,20 @@ def serve_phase(kernels, src: str, clusters, exec_bytes: dict) -> dict:
     return res
 
 
+# each phase's wall (seconds), in the order run: chip_smoke.json's phase_s
+PHASE_S: dict[str, float] = {}
+
+
+def timed(phase, *args):
+    """``phase(*args)``, its wall kept in ``PHASE_S`` under its name."""
+    t0 = time.perf_counter()
+    try:
+        return phase(*args)
+    finally:
+        PHASE_S[phase.__name__.removesuffix("_phase")] = round(
+            time.perf_counter() - t0, 3)
+
+
 def main() -> int:
     start_launcher()  # before torch: see LAUNCHER
     try:
@@ -3764,45 +4226,50 @@ def smoke() -> int:
           f"{info.get('compile_seconds', 0.0):.2f} s)", flush=True)
     print(info.get("log", "").strip(), flush=True)
 
-    mres = seg_mean_phase(kernels)
-    kres = seg_scan_phase(kernels)
-    hres = seg_mean_heads_phase(kernels)
-    stres = stress_phase(kernels, lib)
-    xres = extremes_phase(kernels)
-    twores = streams_phase(kernels, lib)
+    mres = timed(seg_mean_phase, kernels)
+    kres = timed(seg_scan_phase, kernels)
+    hres = timed(seg_mean_heads_phase, kernels)
+    stres = timed(stress_phase, kernels, lib)
+    xres = timed(extremes_phase, kernels)
+    twores = timed(streams_phase, kernels, lib)
     t0 = time.perf_counter()
     clusters = make_workload(SLICE_CLUSTERS, seed=42)
-    sres = slice_phase(kernels, clusters, time.perf_counter() - t0)
+    sres = timed(slice_phase, kernels, clusters, time.perf_counter() - t0)
     slice_reps, slice_cos = sres.pop("reps"), sres.pop("cosines")
-    qres = precision_phase(kernels, clusters, slice_reps,
-                           sres["h2d_bytes"]["h2d"])
-    gres = gap_phase(kernels, clusters)
-    dres = medoid_phase(kernels, clusters)
+    qres = timed(precision_phase, kernels, clusters, slice_reps,
+                 sres["h2d_bytes"]["h2d"])
+    gres = timed(gap_phase, kernels, clusters)
+    dres = timed(medoid_phase, kernels, clusters)
     picks = dres.pop("picks")
-    selres = select_phase(kernels, clusters, picks)
-    bres = bucketized_phase(kernels, clusters, slice_reps)
-    meshres = mesh_phase(kernels, clusters, bres.pop("reps"),
-                         bres.pop("cosines"))
-    sortres = sort_split_phase(clusters, slice_reps)
-    exres = executor_phase(kernels, clusters, slice_cos, picks)
-    fres = files_phase(kernels, clusters, slice_cos, sres["cos_chunks"],
-                       exres.pop("bytes"))
+    selres = timed(select_phase, kernels, clusters, picks)
+    bres = timed(bucketized_phase, kernels, clusters, slice_reps)
+    meshres = timed(mesh_phase, kernels, clusters, bres.pop("reps"),
+                    bres.pop("cosines"))
+    sortres = timed(sort_split_phase, clusters, slice_reps)
+    exres = timed(executor_phase, kernels, clusters, slice_cos, picks)
+    exec_bytes = exres.pop("bytes")
+    fres = timed(files_phase, kernels, clusters, slice_cos,
+                 sres["cos_chunks"], exec_bytes)
     del slice_reps
-    pres = path_scan_phase(kernels, sres.pop("scan_shapes"))
-    cres = cli_phase()
+    pres = timed(path_scan_phase, kernels, sres.pop("scan_shapes"))
+    cres = timed(cli_phase)
     cli_src = os.path.join(ROOT, "build", "chip_smoke", "in.mgf")
-    killres = kill_resume_phase(cli_src)
-    quarres = quarantine_phase(cli_src)
-    chaosres = chaos_phase(cli_src)
-    oomres = real_oom_phase(kernels)
-    rankres = ranks_phase(cli_src)
-    telres = telemetry_phase(kernels, cli_src)
-    trres = tracing_phase(kernels, cli_src, clusters)
+    killres = timed(kill_resume_phase, cli_src)
+    quarres = timed(quarantine_phase, cli_src)
+    chaosres = timed(chaos_phase, cli_src)
+    oomres = timed(real_oom_phase, kernels)
+    rankres = timed(ranks_phase, cli_src)
+    elres = timed(elastic_phase, cli_src, clusters, exec_bytes,
+                  fres["stream"]["auto"])
+    del exec_bytes
+    telres = timed(telemetry_phase, kernels, cli_src)
+    trres = timed(tracing_phase, kernels, cli_src, clusters)
     exec_bytes = trres.pop("exec_bytes")
-    cacheres = result_cache_phase(kernels, cli_src, clusters, exec_bytes)
-    serveres = serve_phase(kernels, cli_src, clusters, exec_bytes)
+    cacheres = timed(result_cache_phase, kernels, cli_src, clusters,
+                     exec_bytes)
+    serveres = timed(serve_phase, kernels, cli_src, clusters, exec_bytes)
     del clusters, exec_bytes
-    startres = process_start_phase(cli_src)
+    startres = timed(process_start_phase, cli_src)
 
     main_case = mres["cases"][0]
     path_case = pres["cases"][0]
@@ -3827,6 +4294,9 @@ def smoke() -> int:
                    for what in ("journal", "gap", "evaluate"))
             + trres["all_launches"][k] + cacheres["launches"][k]
             for k in main_run}
+    # the elastic phase's ranks (their processes' own counts), its
+    # single-process reference and survivor in this process
+    elastic = elres["launches"]
     # the in-process serving daemons' runs (two lanes, then batched)
     served = {k: sum(serveres["in_process"][what]["launches"][k]
                      for what in ("two lanes", "batched"))
@@ -3839,7 +4309,8 @@ def smoke() -> int:
         "launches": (main_run["seg_mean"]
                      + fres["consensus_launches"]["seg_mean"]
                      + robust["seg_mean"] + bucket["seg_mean"]
-                     + tele["seg_mean"] + served["seg_mean"]),
+                     + tele["seg_mean"] + served["seg_mean"]
+                     + elastic["seg_mean"]),
         "max_abs_err": max(c["max_abs_err"] for c in mres["cases"]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -3853,7 +4324,8 @@ def smoke() -> int:
         "replaces": "specpride_tpu/ops/pallas_kernels.py:187",
         "launches": (heads_launches + robust["seg_mean_heads"]
                      + bucket["seg_mean_heads"] + tele["seg_mean_heads"]
-                     + served["seg_mean_heads"]),
+                     + served["seg_mean_heads"]
+                     + elastic["seg_mean_heads"]),
         "max_abs_err": max(c["max_abs_err"] for c in hres["cases"]),
         "ms": heads_case["ms"],
         "plain_ms": heads_case["plain_ms"],
@@ -3870,7 +4342,8 @@ def smoke() -> int:
                      + fres["consensus_launches"]["seg_scan"]
                      + fres["evaluate_launches"]["seg_scan"]
                      + robust["seg_scan"] + bucket["seg_scan"]
-                     + tele["seg_scan"] + served["seg_scan"]),
+                     + tele["seg_scan"] + served["seg_scan"]
+                     + elastic["seg_scan"]),
         "max_abs_err": max(
             c["max_abs_err"] for c in kres["cases"] + pres["cases"]
         ),
@@ -3893,11 +4366,11 @@ def smoke() -> int:
                    "files": fres, "cli": cres, "kill_resume": killres,
                    "quarantine": quarres, "chaos": chaosres,
                    "real_oom": oomres, "bucketized": bres,
-                   "mesh": meshres, "ranks": rankres,
+                   "mesh": meshres, "ranks": rankres, "elastic": elres,
                    "telemetry": telres, "tracing": trres,
                    "result_cache": cacheres, "serve": serveres,
                    "process_start": startres,
-                   "build": info.get("seconds"),
+                   "build": info.get("seconds"), "phase_s": PHASE_S,
                    "wall_s": time.perf_counter() - start}, fh, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

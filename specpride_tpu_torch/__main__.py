@@ -1,11 +1,13 @@
 """``python -m specpride_tpu_torch`` entry point.  ``submit`` and
-``profile`` go to the serving client before the CLI is imported, so they
-start without torch."""
+``profile`` go to the serving client, ``fleet`` and ``cas-server`` to the
+fleet module, before the CLI is imported, so they start without torch."""
 import sys
 
 if __name__ == "__main__":
     if sys.argv[1:2] in (["submit"], ["profile"]):
         from specpride_tpu_torch.serve.client import main
+    elif sys.argv[1:2] in (["fleet"], ["cas-server"]):
+        from specpride_tpu_torch.parallel.fleet import main
     else:
         from specpride_tpu_torch.cli import main
     raise SystemExit(main())

@@ -1,13 +1,17 @@
-"""Content-addressed consensus result cache, the local tier: the port's
-copy of the JAX package's ``cache/result_cache.py``.
+"""Content-addressed consensus result cache (the port's copy of the JAX
+package's ``cache/result_cache.py``), in two tiers:
 
-A bounded LOCAL tier (on-disk JSON entries, atomic rename commits,
-mtime-LRU eviction under a byte cap), keyed by ``(cluster content
-digest, method, config digest, precision, schema rev)`` (see
-:mod:`specpride_tpu_torch.cache.digest`).  The entry format, the seal and
-the keys are the JAX package's, so either package reads the other's
-entries.  The shared tier (``--result-store``) waits for the port's
-``parallel/store.py``.
+* a bounded LOCAL tier (on-disk JSON entries, atomic rename commits,
+  mtime-LRU eviction under a byte cap), ``--result-cache DIR[:MB]``;
+* a SHARED tier (``--result-store DIR|URL``) on the elastic
+  coordinator's store (:mod:`specpride_tpu_torch.parallel.store`): a
+  directory or a conditional-put object store that a whole fleet
+  populates and consults, entries under ``rc-<key>``.
+
+Entries are keyed by ``(cluster content digest, method, config digest,
+precision, schema rev)`` (see :mod:`specpride_tpu_torch.cache.digest`).
+The entry format, the seal, the keys and the shared tier's key prefix are
+the JAX package's, so either package reads the other's entries.
 
 Design invariants:
 
@@ -53,6 +57,8 @@ logger = logging.getLogger("specpride_tpu_torch.cache")
 CODE_VERSION = "rc1"
 ENTRY_VERSION = 1
 DEFAULT_MAX_MB = 256
+# the shared tier's key prefix in the store
+_SHARED_PREFIX = "rc-"
 
 # read-back outcome: the entry existed but failed its seal (quarantined,
 # counted corrupt, treated as a miss)
@@ -297,26 +303,79 @@ class LocalTier:
         }
 
 
-class ResultCache:
-    """The cache's tiers: the local one (the shared tier is not ported)."""
+class SharedTier:
+    """The fleet's tier on a coordinator ``Store`` (a directory or an
+    object-store URL), entries under ``rc-<key>``.  A create-if-absent
+    put makes racing populations harmless; an entry whose seal fails is a
+    corrupt miss and stays where it is (another reader's copy may be
+    fine, and a shared store is not this process's to quarantine)."""
 
-    def __init__(self, local: LocalTier):
+    def __init__(self, store):
+        self.store = store
+
+    def get(self, key: str):
+        try:
+            got = self.store.get(_SHARED_PREFIX + key)
+        except OSError as e:
+            logger.warning("result cache: shared-tier get failed: %s", e)
+            return None
+        if got is None:
+            return None
+        doc = got[0]
+        if not _verify(doc) or doc.get("key") != key:
+            logger.warning("result cache: shared entry for %s failed "
+                           "verification; treating as a miss", key[:16])
+            return CORRUPT
+        return doc
+
+    def put(self, key: str, entry: dict) -> None:
+        try:
+            self.store.put_new(_SHARED_PREFIX + key, entry)
+        except OSError as e:
+            logger.warning("result cache: shared-tier put failed: %s", e)
+
+    def describe(self) -> str:
+        return self.store.describe()
+
+
+class ResultCache:
+    """The two tiers: local first, then the shared one on a local miss
+    (a shared hit is copied to the local tier, so the next lookup stays on
+    the host)."""
+
+    def __init__(self, local: LocalTier, shared: SharedTier | None = None):
         self.local = local
+        self.shared = shared
 
     def lookup(self, key: str):
-        """``(entry, "local")``, or ``(None, "corrupt"|"miss")``."""
+        """``(entry, "local"|"shared")``, or ``(None, "corrupt"|"miss")``."""
         doc = self.local.get(key)
-        if doc is CORRUPT:
-            return None, "corrupt"
-        if doc is not None:
+        # a corrupt local copy falls through: the fleet's may be sound
+        corrupt = doc is CORRUPT
+        if doc is not None and not corrupt:
             return doc, "local"
-        return None, "miss"
+        if self.shared is not None:
+            doc = self.shared.get(key)
+            if doc is CORRUPT:
+                return None, "corrupt"
+            if doc is not None:
+                try:
+                    self.local.put(key, doc)
+                except OSError:
+                    pass
+                return doc, "shared"
+        return None, "corrupt" if corrupt else "miss"
 
     def populate(self, key: str, entry: dict) -> None:
         self.local.put(key, entry)
+        if self.shared is not None:
+            self.shared.put(key, entry)
 
     def info(self) -> dict:
-        return self.local.info()
+        out = self.local.info()
+        if self.shared is not None:
+            out["shared"] = self.shared.describe()
+        return out
 
 
 class RunContext:
@@ -359,6 +418,9 @@ class RunContext:
                     saved = int(rep.mz.nbytes + rep.intensity.nbytes)
                     self.counters.add("bytes_saved", saved)
                     _totals.add("bytes_saved", saved)
+                    if tier == "shared":
+                        self.counters.add("shared_hits")
+                        _totals.add("shared_hits")
                 else:
                     out[c.cluster_id] = (None, None, key)
                     self.counters.add("misses")
@@ -415,18 +477,23 @@ def parse_spec(spec: str) -> tuple[str, int]:
     return spec, DEFAULT_MAX_MB
 
 
-def build(spec: str) -> ResultCache:
-    """The cache of a ``--result-cache DIR[:MB]`` spec."""
+def build(spec: str, store_url: str | None = None) -> ResultCache:
+    """The cache of a ``--result-cache DIR[:MB]`` spec, with the shared
+    tier on ``store_url`` (``--result-store DIR|URL``) when given."""
+    from specpride_tpu_torch.parallel.store import store_from_spec
+
     root, max_mb = parse_spec(spec)
-    return ResultCache(LocalTier(root, max_mb))
+    shared = SharedTier(store_from_spec(store_url)) if store_url else None
+    return ResultCache(LocalTier(root, max_mb), shared)
 
 
-def configure(spec: str | None) -> ResultCache | None:
+def configure(spec: str | None,
+              store_url: str | None = None) -> ResultCache | None:
     """Install (or, spec None, clear) the process-wide cache.  Returns
     the installed instance."""
     global _active
     with _active_lock:
-        _active = build(spec) if spec else None
+        _active = build(spec, store_url) if spec else None
         return _active
 
 
@@ -455,7 +522,8 @@ def runtime_for(args, command: str, backend=None):
             method not in CACHEABLE_METHODS:
         return None
     spec = getattr(args, "result_cache", None)
-    cache = build(spec) if spec else active()
+    cache = (build(spec, getattr(args, "result_store", None)) if spec
+             else active())
     if cache is None:
         return None
     from specpride_tpu_torch.serve.batcher import config_digest

@@ -11,7 +11,12 @@
     python -m specpride_tpu_torch convert IN OUT --msms msms.txt \
         --clusters clusters.tsv [--raw-name NAME] [--px-accession PXD]
     python -m specpride_tpu_torch merge-parts OUT [--num-processes N] \
-        [--checkpoint BASE] [--qc-report QC.json] [--remove-parts]
+        [--checkpoint BASE | --elastic DIR|URL] [--qc-report QC.json] \
+        [--remove-parts]
+    python -m specpride_tpu_torch fleet [--ranks N] [--spares M] \
+        [--journal F] -- consensus IN OUT --elastic DIR|URL [...]
+    python -m specpride_tpu_torch cas-server [--host H] [--port P] \
+        [--url-file F]
     python -m specpride_tpu_torch plot CLUSTERED CLUSTER_ID OUT_PREFIX \
         [--consensus REPS.mgf | --peptide PEPTIDE]
     python -m specpride_tpu_torch stats JOURNAL [JOURNAL ...] [--json F] \
@@ -56,6 +61,18 @@ block of the clusters and writes ``OUT.part<I>`` (and per-rank checkpoint
 and QC report), on the bucketized layout over its own cards;
 ``merge-parts`` joins the parts in rank order into the bytes of a
 single-process run.
+
+With ``--elastic DIR|URL`` the ranks instead claim chunk ranges (twice
+``--checkpoint-every`` clusters, ``--elastic-range``) under leases from a
+shared directory or an object store (``cas-server`` is the in-tree one),
+each range run by the same executor and committed once as
+``OUT.part<range>``: a dead rank's range goes to a survivor, which
+resumes its committed chunks, and a live rank with nothing to claim
+steals the tail of a slow one's (``parallel/coordinator.py``).
+``merge-parts --elastic`` joins the parts in cluster order; ``fleet``
+keeps N such ranks running (``parallel/fleet.py``).  ``--result-store``
+adds the result cache's shared tier on such a store, and an elastic
+rank's ``--metrics-port`` serves its live ``/metrics``.
 
 ``evaluate`` scores representatives against their clusters (the mean
 binned cosine on the card, flat or with ``--layout bucketized`` / ``--mesh``
@@ -155,7 +172,14 @@ from specpride_tpu_torch.parallel.mesh import (
     initialize_distributed,
     shutdown_distributed,
 )
+from specpride_tpu_torch.parallel.coordinator import Coordinator
+from specpride_tpu_torch.parallel.elastic import sha256_file
+from specpride_tpu_torch.parallel.fleet import (
+    FLEET_COMMANDS,
+    add_fleet_parsers,
+)
 from specpride_tpu_torch.parallel.parts import merge_parts, part_path
+from specpride_tpu_torch.parallel.store import is_remote_spec
 from specpride_tpu_torch.robustness import errors, faults
 from specpride_tpu_torch.robustness.harness import Harness
 from specpride_tpu_torch.robustness.integrity import (
@@ -289,6 +313,14 @@ def build_parser() -> argparse.ArgumentParser:
     )
     pm.add_argument("--remove-parts", action="store_true",
                     help="delete the part files after a successful merge")
+    pm.add_argument(
+        "--elastic", metavar="DIR|URL",
+        help="the coordinator store of an --elastic run: its effective "
+        "ranges (stolen tails included) give the part ids and their "
+        "cluster order, and each part is verified against its range's "
+        "commit marker (size and sha256)",
+    )
+    add_fleet_parsers(sub)
 
     pp = sub.add_parser("plot", help="mirror plots for one cluster")
     pp.add_argument("clustered",
@@ -441,6 +473,10 @@ def _add_serve(sub) -> None:
     psv.add_argument("--result-cache", metavar="DIR[:MB]",
                      help="the result cache every lane shares (jobs cannot "
                      "carry their own)")
+    psv.add_argument("--result-store", metavar="DIR|URL",
+                     help="(with --result-cache) the cache's shared tier: a "
+                     "directory or an http(s):// object store (`cas-server`) "
+                     "the whole fleet populates and consults")
 
 
 def _add_layout(p: argparse.ArgumentParser) -> None:
@@ -608,6 +644,69 @@ def _add_common(p: argparse.ArgumentParser, what: str) -> None:
         "so the output and QC report bytes equal a run without the cache; "
         "a corrupt entry is quarantined and recomputed (bin-mean, "
         "gap-average and medoid)",
+    )
+    p.add_argument(
+        "--result-store", metavar="DIR|URL",
+        help="(with --result-cache) the cache's shared tier: a directory or "
+        "an http(s):// conditional-put object store (`cas-server`) that "
+        "every rank and host populates and consults",
+    )
+    _add_elastic(p)
+
+
+def _add_elastic(p: argparse.ArgumentParser) -> None:
+    """The elastic run's flags (``--elastic*``) and a rank's live
+    ``/metrics``."""
+    p.add_argument(
+        "--elastic", metavar="DIR|URL",
+        help="elastic multi-host mode: ranks claim chunk ranges under a "
+        "lease from a shared directory or, with an http(s):// URL, a "
+        "conditional-put object store (`cas-server`), and commit each "
+        "range once as <output>.part<range> with a sha256 manifest; a dead "
+        "rank's uncommitted chunks go to a survivor, a slow rank is "
+        "relieved by work stealing (--elastic-steal), and `merge-parts "
+        "OUTPUT --elastic DIR|URL` joins the single-process bytes.  The "
+        "rank is --process-id, else the lowest free one",
+    )
+    p.add_argument(
+        "--elastic-range", type=int, default=0, metavar="N",
+        help="clusters per claimable range (default 0 = twice "
+        "--checkpoint-every; a multiple of --checkpoint-every keeps the "
+        "chunks, and so the f32 bytes, of a single-process run)",
+    )
+    p.add_argument(
+        "--elastic-ttl", type=float, default=10.0, metavar="S",
+        help="lease time-to-live: a rank silent for longer than S (+50%% "
+        "grace for clock skew) loses its ranges to a survivor (default 10)",
+    )
+    p.add_argument(
+        "--elastic-heartbeat", type=float, default=0.0, metavar="S",
+        help="heartbeat and lease-renewal interval (default 0 = TTL/4)",
+    )
+    p.add_argument(
+        "--elastic-steal", choices=["on", "off"], default="on",
+        help="work stealing between live ranks (default on): a rank with "
+        "nothing to claim proposes a split of the busiest peer's range, "
+        "the donor cuts it at its next chunk boundary (lease_split) and "
+        "the tail runs as a new range; 'off' moves only dead ranks' work",
+    )
+    p.add_argument(
+        "--elastic-local", metavar="DIR",
+        help="(object-store coordinator) the directory of the per-range "
+        "resume manifests (default <output>.elastic); shared by the ranks "
+        "of one host, a takeover resumes a dead rank's committed chunks",
+    )
+    p.add_argument(
+        "--metrics-port", type=int, default=None, metavar="PORT",
+        help="(with --elastic) serve a live Prometheus /metrics and "
+        "/healthz: each rank's heartbeat age "
+        "(specpride_rank_heartbeat_age_seconds), the ranges committed, the "
+        "lease expiry, reassignment, split and steal counters, and this "
+        "rank's device series (0 = an ephemeral port)",
+    )
+    p.add_argument(
+        "--metrics-host", default="127.0.0.1", metavar="HOST",
+        help="bind address for --metrics-port (default 127.0.0.1)",
     )
 
 
@@ -1138,16 +1237,19 @@ class _CommitItem:
     everything the commit needs taken on the dispatch lane."""
 
     __slots__ = ("index", "reps", "part_ids", "qc_rows", "failed",
-                 "chunk_t0", "populate")
+                 "chunk_t0", "max_idx", "populate")
 
     def __init__(self, index, reps, part_ids, qc_rows, failed, chunk_t0,
-                 populate=None):
+                 max_idx=None, populate=None):
         self.index = index
         self.reps = reps
         self.part_ids = part_ids
         self.qc_rows = qc_rows  # the chunk's QC rows (or None)
         self.failed = failed  # sorted failures at submit time (or None)
         self.chunk_t0 = chunk_t0  # perf_counter at the chunk's start
+        # the chunk's highest cluster index in the run's input: what the
+        # elastic commit fence holds against a ratified split cut
+        self.max_idx = max_idx
         # the result cache's entries to commit after the append lands:
         # (key, rep, cluster, cosine) per cluster computed this run
         self.populate = populate
@@ -1167,7 +1269,16 @@ def _commit_chunk(item: _CommitItem, args, stats: RunStats, qc: list,
     partial append back to the offset before it (so no record is written
     twice); the manifest replace retries at ``checkpoint_write``.  The
     result cache's entries of the chunk are committed last, so a kill
-    never leaves an entry for output a resume truncates away."""
+    never leaves an entry for output a resume truncates away.
+
+    An elastic range's run (``args._elastic_fence``) first proves that
+    this rank still holds the range's lease and that the chunk lies below
+    any ratified split cut: else ``LeaseExpiredError`` (permanent) before
+    any byte lands, so a stalled or zombie rank never races the range's
+    new owner."""
+    fence = getattr(args, "_elastic_fence", None)
+    if fence is not None:
+        fence(item)
     if item.qc_rows:
         qc.extend(item.qc_rows)
     pre_bytes = (os.path.getsize(args.output)
@@ -1452,7 +1563,8 @@ def _run_chunk(backend: TorchBackend, method: str, item: _ChunkItem,
                                            hit_ids, reps, chunk_qc)
     return _CommitItem(item.index, reps, [c.cluster_id for c in part],
                        chunk_qc, sorted(failed) if failed else None,
-                       chunk_t0, populate)
+                       chunk_t0, item.idxs[-1] if item.idxs else None,
+                       populate)
 
 
 def _merge_cache_hits(rc, part, miss_part, cached, hit_ids, reps,
@@ -1601,7 +1713,7 @@ def chunk_clusters(args, can_prepare: bool, streamed: bool) -> int:
 def _checkpointed_run(backend: TorchBackend, method: str, clusters, args,
                       stats: RunStats, scores=None, qc: list | None = None,
                       quarantine: Quarantine | None = None,
-                      journal=None):
+                      journal=None, harness: Harness | None = None):
     """Chunked execution with a resume manifest.
 
     Each chunk appends to the output FIRST, then the manifest records
@@ -1615,18 +1727,23 @@ def _checkpointed_run(backend: TorchBackend, method: str, clusters, args,
     ``--inject-faults``, ``--watchdog-timeout``, ``--no-degrade``): its
     counts, with the ``quarantine``'s, go to ``stats.robustness`` however
     the run ends, and it is closed (the fault plan disarmed) in a
-    ``finally``.  ``journal`` (the run's, else none) receives the chunk,
-    checkpoint, resume and robustness events.  Returns ``(resumed ids,
-    failed ids, QC-failed ids)``."""
+    ``finally``; an elastic rank passes its own ``harness`` instead, one
+    for all its ranges (the fault plan's visit counts span them), and
+    closes it itself.  ``journal`` (the run's, else none) receives the
+    chunk, checkpoint, resume and robustness events.  Returns ``(resumed
+    ids, failed ids, QC-failed ids)``."""
     journal = journal if journal is not None else NullJournal()
-    harness = Harness.from_args(args, journal)
+    owns_harness = harness is None
+    if owns_harness:
+        harness = Harness.from_args(args, journal)
     try:
         return _checkpointed_run_impl(backend, method, clusters, args, stats,
                                       scores, qc, harness, journal)
     finally:
         stats.robustness = harness.summary(
             quarantined=quarantine.count if quarantine is not None else 0)
-        harness.close()
+        if owns_harness:
+            harness.close()
 
 
 def _checkpointed_run_impl(backend: TorchBackend, method: str, clusters,
@@ -1708,8 +1825,20 @@ def _checkpointed_run_impl(backend: TorchBackend, method: str, clusters,
     )
     idle_s = 0.0
     loop_t0 = time.perf_counter()
+    clip_fn = getattr(args, "_elastic_clip", None)
     try:
         for item in items:
+            if clip_fn is not None and item.idxs:
+                # an elastic range: before this chunk is dispatched, the
+                # coordinator ratifies a pending steal at this boundary
+                # (every chunk already dispatched commits below it) or
+                # reports the cut; the chunks past it are the thief's
+                clip = clip_fn(item.idxs[0])
+                if clip is not None and item.idxs[0] >= clip:
+                    logger.info("range split: stopping before cluster %d "
+                                "of the range (%d chunk(s) ceded)", clip,
+                                len(worklist) - item.index)
+                    break  # the finally closes the pack and staging lanes
             idle_s += item.wait_s
             if item.pack_stats is not None:
                 # pack-lane time lands in `pack`, not in the dispatch
@@ -2026,7 +2155,7 @@ def _finish_run(args, backend: TorchBackend, stats: RunStats,
         stats.count("result_cache_hits", snap["hits"])
         stats.count("result_cache_misses", snap["misses"])
     extra = {}
-    for key in ("pipeline", "robustness", "precision"):
+    for key in ("pipeline", "robustness", "precision", "elastic"):
         value = getattr(stats, key)
         if value:
             extra[key] = value
@@ -2051,17 +2180,201 @@ def _finish_run(args, backend: TorchBackend, stats: RunStats,
         logger.info("metrics -> %s", args.metrics_out)
 
 
+def _elastic_range_paths(args, k: int) -> tuple[str, str | None]:
+    """The output and QC shard range ``k`` commits: numbered by range,
+    not by rank, so the parts in cluster order are the single-process
+    output whichever rank ran what."""
+    return (part_path(args.output, k),
+            part_path(args.qc_report, k) if args.qc_report else None)
+
+
+def _run_elastic_range(args, coord, claim, clusters, backend: TorchBackend,
+                       scores, stats: RunStats, journal, harness: Harness,
+                       quarantine: Quarantine | None) -> None:
+    """One claimed range through the chunked executor, then its commit.
+
+    The range has its own part, QC shard and resume manifest (in the
+    coordinator's ``ck/``), so a takeover resumes like any checkpointed
+    run: the dead rank's committed chunks are trusted by their sha256, a
+    torn tail is truncated and only the rest is computed.  The executor's
+    two hooks bind the range: the commit fence (``commit_fence``) and the
+    dispatch lane's clip (``clip_or_ratify``), which stops at a ratified
+    steal's cut.  A lost lease abandons the range; else the commit marker
+    is created with the part's bytes and sha256 (a second marker of a
+    range loses, and both parts hold the same bytes)."""
+    k = claim.range.range_id
+    sub = clusters[claim.range.start : claim.range.stop]
+    args_k = argparse.Namespace(**vars(args))
+    args_k.output, args_k.qc_report = _elastic_range_paths(args, k)
+    args_k.checkpoint = coord.checkpoint_path(k)
+    args_k.append = False
+    args_k._elastic_fence = lambda item: coord.commit_fence(
+        k, max_idx=item.max_idx, n_clusters=len(item.part_ids),
+        chunk_t0=item.chunk_t0)
+    args_k._elastic_clip = lambda next_idx: coord.clip_or_ratify(k, next_idx)
+    qc: list | None = [] if args_k.qc_report else None
+    try:
+        resumed, failed, qc_failed = _checkpointed_run(
+            backend, args.method, sub, args_k, stats, scores, qc=qc,
+            quarantine=quarantine, journal=journal, harness=harness)
+        # a split narrowed the range: the QC shard and the commit cover
+        # [start, cut), the rest is the thief's range
+        rng = coord.effective_range(k)
+        if rng.stop < claim.range.stop:
+            sub = clusters[claim.range.start : rng.stop]
+        if qc is not None:
+            _write_qc_report(args_k, backend, sub, qc, resumed, failed,
+                             qc_failed)
+    except errors.LeaseExpiredError as e:
+        # another rank holds the range now (this one stalled past the
+        # TTL, or a chunk reached past a cut): the partial state is what
+        # its resume repairs
+        logger.warning("rank %d abandoning range %d: %s", coord.rank, k, e)
+        coord.release(k)
+        return
+    try:
+        with open(args_k.checkpoint, encoding="utf-8") as fh:
+            manifest = json.load(fh)
+    except (OSError, ValueError):
+        manifest = {}
+    output_bytes, sha = manifest.get("output_bytes"), manifest.get("sha256")
+    if not isinstance(output_bytes, int) or not sha:
+        # an empty range writes no chunk and so no manifest
+        output_bytes = os.path.getsize(args_k.output)
+        sha = sha256_file(args_k.output, output_bytes)
+    if not coord.commit(k, {"start": rng.start, "stop": rng.stop,
+                            "part": os.path.basename(args_k.output),
+                            "output_bytes": output_bytes, "sha256": sha,
+                            "n_clusters": rng.n_clusters}):
+        logger.warning("rank %d: range %d was already committed by another "
+                       "rank", coord.rank, k)
+    coord.release(k)
+
+
+def _warm_device(backend: TorchBackend) -> None:
+    """The kernel library built and loaded and the CUDA context made
+    before a rank takes any lease, so neither counts against one."""
+    if backend.device.type == "cuda":
+        import torch
+
+        from specpride_tpu_torch.ops import _build
+
+        _build.load()
+        torch.cuda.synchronize(backend.device)
+
+
+def _elastic_rank(args, quarantine: Quarantine | None) -> None:
+    """An elastic rank's identity, before its journal opens: the rank
+    (``--process-id``, else the lowest free one in the store), the
+    ``.part<rank>`` suffix of its ``--journal``, ``--metrics-out``,
+    ``--chrome-trace`` and quarantine file, and its trace context (a
+    fleet's ``SPECPRIDE_TRACE``, else the one the plan's creator
+    registered, else a new one)."""
+    if args.append:
+        raise SystemExit("--append is not supported with --elastic (each "
+                         "range owns its part file; merge with "
+                         "`merge-parts`)")
+    if args.checkpoint:
+        raise SystemExit("--checkpoint is the coordinator's with --elastic "
+                         "(per-range manifests under <DIR>/ck/, which a "
+                         "takeover resumes from); drop the flag")
+    if args.process_id is None:
+        args.process_id = Coordinator.assign_rank(args.elastic)
+    rank = args.process_id
+    for attr in ("journal", "metrics_out", "chrome_trace"):
+        if getattr(args, attr):
+            setattr(args, attr, part_path(getattr(args, attr), rank))
+    if quarantine is not None:
+        quarantine.rename(part_path(quarantine.path, rank))
+    if TraceContext.from_env() is None:
+        plan = Coordinator.read_plan(args.elastic)
+        args._trace_ctx = TraceContext.from_env((plan or {}).get("trace"))
+
+
+def _run_elastic(args, clusters, backend: TorchBackend, scores,
+                 stats: RunStats, journal,
+                 quarantine: Quarantine | None) -> dict:
+    """``--elastic DIR|URL``, the rank's loop: claim a range under a
+    lease, run and commit it (``_run_elastic_range``), again; when
+    nothing is claimable, steal the tail of a live peer's range, else wait
+    as a warm spare until every range carries a commit marker (a peer's
+    death is noticed by its lease's expiry).  ``--metrics-port`` serves
+    the rank's live ``/metrics``.  Returns the ``elastic`` summary: the
+    rank, the store, the plan and the lease counters."""
+    root, rank = args.elastic, args.process_id
+    local_dir = None
+    if is_remote_spec(root):
+        # the records live in the object store, the resume manifests (files
+        # replaced atomically) on a filesystem, shared by a host's ranks
+        local_dir = args.elastic_local or f"{args.output}.elastic"
+        os.makedirs(local_dir, exist_ok=True)
+    range_size = args.elastic_range
+    if range_size <= 0:
+        range_size = 2 * max(int(args.checkpoint_every), 1)
+    _warm_device(backend)
+    coord = Coordinator(
+        root, rank, len(clusters), range_size, ttl=args.elastic_ttl,
+        heartbeat_interval=args.elastic_heartbeat, journal=journal,
+        local_dir=local_dir, steal=args.elastic_steal != "off",
+        chunk_hint=max(int(args.checkpoint_every), 1),
+        trace=args._trace_ctx.to_env())
+    logger.info("elastic rank %d: %d ranges of <=%d clusters via %s (ttl "
+                "%.1fs, steal %s)", rank, len(coord.ranges), range_size,
+                coord.store.describe(), coord.ttl,
+                "on" if coord.steal_enabled else "off")
+    exporter = None
+    if args.metrics_port is not None:
+        from specpride_tpu_torch.observability.exporter import (
+            ElasticTelemetry,
+            MetricsExporter,
+        )
+
+        telemetry = ElasticTelemetry(coord,
+                                     extra_registries=(backend.metrics,))
+        exporter = MetricsExporter(telemetry.exposition,
+                                   host=args.metrics_host,
+                                   port=args.metrics_port,
+                                   health=telemetry.health).start()
+        logger.info("elastic liveness metrics -> %s", exporter.url)
+    # one harness for the rank's life: the fault plan's visit counts and
+    # the retry accounting span its ranges
+    harness = Harness.from_args(args, journal)
+    try:
+        while True:
+            claim = coord.claim_next()
+            if claim is None:
+                if coord.all_committed():
+                    break
+                # every open range is leased by a live peer: steal the tail
+                # of the busiest one before waiting as a warm spare
+                claim = coord.try_steal()
+            if claim is None:
+                coord.wait_for_work()
+                continue
+            _run_elastic_range(args, coord, claim, clusters, backend, scores,
+                               stats, journal, harness, quarantine)
+    finally:
+        harness.close()
+        if exporter is not None:
+            exporter.stop()
+        coord.stop()
+    return {"rank": rank, "backend": coord.store.describe(),
+            "n_ranges": len(coord.ranges), "range_size": range_size,
+            **coord.counters()}
+
+
 def _run_pipeline_command(args, backend: TorchBackend, rank: int = 0,
                           world: int = 1) -> dict:
     """THE consensus/select body: the span tracer (with ``--journal`` or
     ``--chrome-trace``), parse, the result cache's run context
-    (``--result-cache``), the rank's block of the clusters
-    (``_shard_for_process``), the journal, the chunked run (under
+    (``--result-cache``, ``--result-store``), the rank's block of the
+    clusters (``_shard_for_process``), the journal, the chunked run (under
     ``--trace-dir``'s capture), the QC report, then the precision gate
     (after the outputs, so a breach leaves them on disk to diagnose) and
     ``run_end``.  The ranks of a ``--coordinator`` run share rank 0's
-    trace context unless ``SPECPRIDE_TRACE`` hands them one.  Returns
-    the run summary."""
+    trace context unless ``SPECPRIDE_TRACE`` hands them one.  An
+    ``--elastic`` run gates first, before its rank claims any range, then
+    runs its ranges (``_run_elastic``).  Returns the run summary."""
     from specpride_tpu_torch.cache import result_cache
 
     stats = RunStats()
@@ -2081,20 +2394,37 @@ def _run_pipeline_command(args, backend: TorchBackend, rank: int = 0,
                                                       backend)
         clusters, args.output = _shard_for_process(clusters, args, rank,
                                                    world, quarantine)
+        if args.metrics_port is not None and not args.elastic:
+            logger.warning("--metrics-port serves an elastic rank's live "
+                           "metrics; ignoring it without --elastic (the "
+                           "run's metrics: --metrics-out)")
+        if args.elastic:
+            # the gate first: a reduced precision that fails it claims no
+            # range (its verdict rides the rank's run_end)
+            stats.precision = precision_gate(
+                backend, args.method, clusters, method_config(args),
+                _cosine_config(args))
+            _elastic_rank(args, quarantine)
         journal = _open_run_journal(args, backend, len(clusters))
         if quarantine is not None:
             quarantine.bind(journal)  # the blocks found while parsing
-        qc = [] if args.qc_report is not None else None
-        with device_trace(args.trace_dir, backend.device):
-            resumed, failed, qc_failed = _checkpointed_run(
-                backend, args.method, clusters, args, stats, scores, qc=qc,
-                quarantine=quarantine, journal=journal)
-        if qc is not None:
-            _write_qc_report(args, backend, clusters, qc, resumed, failed,
-                             qc_failed)
-        stats.precision = precision_gate(
-            backend, args.method, clusters, method_config(args),
-            _cosine_config(args), journal)
+        failed = ()
+        if args.elastic:
+            with device_trace(args.trace_dir, backend.device):
+                stats.elastic = _run_elastic(args, clusters, backend, scores,
+                                             stats, journal, quarantine)
+        else:
+            qc = [] if args.qc_report is not None else None
+            with device_trace(args.trace_dir, backend.device):
+                resumed, failed, qc_failed = _checkpointed_run(
+                    backend, args.method, clusters, args, stats, scores,
+                    qc=qc, quarantine=quarantine, journal=journal)
+            if qc is not None:
+                _write_qc_report(args, backend, clusters, qc, resumed,
+                                 failed, qc_failed)
+            stats.precision = precision_gate(
+                backend, args.method, clusters, method_config(args),
+                _cosine_config(args), journal)
         _finish_run(args, backend, stats, journal)
     finally:
         _restore_tracer(args)
@@ -2120,6 +2450,7 @@ def _run_pipeline_command(args, backend: TorchBackend, rank: int = 0,
         },
         **({"precision_gate": stats.precision} if stats.precision else {}),
         **({"skipped_cluster_ids": sorted(failed)} if failed else {}),
+        **({"elastic": stats.elastic} if args.elastic else {}),
     }
 
 
@@ -2244,10 +2575,11 @@ def run_trace(args) -> int:
 
 
 def run_merge_parts(args) -> int:
-    """``merge-parts``: the parts joined (``parallel.parts.merge_parts``);
-    1 with the reason on stderr when it refuses."""
+    """``merge-parts``: the parts joined (``parallel.parts.merge_parts``;
+    with ``--elastic`` in the order of the run's effective ranges); 1
+    with the reason on stderr when it refuses."""
     problem = merge_parts(args.output, args.num_processes, args.checkpoint,
-                          args.qc_report, args.remove_parts)
+                          args.qc_report, args.remove_parts, args.elastic)
     if problem is not None:
         print(problem, file=sys.stderr)
         return 1
@@ -2327,6 +2659,10 @@ def run_serve(args) -> int:
     if args.batch_max_clusters < 1:
         raise SystemExit("--batch-max-clusters must be >= 1 "
                          f"(got {args.batch_max_clusters})")
+    if args.result_store and not args.result_cache:
+        raise SystemExit("serve --result-store is the result cache's shared "
+                         "tier; it needs --result-cache DIR[:MB] for the "
+                         "local tier")
     return ServeDaemon(
         args.socket, device=args.device, max_queue=args.max_queue,
         workers=args.workers, batch_window=args.batch_window / 1000.0,
@@ -2336,7 +2672,7 @@ def run_serve(args) -> int:
         journal_rotate_mb=args.journal_rotate_mb,
         metrics_port=args.metrics_port, metrics_host=args.metrics_host,
         metrics_out=args.metrics_out, slo=slo,
-        result_cache=args.result_cache,
+        result_cache=args.result_cache, result_store=args.result_store,
     ).run()
 
 
@@ -2366,6 +2702,8 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     if args.command == "merge-parts":
         return run_merge_parts(args)
+    if args.command in FLEET_COMMANDS:
+        return FLEET_COMMANDS[args.command](args)
     try:
         backend = _make_backend(args)
     except RuntimeError as exc:  # no CUDA for the default --device cuda

@@ -12,7 +12,9 @@ exporter and SLO accounting (the port's copy of the JAX package's
 * :func:`parse_exposition` / :func:`validate_exposition`: the strict text
   format checker the tests and the smoke hold the exposition to.
 
-Series whose source the port has not got are left out: the XLA
+:class:`ElasticTelemetry` is an elastic rank's ``/metrics`` (``consensus``
+or ``select`` with ``--elastic`` and ``--metrics-port``).  Series whose
+source the port has not got are left out: the XLA
 compile-cache counters (``specpride_compile_cache_*``, no XLA), the bucket
 plan cache's (``specpride_plan_cache_*``), and the autotune and incident
 families until the port has those planes.  Counters are cumulative over
@@ -495,6 +497,96 @@ class MetricsExporter:
             self._thread.join(timeout=10)
         self._httpd = None
         self._thread = None
+
+
+# -- an elastic rank's liveness -----------------------------------------------
+
+
+class ElasticTelemetry:
+    """An elastic rank's live view (``--elastic`` with ``--metrics-port``),
+    sampled from the coordinator's store at each scrape, in the JAX
+    package's families: each rank's heartbeat age (a dying rank's climbs
+    past the lease TTL before any work is lost), the plan's ranges and
+    those committed, this rank's id, and the expiries, reassignments,
+    splits and steals this rank made.  ``extra_registries`` ride along
+    (the CLI passes the backend's, so the rank's device series are
+    scrapeable too)."""
+
+    def __init__(self, coordinator, extra_registries: tuple = ()):
+        self.coord = coordinator
+        self.extra_registries = tuple(extra_registries)
+        self._render_lock = threading.Lock()
+        self._counters_last = {"expires": 0.0, "reassigns": 0.0,
+                               "splits": 0.0, "steals": 0.0}
+        r = self.registry = MetricsRegistry()
+        self.hb_age = r.gauge(
+            "specpride_rank_heartbeat_age_seconds",
+            "seconds since each rank's last heartbeat (sampled from the "
+            "coordinator store at scrape time; past the lease TTL the rank "
+            "is presumed dead)", labels=("rank",))
+        self.ranges_total = r.gauge("specpride_elastic_ranges",
+                                    "chunk ranges in this run's work plan")
+        self.ranges_committed = r.gauge(
+            "specpride_elastic_ranges_committed",
+            "chunk ranges with a commit marker (the run is complete at "
+            "committed == total)")
+        self.rank_gauge = r.gauge(
+            "specpride_elastic_rank",
+            "this process's rank id (constant; a join key for alerts)")
+        self.lease_expires = r.counter(
+            "specpride_elastic_lease_expires_total",
+            "expired peer leases this rank observed")
+        self.reassigns = r.counter(
+            "specpride_elastic_reassignments_total",
+            "dead ranks' chunk ranges this rank took over")
+        self.splits = r.counter(
+            "specpride_elastic_lease_splits_total",
+            "work-stealing splits this rank ratified as the donor")
+        self.steals = r.counter(
+            "specpride_elastic_steals_total",
+            "split-off tails this rank claimed from slower peers")
+
+    def health(self) -> tuple[bool, str]:
+        """``/healthz``: degraded while a peer's heartbeat is stale past
+        TTL + grace with ranges left uncommitted; a peer that stopped
+        cleanly (its final ``stopped`` heartbeat) is not stale."""
+        coord = self.coord
+        threshold = coord.ttl + coord.grace
+        stale = sorted(r for r, (age, stopped)
+                       in coord.rank_heartbeat_states().items()
+                       if age > threshold and not stopped)
+        done, total = coord.done_count(), len(coord.ranges)
+        bits = f"rank={coord.rank} ranges_committed={done}/{total}"
+        if stale and done < total:
+            return False, ("stale_ranks=" + ",".join(map(str, stale))
+                           + " " + bits)
+        return True, bits
+
+    def exposition(self) -> str:
+        with self._render_lock:
+            coord = self.coord
+            # clear-and-set: a departed rank's series goes away instead of
+            # lingering at its last age
+            self.hb_age.clear()
+            for rank, age in coord.rank_heartbeat_ages().items():
+                self.hb_age.set(round(age, 3), rank=str(rank))
+            self.ranges_total.set(len(coord.ranges))
+            self.ranges_committed.set(coord.done_count())
+            self.rank_gauge.set(coord.rank)
+            for counter, attr, key in (
+                    (self.lease_expires, "lease_expires_observed",
+                     "expires"),
+                    (self.reassigns, "reassignments", "reassigns"),
+                    (self.splits, "lease_splits", "splits"),
+                    (self.steals, "steals", "steals")):
+                total = float(getattr(coord, attr, 0))
+                last = self._counters_last[key]
+                # inc(0) too: every counter exists from the first scrape
+                counter.inc(max(total - last, 0.0))
+                self._counters_last[key] = max(total, last)
+            return "".join([self.registry.to_prometheus_text()]
+                           + [x.to_prometheus_text()
+                              for x in self.extra_registries])
 
 
 # -- strict text-format checker (tests + CI) ----------------------------

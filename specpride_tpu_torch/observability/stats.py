@@ -65,6 +65,8 @@ class RunStats:
         self.robustness: dict | None = None
         # the precision gate's result (``precision_gate``), or None
         self.precision: dict | None = None
+        # an elastic rank's summary (``cli._run_elastic``), or None
+        self.elastic: dict | None = None
         self._start = time.perf_counter()
 
     def count(self, name: str, n: int = 1) -> None:
@@ -106,6 +108,7 @@ class RunStats:
             "phases_s": {k: round(v, 3) for k, v in self.phases.items()},
             **({"pipeline": self.pipeline} if self.pipeline else {}),
             **({"robustness": self.robustness} if self.robustness else {}),
+            **({"elastic": self.elastic} if self.elastic else {}),
         }
 
 

@@ -11,8 +11,11 @@ N`` adds the N slowest spans by self time (``tracing.aggregate_spans``);
 trace's critical path instead.  A serving daemon's journal renders its
 ``serving:`` line (jobs, latency, lanes, batching), with ``--slo`` the
 per-method SLO table; ``--follow`` tails one live journal, across its
-rotated segments, and renders again as events land.  Left out: the
-elastic rank view and the autotune and incident views.
+rotated segments, and renders again as events land.  An elastic rank's
+journal renders its ``elastic:`` line (``run_end.elastic``), and the
+journals read together the cross-rank view
+(``parallel.elastic.summarize_ranks``: ``--json``'s ``elastic`` key).
+Left out: the autotune and incident views.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from specpride_tpu_torch.observability.tracing import (
     aggregate_spans,
     render_top_spans,
 )
+from specpride_tpu_torch.parallel.elastic import summarize_ranks
 from specpride_tpu_torch.robustness.faults import audit_fault_recovery
 
 ROBUSTNESS_EVENTS = ("fault", "retry", "degrade", "quarantine",
@@ -105,6 +109,10 @@ def _summarize_run(path: str, events: list[dict]) -> dict:
     )
     if end.get("precision"):
         run["precision"] = end["precision"]
+    # an elastic rank's own summary; the cross-rank view is rendered from
+    # all the journals read
+    if end.get("elastic"):
+        run["elastic"] = end["elastic"]
     # the result cache's accounting, the event just before run_end
     rc_ev = next((e for e in reversed(events)
                   if e["event"] == "result_cache"), None)
@@ -279,6 +287,31 @@ def _render_slo(run: dict, out) -> None:
               f"max_latency_s={row['max_latency_s']}", file=out)
 
 
+def _render_rank_view(view: dict, out) -> None:
+    """The cross-rank view (``summarize_ranks``): one line per rank from
+    the ranks' ``.part<rank>`` journals, with the expiry and split
+    pairing audit."""
+    audit = view.get("unpaired_lease_expiries", 0)
+    state = "UNPAIRED" if audit else "unpaired"
+    print(f"ranks: {len(view.get('ranks', {}))} seen, "
+          f"{view.get('reassignments', 0)} reassignment(s), "
+          f"{view.get('lease_splits', 0)} split(s), "
+          f"{audit} {state} lease expiries/splits", file=out)
+    for rank, r in view.get("ranks", {}).items():
+        age = r.get("last_heartbeat_age_s")
+        bits = [f"last_heartbeat_age_s={age if age is not None else '-'}",
+                f"chunks={r.get('chunks_committed', 0)}",
+                f"ranges={r.get('ranges_claimed', 0)}"]
+        for key in ("takeovers", "leases_expired", "reassigned_away",
+                    "lease_splits", "steals"):
+            if r.get(key):
+                bits.append(f"{key}={r[key]}")
+        # silent past its TTL while holding leases, never expired: the
+        # rank a live fleet should be stealing from
+        slow = "slow: " if r.get("slow") else ""
+        print(f"  rank {rank}: {slow}{' '.join(bits)}", file=out)
+
+
 def _render_run(run: dict, out, slo: bool = False) -> None:
     print(f"{run['journal']}: {run.get('command', '?')}"
           f"/{run.get('method', '?')} backend={run.get('backend', '?')}",
@@ -333,6 +366,16 @@ def _render_run(run: dict, out, slo: bool = False) -> None:
           f"bucket_occupancy_frac={run['bucket_occupancy_frac']} "
           f"h2d={run['bytes_h2d']}B d2h={run['bytes_d2h']}B "
           f"peak_device_mem={run['device_peak_bytes_in_use']}B", file=out)
+    el = run.get("elastic")
+    if el:
+        extras = "".join(f" {key}={el[key]}"
+                         for key in ("lease_splits", "steals",
+                                     "cas_conflicts") if el.get(key))
+        print(f"  elastic: rank={el.get('rank')} "
+              f"ranges_run={el.get('ranges_run')}/{el.get('n_ranges')} "
+              f"committed={el.get('ranges_committed')} "
+              f"reassignments={el.get('reassignments', 0)}{extras}",
+              file=out)
     rc = run.get("result_cache")
     if rc:
         bits = [f"hits={rc['hits']}", f"misses={rc['misses']}",
@@ -436,6 +479,9 @@ def follow_stats(path: str, out=None, interval: float = 1.0, stop=None,
                       f"{len(events)} event(s) ---", file=out)
                 _render_run(_summarize_run(path, segments[-1]), out,
                             slo=slo)
+                view = summarize_ranks([segments[-1]])
+                if view is not None:
+                    _render_rank_view(view, out)
                 if top_spans:
                     render_top_spans(aggregate_spans([events]), top_spans,
                                      out)
@@ -481,6 +527,9 @@ def run_stats(journal_paths: list[str], json_out: str | None = None,
             runs.append(_summarize_run(label, seg))
     for run in runs:
         _render_run(run, out, slo=slo)
+    rank_view = summarize_ranks(events_per_file)
+    if rank_view is not None:
+        _render_rank_view(rank_view, out)
     span_rows = aggregate_spans(events_per_file) if top_spans else []
     if top_spans:
         render_top_spans(span_rows, top_spans, out)
@@ -501,6 +550,8 @@ def run_stats(journal_paths: list[str], json_out: str | None = None,
               f"{totals['compile_count']} compiles", file=out)
     if json_out:
         agg = {"v": 1, "runs": runs, "totals": totals}
+        if rank_view is not None:
+            agg["elastic"] = rank_view
         if top_spans:
             agg["top_spans"] = span_rows[:top_spans]
         with open(json_out, "w", encoding="utf-8") as fh:

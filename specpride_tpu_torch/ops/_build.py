@@ -97,10 +97,10 @@ def _run_all(cmds: list[list[str]]) -> str:
     return "".join(logs)
 
 
-def _build(nvcc: str, digest: str) -> str:
+def _build(nvcc: str, digest: str) -> tuple[str, dict]:
     """Compile each source to an object in parallel, link, and rename the
-    library into place: a reader never sees a half-written one."""
-    global build_info
+    library into place: a reader never sees a half-written one.  Returns
+    the library's path and the build's ``build_info``."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(BUILD_DIR, LIB_NAME)
     stamp = lib_path + ".sha256"
@@ -122,12 +122,11 @@ def _build(nvcc: str, digest: str) -> str:
     os.replace(tmp, lib_path)
     with open(stamp, "w") as fh:
         fh.write(digest)
-    build_info = {
+    return lib_path, {
         "seconds": time.perf_counter() - t0,
         "compile_seconds": compile_s,
         "log": log,
     }
-    return lib_path
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -153,7 +152,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def load() -> ctypes.CDLL:
     """The kernel library, built first if its sources changed."""
-    global _lib
+    global _lib, build_info
     if _lib is not None:
         return _lib
     with _lock:
@@ -164,7 +163,7 @@ def load() -> ctypes.CDLL:
                          _sources("*.cu") + _sources("*.cuh"))
         lib_path = os.path.join(BUILD_DIR, LIB_NAME)
         if not _fresh(lib_path, digest):
-            lib_path = _build(nvcc, digest)
+            lib_path, build_info = _build(nvcc, digest)
         _lib = _declare(ctypes.CDLL(lib_path))
         return _lib
 

@@ -71,6 +71,15 @@ class LaneHangError(TimeoutError):
     so the enclosing retry re-runs it."""
 
 
+class LeaseExpiredError(RuntimeError):
+    """This rank lost its lease on an elastic chunk range: another rank
+    saw it expire (a stall past the TTL) and took the range over, or the
+    range was split and the chunk lies past the cut.  Permanent: a retry
+    of the commit would race the new holder on the same part file, so the
+    rank abandons the range and claims other work (its message carries
+    none of the transient or OOM markers)."""
+
+
 def cuda_error_code(exc: BaseException) -> int | None:
     """The ``cudaError N`` a kernel wrapper put in its message, or None."""
     m = _CUDA_CODE.search(str(exc))

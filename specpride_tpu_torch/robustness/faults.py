@@ -12,11 +12,17 @@ var, so a test can arm a child process without threading flags through):
   ``d2h`` (a result copied back from the card), ``qc`` (the cosine QC
   pass), ``write`` (the MGF append), ``checkpoint_write`` (the manifest
   replace).
+  The elastic coordinator's compare-and-swap steps add ``cas`` (visited
+  only by ``--elastic`` runs).
 * ``KIND``: the error raised there: ``io`` (``OSError``), ``oom`` (a
   ``RuntimeError`` that ``errors.is_oom`` takes for a real CUDA OOM, so it
   takes the same split branch), ``malformed`` (``ValueError``), or
   ``hang`` (the site blocks until the watchdog cancels it, or a hard bound
-  expires, then raises a transient ``LaneHangError``).
+  expires, then raises a transient ``LaneHangError``); and the elastic
+  kinds: ``rank_kill`` (SIGKILL of the process at the site),
+  ``rank_slow`` (a stall of ``SPECPRIDE_SLOW_S`` seconds, default 0.5,
+  that raises nothing, so a peer's work stealing relieves the rank) and
+  ``cas_conflict`` (a lost compare-and-swap the coordinator absorbs).
 * ``RATE``: firing probability per eligible visit, drawn from
   ``sha256(seed, site, visit)``, so a plan and seed fire at the same
   visits on every run whatever the threads do.
@@ -46,12 +52,26 @@ from specpride_tpu_torch.robustness.errors import InjectedFault, LaneHangError
 # Not named FAULT_SITES, as in the JAX package: its lint (`specpride lint`)
 # finds its fault-site anchor by that name, which must stay unique in the
 # repository.
-SITES = (
+EXECUTOR_SITES = (
     "parse", "pack", "prepare", "dispatch", "d2h", "qc", "write",
     "checkpoint_write",
 )
 
-KINDS = ("io", "oom", "malformed", "hang")
+# every injectable site: the executor's and the elastic coordinator's
+# compare-and-swap steps (`cas` fires only in --elastic runs)
+SITES = EXECUTOR_SITES + ("cas",)
+
+KINDS = ("io", "oom", "malformed", "hang", "rank_kill", "rank_slow",
+         "cas_conflict")
+
+# the stall of one `rank_slow` visit when SPECPRIDE_SLOW_S is unset: a
+# slow but live rank (throttled, a noisy neighbour) that fails nothing
+DEFAULT_SLOW_S = 0.5
+
+# kinds that fail nothing, so no recovery event follows them: a slow rank
+# commits every chunk late, and the lease_split it forces is audited by
+# parallel.elastic.audit_elastic
+_SELF_RECOVERING_KINDS = frozenset({"rank_slow"})
 
 # the retry wrappers whose ``retry`` events recover a fault fired at a
 # site: the pack lane's covers everything the pack stage runs, the
@@ -66,6 +86,9 @@ _RECOVERY_SITES = {
     "qc": ("qc",),
     "write": ("write",),
     "checkpoint_write": ("checkpoint_write",),
+    # a lost compare-and-swap: the coordinator's own handler recovers it
+    # (loses gracefully and scans again), journaled as a retry at `cas`
+    "cas": ("cas",),
 }
 
 
@@ -91,6 +114,12 @@ class InjectedValueError(ValueError, InjectedFault):
 
 class InjectedHang(LaneHangError, InjectedFault):
     pass
+
+
+class InjectedCasConflict(RuntimeError, InjectedFault):
+    """A coordinator compare-and-swap that lost its race (the stand-in
+    for a real 412 or EEXIST under contention); the coordinator catches
+    it at the step and never lets it reach the executor."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,6 +244,26 @@ class FaultPlan:
 
     def _raise(self, site: str, spec: FaultSpec, visit: int) -> None:
         msg = f"injected {spec.kind} fault at {site} (visit {visit})"
+        if spec.kind == "rank_slow":
+            # slow but alive: stall, then carry on.  Nothing fails, the
+            # heartbeat keeps the lease, and the watchdog does not break
+            # it: slowness is no stall a lane can cancel
+            try:
+                slow_s = float(os.environ.get("SPECPRIDE_SLOW_S", "") or 0)
+            except ValueError:
+                slow_s = 0.0
+            time.sleep(slow_s if slow_s > 0 else DEFAULT_SLOW_S)
+            return
+        if spec.kind == "cas_conflict":
+            raise InjectedCasConflict(msg)
+        if spec.kind == "rank_kill":
+            # the rank dies at the site: no handler, no flush beyond the
+            # fault line above (the journal writes whole lines).  The
+            # recovery is a surviving rank's lease_expire + chunk_reassign
+            import signal
+
+            os.kill(os.getpid(), signal.SIGKILL)
+            time.sleep(MAX_HANG_S)  # not reached: SIGKILL is not caught
         if spec.kind == "io":
             raise InjectedOSError(msg)
         if spec.kind == "oom":
@@ -276,23 +325,35 @@ def check(site: str) -> None:
 def audit_fault_recovery(events: list[dict]) -> list[dict]:
     """Pair every journaled ``fault`` with a later recovery event: a
     ``retry`` at the fault site's wrapper (``recovery_sites_for``), a
-    ``degrade``, a ``quarantine``, a ``resume_repair`` or a
-    ``skipped_clusters`` record (the ``--on-error skip`` outcome).  Each
-    recovery backs at most one fault, and must follow it (``mono``).
-    Returns the faults left unmatched: empty when every fault recovered.
-    The JAX package's audit, without its elastic rank kinds."""
-    fired = [e for e in events if e.get("event") == "fault"]
+    ``degrade``, a ``quarantine``, a ``resume_repair``, a
+    ``skipped_clusters`` record (the ``--on-error skip`` outcome) or, for
+    a ``rank_kill`` only, a ``chunk_reassign`` (a surviving elastic rank
+    took the dead rank's range: feed the ranks' journals merged, the
+    reassignment is never in the dead rank's file).  Each recovery backs
+    at most one fault, and an in-process one must follow it (``mono``).
+    A ``rank_slow`` fails nothing and needs no recovery.  Returns the
+    faults left unmatched: empty when every fault recovered."""
+    fired = [e for e in events if e.get("event") == "fault"
+             and e.get("kind") not in _SELF_RECOVERING_KINDS]
     recoveries = [
         e for e in events
         if e.get("event") in ("retry", "degrade", "quarantine",
-                              "resume_repair", "skipped_clusters")
+                              "resume_repair", "skipped_clusters",
+                              "chunk_reassign")
     ]
     used: set[int] = set()
     unmatched = []
     for f in fired:
         sites = recovery_sites_for(f.get("site", ""))
         for i, r in enumerate(recoveries):
-            if i in used or r.get("mono", 0) < f.get("mono", 0):
+            if i in used:
+                continue
+            if r["event"] == "chunk_reassign":
+                # only a rank's death moves its range; no mono check: the
+                # reassignment is in another process's journal
+                if f.get("kind") != "rank_kill":
+                    continue
+            elif r.get("mono", 0) < f.get("mono", 0):
                 continue
             if r["event"] == "retry" and r.get("site") not in sites:
                 continue

@@ -148,10 +148,12 @@ class ServeDaemon:
         batch_window: float = 0.0,
         batch_max_clusters: int = 4096,
         result_cache: str | None = None,
+        result_store: str | None = None,
     ):
         self.socket_path = socket_path or protocol.default_socket_path()
         self.device = device
         self.result_cache = result_cache
+        self.result_store = result_store
         self.layout = layout
         self.precision = precision
         self.quotas = dict(quotas or {})
@@ -248,9 +250,11 @@ class ServeDaemon:
         if self.result_cache:
             from specpride_tpu_torch.cache import result_cache as rc_mod
 
-            cache = rc_mod.configure(self.result_cache)
-            logger.info("result cache: %s (cap %d MB)", cache.local.root,
-                        cache.local.max_bytes // (1024 * 1024))
+            cache = rc_mod.configure(self.result_cache, self.result_store)
+            logger.info("result cache: %s (cap %d MB)%s", cache.local.root,
+                        cache.local.max_bytes // (1024 * 1024),
+                        ", shared " + cache.shared.describe()
+                        if cache.shared is not None else "")
         _build.load_host()
         if self.slots[0].device.type == "cuda":
             _build.load()

@@ -63,10 +63,12 @@ SERVABLE_COMMANDS = ("consensus", "select")
 # parser has them, plus --device.  A job carrying one is rejected, never
 # silently run otherwise.  --metrics-out: the lanes' registries are
 # resident and shared across jobs (scrape /metrics, or read the drain
-# snapshot); --trace-dir: one profiler session per process (profile the
-# daemon instead); --result-cache: the tiers are the daemon's, shared by
-# every lane; --device: a job may not move a resident lane to the CPU or
-# to another card.
+# snapshot); --elastic*, --metrics-port: a job is one tenant of the
+# daemon, not a rank (it would lease ranges and bind ports inside the
+# daemon); --trace-dir: one profiler session per process (profile the
+# daemon instead); --result-cache, --result-store: the tiers are the
+# daemon's, shared by every lane; --device: a job may not move a
+# resident lane to the CPU or to another card.
 JOB_REFUSED_FLAGS = (
     "--layout",
     "--precision",
@@ -75,8 +77,13 @@ JOB_REFUSED_FLAGS = (
     "--num-processes",
     "--process-id",
     "--metrics-out",
+    "--elastic",
+    "--elastic-steal",
+    "--elastic-local",
+    "--metrics-port",
     "--trace-dir",
     "--result-cache",
+    "--result-store",
     "--device",
 )
 

@@ -159,6 +159,12 @@ def test_import_and_help_load_no_jax():
         "import specpride_tpu_torch.robustness.errors\n"
         "import specpride_tpu_torch.parallel.mesh\n"
         "import specpride_tpu_torch.parallel.parts\n"
+        "import specpride_tpu_torch.parallel.store\n"
+        "import specpride_tpu_torch.parallel.coordinator\n"
+        "import specpride_tpu_torch.parallel.elastic\n"
+        "import specpride_tpu_torch.parallel.fleet\n"
+        "import specpride_tpu_torch.cache.result_cache\n"
+        "import specpride_tpu_torch.observability.exporter\n"
         "import specpride_tpu_torch.viz\n"
         "import specpride_tpu_torch.observability.journal\n"
         "import specpride_tpu_torch.observability.registry\n"
@@ -173,7 +179,8 @@ def test_import_and_help_load_no_jax():
         "from specpride_tpu_torch.cli import main\n"
         "for argv in (['--help'], *([cmd, '--help'] for cmd in (\n"
         "        'consensus', 'select', 'evaluate', 'convert',\n"
-        "        'merge-parts', 'plot', 'stats'))):\n"
+        "        'merge-parts', 'plot', 'stats', 'fleet',\n"
+        "        'cas-server'))):\n"
         "    try:\n"
         "        main(argv)\n"
         "    except SystemExit:\n"
@@ -265,12 +272,15 @@ def test_package_source_imports_no_jax():
             "parallel/mesh.py", "parallel/parts.py", "viz.py",
             "observability/__init__.py", "observability/journal.py",
             "observability/registry.py", "observability/stats.py",
-            "observability/stats_cli.py"} <= scanned
+            "observability/stats_cli.py", "parallel/store.py",
+            "parallel/coordinator.py", "parallel/elastic.py",
+            "parallel/fleet.py"} <= scanned
     assert len(files) > 10
     # the port builds its own host library: none of the JAX package's
     # native libraries (native/lib*.so) is named, let alone loaded, and no
     # environment variable of the JAX package is read but the fault plan's
-    # two (robustness/faults.py arms a child process through them), the
+    # three (robustness/faults.py arms a child process and sets the
+    # rank_slow stall through them), the
     # trace context's handoff (observability/tracing.py) and the serving
     # daemon's two (serve/protocol.py's socket, serve/ingest_cache.py's
     # bound)
@@ -284,7 +294,8 @@ def test_package_source_imports_no_jax():
             assert name not in text, (os.path.relpath(f, REPO), name)
 
 
-FAULT_PLAN_ENV = ("SPECPRIDE_FAULTS", "SPECPRIDE_FAULT_SEED")
+FAULT_PLAN_ENV = ("SPECPRIDE_FAULTS", "SPECPRIDE_FAULT_SEED",
+                  "SPECPRIDE_SLOW_S")
 TRACE_ENV = "SPECPRIDE_TRACE"
 SERVE_ENV = ("SPECPRIDE_SOCKET", "SPECPRIDE_INGEST_CACHE")
 
@@ -505,3 +516,99 @@ def test_layout_and_split_flags_parse_like_the_jax_cli():
     for dest in ("output", "num_processes", "checkpoint", "qc_report",
                  "remove_parts"):
         assert getattr(got, dest) == getattr(want, dest), dest
+
+
+ELASTIC_ARGV = ["--elastic", "http://127.0.0.1:9", "--elastic-range", "64",
+                "--elastic-ttl", "2.5", "--elastic-heartbeat", "0.5",
+                "--elastic-steal", "off", "--elastic-local", "loc",
+                "--result-cache", "rc:64", "--result-store", "st",
+                "--metrics-port", "0", "--metrics-host", "0.0.0.0"]
+ELASTIC_DESTS = ("elastic", "elastic_range", "elastic_ttl",
+                 "elastic_heartbeat", "elastic_steal", "elastic_local",
+                 "result_cache", "result_store", "metrics_port",
+                 "metrics_host")
+
+
+def test_elastic_flags_parse_like_the_jax_cli():
+    """The elastic surface on the port's parser: the JAX CLI's dests and
+    defaults on ``consensus`` and ``select``, ``merge-parts --elastic``,
+    ``serve --result-store``, and ``fleet`` and ``cas-server``."""
+    from specpride_tpu_torch.cli import build_parser
+
+    port, jax_ap = build_parser(), jcli.build_parser()
+    for cmd in ("consensus", "select"):
+        base = [cmd, "in.mgf", "out.mgf"]
+        for argv in (base, base + ELASTIC_ARGV):
+            got, want = port.parse_args(argv), jax_ap.parse_args(argv)
+            for dest in ELASTIC_DESTS:
+                assert getattr(got, dest) == getattr(want, dest), dest
+    for argv, dests in (
+            (["merge-parts", "o.mgf", "--elastic", "d"], ("elastic",)),
+            (["serve", "--result-cache", "c", "--result-store", "s"],
+             ("result_cache", "result_store")),
+            (["fleet", "--ranks", "3", "--spares", "1", "--max-ranks", "5",
+              "--scale-horizon", "9", "--poll", "0.2", "--timeout", "60",
+              "--journal", "f.jsonl", "--", "consensus", "a", "b",
+              "--elastic", "d"],
+             ("ranks", "spares", "max_ranks", "scale_horizon", "poll",
+              "timeout", "journal", "job")),
+            (["fleet", "--", "select", "a", "b"], ("ranks", "job")),
+            (["cas-server", "--host", "0.0.0.0", "--port", "7",
+              "--url-file", "u"], ("host", "port", "url_file"))):
+        got, want = port.parse_args(argv), jax_ap.parse_args(argv)
+        for dest in dests:
+            assert getattr(got, dest) == getattr(want, dest), (argv, dest)
+    with pytest.raises(SystemExit):
+        port.parse_args(["consensus", "a", "b", "--elastic-steal", "maybe"])
+
+
+def test_fleet_spawns_the_port():
+    """The supervisor's workers run ``-m specpride_tpu_torch``: its argv is
+    built from the module's one constant, and no string of the JAX
+    package's module name is in its source."""
+    path = os.path.join(PKG, "parallel", "fleet.py")
+    tree = ast.parse(_read(path))
+    consts = {n.value for n in ast.walk(tree)
+              if isinstance(n, ast.Constant) and isinstance(n.value, str)}
+    assert "specpride_tpu_torch" in consts
+    assert "specpride_tpu" not in consts
+    from specpride_tpu_torch.parallel import fleet
+
+    sup = fleet.FleetSupervisor(["consensus", "a", "b", "--elastic",
+                                 "http://127.0.0.1:9"], ranks=1)
+    assert sup.worker_argv()[1:3] == ["-m", "specpride_tpu_torch"]
+
+
+def test_cli_elastic_refusals(tmp_path):
+    """A server without its local tier, and ``--metrics-port`` without
+    ``--elastic`` (ignored with a warning, as in the JAX CLI)."""
+    from specpride_tpu_torch import cli
+
+    with pytest.raises(SystemExit, match="result-store"):
+        cli.main(["serve", "--device", "cpu", "--result-store",
+                  str(tmp_path / "s"), "--socket", str(tmp_path / "x")])
+    out = tmp_path / "o.mgf"
+    assert cli.main(["consensus", os.path.join(DATA, "golden_clustered.mgf"),
+                     str(out), "--device", "cpu", "--metrics-port",
+                     "0"]) == 0
+    assert out.exists()
+
+
+@pytest.mark.parametrize("command", ["fleet", "cas-server"])
+def test_fleet_and_cas_server_start_without_torch(command):
+    """``python -m specpride_tpu_torch fleet|cas-server`` go to the fleet
+    module before the CLI is imported: the supervisor and the store
+    server never import torch (the workers a fleet spawns do)."""
+    code = (
+        "import sys, runpy\n"
+        f"sys.argv = ['specpride_tpu_torch', {command!r}, '--help']\n"
+        "try:\n"
+        "    runpy.run_module('specpride_tpu_torch', run_name='__main__')\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "print('TORCH', 'torch' in sys.modules)\n"
+    )
+    proc = _run("-c", code)
+    assert proc.returncode == 0, proc.stderr
+    assert "TORCH False" in proc.stdout
+    assert "--url-file" in proc.stdout or "--ranks" in proc.stdout

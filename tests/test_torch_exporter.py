@@ -15,6 +15,7 @@ observation per dispatch)."""
 
 import fnmatch
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -269,3 +270,64 @@ def test_dispatches_land_in_the_dispatch_histogram():
     for kernel, n in dispatches.items():
         assert hist[kernel]["count"] == n
         assert hist[kernel]["sum"] >= 0
+
+
+# -- an elastic rank's /metrics (ElasticTelemetry) ---------------------------
+
+
+def _families(text):
+    """``{(name, labels): value}`` of a valid exposition."""
+    samples, problems = exporter.parse_exposition(text)
+    assert problems == []
+    return samples
+
+
+def test_elastic_telemetry_matches_the_jax_exposition(tmp_path):
+    """For one coordinator state, the port's ``ElasticTelemetry`` and the
+    JAX package's render the same families, types and samples (each
+    rank's heartbeat age is sampled at its own scrape, so only its label
+    set is compared); both validators pass, counters mirror by delta, and
+    ``/healthz`` turns degraded on a stale peer with ranges left."""
+    from specpride_tpu_torch.parallel.coordinator import Coordinator
+
+    coord = Coordinator(str(tmp_path), 0, 8, 4, ttl=5.0)
+    peer = Coordinator(str(tmp_path), 3, 8, 4, ttl=5.0)
+    try:
+        coord.commit(0, {"output_bytes": 0, "sha256": "x"})
+        coord.lease_expires_observed, coord.reassignments = 2, 1
+        coord.lease_splits, coord.steals = 1, 3
+        backend = TorchBackend(device="cpu")
+        tel = exporter.ElasticTelemetry(coord,
+                                        extra_registries=(backend.metrics,))
+        jtel = jexporter.ElasticTelemetry(coord,
+                                          extra_registries=(backend.metrics,))
+        text, jtext = tel.exposition(), jtel.exposition()
+        assert exporter.validate_exposition(text) == []
+        assert jexporter.validate_exposition(text) == []
+        got, want = _families(text), _families(jtext)
+        assert sorted(got) == sorted(want)
+        age = "specpride_rank_heartbeat_age_seconds"
+        assert sorted(labels for name, labels in got if name == age) == [
+            (("rank", "0"),), (("rank", "3"),)]
+        assert {k: v for k, v in got.items() if k[0] != age} == {
+            k: v for k, v in want.items() if k[0] != age}
+        assert "specpride_elastic_ranges 2" in text
+        assert "specpride_elastic_ranges_committed 1" in text
+        assert "specpride_elastic_lease_expires_total 2" in text
+        assert "specpride_elastic_steals_total 3" in text
+        # a second scrape does not count twice
+        assert "specpride_elastic_lease_expires_total 2" in tel.exposition()
+        assert tel.health() == jtel.health()
+        assert tel.health()[0]
+        # the peer falls silent mid-run: degraded, in both packages
+        peer._stop.set()
+        peer._hb_thread.join()
+        real_now = time.time
+        coord.store._now = lambda: real_now() + 60.0
+        assert tel.health() == jtel.health()
+        ok, detail = tel.health()
+        # the skewed clock ages this rank's own beat too
+        assert not ok and detail.startswith("stale_ranks=0,3 rank=0")
+    finally:
+        coord.stop()
+        peer.stop()

@@ -433,3 +433,83 @@ def test_kill_and_resume_with_the_cache_gives_the_cache_off_bytes(
     ev = _rc_event(_events(jp))
     assert ev["hits"] + ev["misses"] == N_CLUSTERS - 6
     assert ev["hits"] == (N_CLUSTERS - 6 if warm else 0)
+
+
+# -- the shared tier (--result-store) ----------------------------------------
+
+
+def test_shared_tier_contract_and_cross_package_reads(tmp_path, rng):
+    """The port's ``SharedTier`` on a directory store: a put is
+    create-if-absent under ``rc-<key>``, the JAX ``SharedTier`` reads it
+    (and the port reads the JAX one's), a tampered entry is a corrupt
+    miss left in place, and a shared hit is copied to the local tier."""
+    from specpride_tpu.parallel.store import FsStore as JFsStore
+    from specpride_tpu_torch.parallel.store import FsStore
+
+    shared = rc.SharedTier(FsStore(str(tmp_path / "store")))
+    jshared = jrc.SharedTier(JFsStore(str(tmp_path / "store")))
+    key, jkey = "d" * 64, "e" * 64
+    c, entry = _entry_for(rng, key)
+    shared.put(key, entry)
+    shared.put(key, dict(entry, cosine=0.1))  # the first put stays
+    assert os.path.exists(tmp_path / "store" / f"rc-{key}")
+    assert jshared.get(key) == shared.get(key) == entry
+    _, jentry = _entry_for(rng, jkey, cid="c-j")
+    jshared.put(jkey, jentry)
+    assert shared.get(jkey) == jentry
+    assert shared.describe() == jshared.describe()
+    path = tmp_path / "store" / f"rc-{key}"
+    path.write_text(path.read_text().replace('"cosine": 0.99',
+                                             '"cosine": 0.5'))
+    assert shared.get(key) is rc.CORRUPT and path.exists()
+    cache = rc.ResultCache(rc.LocalTier(str(tmp_path / "local")), shared)
+    assert cache.lookup(key) == (None, "corrupt")
+    doc, tier = cache.lookup(jkey)
+    assert doc == jentry and tier == "shared"
+    assert cache.lookup(jkey) == (jentry, "local")
+    assert cache.info()["shared"] == f"filesystem:{tmp_path / 'store'}"
+
+
+@pytest.mark.parametrize("method,command", METHODS)
+def test_a_fleet_warms_through_the_shared_tier(tmp_path, workload, method,
+                                               command):
+    """A cold run with local tier A and ``--result-store S`` populates S;
+    a run with a fresh local tier B and S replays every cluster from S
+    (``shared_hits``), dispatches nothing and writes the bytes of a run
+    without the cache.  The JAX ``SharedTier`` finds every entry under
+    the JAX key of the same cluster and configuration."""
+    from specpride_tpu.parallel.store import FsStore as JFsStore
+
+    store = str(tmp_path / "store")
+    outs = {}
+    for mode, tier in (("off", None), ("cold", "A"), ("warm", "B")):
+        out, qc = tmp_path / f"{mode}.mgf", tmp_path / f"{mode}.qc.json"
+        flags = ["--method", method, "--qc-report", str(qc), "--journal",
+                 str(tmp_path / f"{mode}.jsonl")]
+        if tier:
+            flags += ["--result-cache", str(tmp_path / tier),
+                      "--result-store", store]
+        _run(command, workload, out, *flags)
+        outs[mode] = (out.read_bytes(), qc.read_bytes())
+    assert outs["cold"] == outs["off"] == outs["warm"]
+    ev = _rc_event(_events(tmp_path / "warm.jsonl"))
+    assert (ev["hits"], ev["shared_hits"], ev["misses"]) == (
+        N_CLUSTERS, N_CLUSTERS, 0)
+    assert not any(e["event"] == "dispatch"
+                   for e in _events(tmp_path / "warm.jsonl"))
+    args = jbuild_parser().parse_args([
+        command, workload, "o.mgf", "--method", method, "--qc-report",
+        "q.json", "--checkpoint-every", "3"])
+    jctx = jrc.RunContext(jrc.ResultCache(jrc.LocalTier(str(tmp_path / "x"))),
+                          method, jbatcher.config_digest(args, command),
+                          "f32")
+    from specpride_tpu.io.mgf import read_mgf as jread_mgf
+    from specpride_tpu.data.peaks import group_into_clusters as jgroup
+
+    jshared = jrc.SharedTier(JFsStore(store))
+    clusters = jgroup(jread_mgf(workload, use_native=False))
+    assert len(clusters) == N_CLUSTERS
+    for c in clusters:
+        doc = jshared.get(jctx.key_of(c))
+        assert doc is not None and doc is not jrc.CORRUPT
+        assert jrc._verify(doc)

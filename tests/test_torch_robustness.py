@@ -120,13 +120,24 @@ class TestFaultPlan:
 
     @pytest.mark.parametrize("bad", [
         "nope:io:1", "dispatch:nope:1", "dispatch:io:2", "dispatch:io", "",
-        "dispatch:io:1:-1", "cas:io:1", "dispatch:rank_kill:1",
+        "dispatch:io:1:-1", "cas:nope:1", "dispatch:rank_kill:2",
     ])
     def test_bad_specs_rejected(self, bad):
-        """The JAX package's refusals, and the elastic sites and kinds the
-        port has no run for yet."""
+        """The JAX package's refusals, the elastic site and kinds
+        included."""
         with pytest.raises(ValueError):
             FaultPlan.parse(bad)
+        with pytest.raises(ValueError):
+            jfaults.FaultPlan.parse(bad)
+
+    @pytest.mark.parametrize("text", [
+        "cas:io:1", "dispatch:rank_kill:1", "write:rank_kill:1:3",
+        "dispatch:rank_slow:1:0:9999", "cas:cas_conflict:0.5:1:4",
+    ])
+    def test_elastic_site_and_kinds_parse_like_jax(self, text):
+        got = FaultPlan.parse(text, seed=3)
+        assert got.summary() == jfaults.FaultPlan.parse(text,
+                                                        seed=3).summary()
 
     @pytest.mark.parametrize("seed", [0, 11, 12])
     @pytest.mark.parametrize("text", [

@@ -209,6 +209,12 @@ class TestAdmission:
         (["--devic=cpu"], "--device"),
         (["--result-cache", "x"], "--result-cache"),
         (["--precision", "bf16"], "--precision"),
+        (["--elastic", "coord"], "--elastic"),
+        (["--elastic-steal", "off"], "--elastic-steal"),
+        (["--elastic-local", "loc"], "--elastic-local"),
+        (["--metrics-port", "0"], "--metrics-port"),
+        (["--result-store", "http://127.0.0.1:9"], "--result-store"),
+        (["--result-stor=s"], "--result-store"),  # a prefix spelling
     ])
     def test_refused_flags_rejected_permanently(self, tmp_path, workload,
                                                 daemon, argv_tail, flag):
@@ -743,3 +749,46 @@ def test_submit_child_imports_no_torch(tmp_path, workload, daemon):
         assert proc.returncode == 0, proc.stderr
         assert f"RC {want} TORCH False" in proc.stdout, proc.stdout
     assert (tmp_path / "o.mgf").exists()
+
+
+def test_daemon_boot_configures_the_shared_tier(tmp_path, workload,
+                                                request):
+    """``serve --result-cache --result-store``: the boot installs both
+    tiers, a job populates the shared store, and a second daemon with a
+    fresh local tier serves the job again from the shared one (every
+    cluster a shared hit) with the same bytes."""
+    from specpride_tpu_torch.cache import result_cache as rc_mod
+
+    store = str(tmp_path / "store")
+    outs = []
+    # the cache's process totals are shared: zero them before and after,
+    # so no other test's exposition counts these hits
+    rc_mod.reset()
+    request.addfinalizer(rc_mod.reset)
+    for i in range(2):
+        d = ServeDaemon(str(tmp_path / f"s{i}.sock"), device="cpu",
+                        workers=1, result_cache=str(tmp_path / f"tier{i}"),
+                        result_store=store)
+        t = _start(d)
+        try:
+            cache = rc_mod.active()
+            assert cache.shared is not None
+            assert cache.shared.describe() == f"filesystem:{store}"
+            out, journal = tmp_path / f"o{i}.mgf", tmp_path / f"j{i}.jsonl"
+            term = sc.submit_wait(d.socket_path, [
+                "consensus", workload, str(out), "--journal", str(journal)],
+                timeout=JOIN_S)
+            assert term["status"] == "done", term
+            outs.append(_read(out))
+        finally:
+            _stop(d, t)
+        assert rc_mod.active() is None  # the drain uninstalls it
+        events, _ = read_events(str(journal))
+        ev = [e for e in events if e["event"] == "result_cache"][-1]
+        if i == 0:
+            assert ev["shared_hits"] == 0 and ev["populated"] > 0
+            assert any(n.startswith("rc-") for n in os.listdir(store))
+        else:
+            assert ev["shared_hits"] == ev["hits"] > 0
+            assert ev["misses"] == ev["populated"] == 0
+    assert outs[0] == outs[1]
