@@ -45,16 +45,19 @@ NVIDIA GPU:
    zeroed just before it; then ``seg_scan`` against its plain version and
    timed at the path's largest scans;
 4. CLI phase: ``python -m specpride_tpu_torch consensus`` with
-   ``--qc-report``, with ``--method gap-average --qc-report`` and with
-   ``--precision int8`` on a 2,000-cluster MGF, each against a CPU run;
+   ``--qc-report`` (a child process: the CLI's wall), then in this
+   process (``cli.main``) with ``--method gap-average --qc-report`` and
+   with ``--precision int8`` on a 2,000-cluster MGF, each against a CPU
+   run;
    ``select --method medoid --qc-report``, ``select --method best --msms
    --qc-report`` and ``select --precision bf16`` on the golden clustered
    MGF, each against the port's ``--device cpu`` run;
-   host sort phase: the packs' segmented sorts and searches on slice-20k
-   (consensus pack, QC member prep, QC rep sort, cosine chunk search,
-   medoid per-row sort, gap pack, and the consensus pack's dedup
-   lexsort), native (``ops/csrc/segsort.cpp``) against plain numpy,
-   identical, each beside its stage's wall, with the host's core count;
+   host sort phase: the packs' segmented sorts and searches on
+   slice-20k's first 5,000 clusters (consensus pack, QC member prep, QC
+   rep sort, cosine chunk search, medoid per-row sort, gap pack, and the
+   consensus pack's dedup lexsort), native (``ops/csrc/segsort.cpp``)
+   against plain numpy, identical, each beside its stage's wall, with the
+   host's core count;
    executor phase: slice-20k with QC through the CLI's
    chunked executor (``cli._checkpointed_run``, 512 clusters a chunk) at
    ``--prefetch 0``, the defaults, ``--h2d-buffer 2`` and ``--pack-workers
@@ -105,7 +108,9 @@ NVIDIA GPU:
    forced steal, a killed rank taken over, an object-store run on a
    ``cas-server`` process with the result cache's shared tier cold and
    warm (no launch, a rank's live ``/metrics`` scraped), and ``fleet
-   --ranks 2``, each merged to the single-process bytes;
+   --ranks 2``, each merged to the single-process bytes, and a custom
+   ``--elastic-range`` off the ``--checkpoint-every`` grid, its changed
+   peaks and largest relative errors beside the tolerances;
 7. telemetry phase, on CLI-2k: ``consensus --qc-report --journal
    --metrics-out --trace-dir`` on the card, the journal read back with no
    schema violation, its ``dispatch`` and ``chunk_done`` events counted
@@ -133,8 +138,9 @@ NVIDIA GPU:
    walls; serve phase: a daemon process (``serve --journal
    --metrics-port 0 --metrics-out``), its spawn-to-ping wall and
    ``boot_s``; CLI-2k's bin-mean with QC, gap-average and medoid with QC
-   as ``submit`` children (no torch imported) beside cold one-shot CLI
-   children on the same argv, the same bytes, the job journals clean and
+   as ``submit`` children (no torch imported) beside the one-shot CLI on
+   the same argv (a cold child for bin-mean, in this process for the
+   others), the same bytes, the job journals clean and
    the bin-mean job's 4 + 4 ``dispatch`` events; ``profile --seconds 2``
    during a CLI-2k job (both kernels in the trace); files-20k twice (the
    MGF written anew; exec-20k's bytes, the repeat an ingest-cache hit),
@@ -143,7 +149,16 @@ NVIDIA GPU:
    and counting every job); then daemons in this process: CLI-2k's
    halves on two lanes of the card (two streams) and as one batched pair
    (``--batch-window 50``), each time the halves' solo bytes, with the
-   launches of each step against the solo runs'; process-start phase: a
+   launches of each step against the solo runs'; flightrec phase: two
+   daemon processes with and without ``--flightrec on`` taking CLI-2k jobs
+   in turns under a 1 ms SLO (the golden bytes, one bundled
+   ``slo_breach`` incident, ``incidents list|show|export``,
+   ``incident-replay``, both drains exiting 0, the submit walls and the
+   bundle's dump seconds and bytes), elastic ranks with ``--flightrec
+   on`` and an injected retry (``retry_exhaust``, the coordinator's
+   counters in the bundle), ``off`` and no flag (the same launches and
+   bytes), and ``fleet --flightrec observe`` (no torch in the
+   supervisor, its journal replayed clean); process-start phase: a
    child interpreter's start,
    ``import torch``, the package's import, CUDA init, the two libraries'
    hash check and load, each timed, beside a 3-cluster CLI run's wall;
@@ -151,7 +166,8 @@ NVIDIA GPU:
    the defaults, the files phase's consensus runs and evaluate, the chaos
    and real OOM runs, the bucketized, mesh and rank runs, the elastic
    ranks whose summaries are read, the telemetry, tracing and
-   result-cache phases' runs, the in-process serving daemons' runs) and,
+   result-cache phases' runs, the in-process serving daemons' runs, the
+   flight-recorder phase's daemons and ranks) and,
    last, the ``{"ok": true, "device": {...}}`` line.
 
 Every comparison of a kernel with its plain version prints its largest
@@ -266,6 +282,28 @@ def time_ms(fn, reps: int = 25, warm: int = 3, lead_in: bool = True) -> float:
 
 
 PROFILE_CALLS = 20
+PROFILE_PAD_S = 0.05  # idle host time at each end of a first profiled try
+
+
+def profile_try(fn, calls: int, pad_s: float):
+    """One try of ``device_split``: a session of ``calls`` calls that is
+    dropped, then a session of the same calls between two idle stretches
+    of ``pad_s``; the second session's key averages."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        time.sleep(pad_s)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+    return prof.key_averages()
 
 
 def device_split(fn, calls: int = PROFILE_CALLS):
@@ -273,12 +311,12 @@ def device_split(fn, calls: int = PROFILE_CALLS):
     CUDA kernel it launches, in µs per call (``torch.profiler`` over
     ``calls`` calls, from the last try; None where the profiler saw no
     device time), the host's time to enqueue one call, in µs (host clock,
-    no synchronize inside the loop), the kernel names seen in any try, and
-    the CUDA kernels each try saw."""
+    no synchronize inside the loop), the kernel names seen in any try, the
+    CUDA kernels each try saw and the host's kernel launch calls
+    (``cudaLaunchKernel``) each try saw."""
     import re
 
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
@@ -287,37 +325,28 @@ def device_split(fn, calls: int = PROFILE_CALLS):
         fn()
     host_us = (time.perf_counter() - t0) / calls * 1e6
     torch.cuda.synchronize()
-    # The profiler has returned none or only some of a step's device events
-    # on the H100 (in a full smoke, never in a short process profiling one
-    # case; a try may lose the same number again in the next run, and three
-    # tries in a row have lost some): a warm-up step of the same calls comes
-    # first, and a try that saw fewer kernels than calls is taken again; a
-    # count over the calls ends the tries (``one_kernel`` fails it).  A
-    # record a try lost can arrive late, in the next session (one H100 run
-    # saw 6, then 23, of 20), so before a try again an empty session takes
-    # what is left and is dropped.
-    names, counts = set(), []
+    # The profiler has returned none or only some of a session's device
+    # records on the H100, while it saw every host launch call: a cold
+    # first session, a record that arrived late, in the next session (6,
+    # then 23, of 20 kernels), and the first records of a scheduled
+    # profile's active step, 3-18 of 20 in a short process and 5 of 20 in
+    # each of ten tries late in a full smoke, whether or not the step
+    # idled 50 ms at its ends (kept kernel records have borne times up to
+    # 1.7 ms before their launch calls).  So a try
+    # (``profile_try``) has no warm-up step: a dropped session of the
+    # same calls comes first and takes what is late, the calls sit
+    # between idle stretches that double from PROFILE_PAD_S with each
+    # try, and a try that saw fewer kernels than calls is taken again; a
+    # count over the calls ends the tries (``one_kernel`` fails it).
+    names, counts, launched = set(), [], []
     for attempt in range(PROFILE_TRIES):
-        if attempt:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]):
-                torch.cuda.synchronize()
         split = {}
-        kernels = 0
-        events = []  # the active step's, read before the profiler clears them
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda p: events.extend(
-                         p.key_averages())) as prof:
-            for _ in range(2):
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
-        for ev in events:
-            if (not str(getattr(ev, "device_type", "")).endswith("CUDA")
-                    or ev.key.startswith("ProfilerStep")):
+        kernels = launches = 0
+        pad_s = min(PROFILE_PAD_S * 2 ** attempt, 1.0)
+        for ev in profile_try(fn, calls, pad_s):
+            if re.match(r"cu(da)?LaunchKernel", ev.key):
+                launches += ev.count
+            if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
                 continue
             us = getattr(ev, "device_time_total", 0.0) / calls
             m = re.search(r"(seg_\w+)", ev.key)
@@ -326,20 +355,23 @@ def device_split(fn, calls: int = PROFILE_CALLS):
             kernels += ev.count
         names |= set(split)
         counts.append(kernels)
+        launched.append(launches)
         if kernels >= calls:
             break
-    return (split or None), host_us, names, counts
+    return (split or None), host_us, names, counts, launched
 
 
 def one_kernel(case: dict, fn, what: str) -> None:
     """Profile ``fn`` into ``case`` (``device_us``, ``host_us_per_call``,
-    ``kernels_per_call``, ``profiled_kernels`` of each try) and fail unless
+    ``kernels_per_call``, ``profiled_kernels`` and
+    ``profiled_launch_calls`` of each try) and fail unless
     every try saw one kernel name and no more kernels than calls, and the
     last saw exactly one per call."""
-    split, host_us, names, counts = device_split(fn)
+    split, host_us, names, counts, launched = device_split(fn)
     case["device_us"], case["host_us_per_call"] = split, host_us
     case["kernels_per_call"] = counts[-1] / PROFILE_CALLS
     case["profiled_kernels"] = counts
+    case["profiled_launch_calls"] = launched
     if (len(names) != 1 or max(counts) > PROFILE_CALLS
             or counts[-1] != PROFILE_CALLS):
         raise AssertionError(f"{what}: kernels {sorted(names)}, {counts} "
@@ -1296,8 +1328,12 @@ def dedup_site(calls, stage_s: float) -> dict:
     return site
 
 
+SORT_CLUSTERS = 5_000  # slice-20k's head: the split's shares, in a quarter
+
+
 def sort_split_phase(clusters, reps) -> dict:
-    """The host sorts on slice-20k's real arrays, native (the port's
+    """The host sorts on the head of slice-20k's real arrays
+    (``SORT_CLUSTERS``), native (the port's
     threaded ``ops/csrc/segsort.cpp``) against plain (numpy), host clock,
     one sample each: every ``seg_argsort`` / ``searchsorted_right_i32``
     call of six stages is recorded while the stage runs (native), then
@@ -1595,11 +1631,17 @@ def cli_phase() -> dict:
     write_mgf([s for c in clusters for s in c.members], src)
     parsed = group_into_clusters(read_mgf(src))
 
-    def cli(*flags, command="consensus", source=src) -> float:
+    def cli(*flags, command="consensus", source=src, child=False) -> float:
+        """The run's wall: a child process for the main path's (the CLI
+        wall), the others in this process (``run_main``: the same code
+        without a process start each)."""
         for path in (dst, qc):
             if os.path.exists(path):
                 os.remove(path)
-        return run_cli(command, source, dst, *flags)[0]
+        if child:
+            return run_cli(command, source, dst, *flags)[0]
+        return cli_ok(f"cli {command} {flags}", command, source, dst,
+                      *flags)["wall_s"]
 
     def qc_cosines(what: str, ref_cos) -> dict:
         with open(qc) as fh:
@@ -1614,7 +1656,7 @@ def cli_phase() -> dict:
         return check_cosines([r["avg_cosine"] for r in rows], ref_cos, what)
 
     res = {"clusters": len(clusters)}
-    res["wall_s"] = cli("--qc-report", qc)
+    res["wall_s"] = cli("--qc-report", qc, child=True)
     cpu = TorchBackend(device="cpu")
     ref_reps, ref_cos = cpu.run_bin_mean_with_cosines(parsed)
     check_same(read_mgf(dst), ref_reps, "cli")
@@ -2004,7 +2046,7 @@ def files_phase(kernels, clusters, slice_cos, cos_chunks: int,
             single = path("single.mgf")
             argv = ["consensus", path("head_z2.mgf"), single, "--single",
                     "--method", method, *flags]
-            wall, _ = run_cli(*argv)
+            wall = cli_ok(f"files --single {method}", *argv)["wall_s"]
             got = mgf.read_mgf(single)
             if cli.main([*argv, "--device", "cpu"]) != 0:
                 raise AssertionError(f"files --single {method} on the CPU")
@@ -2058,13 +2100,14 @@ def convert_check(clusters, work: str) -> dict:
         fh.write("\n".join(tsv))
     with open(paths["msms.txt"], "w") as fh:
         fh.write("\n".join(msms) + "\n")
-    wall, _ = run_cli("convert", src, paths["conv.mgf"], "--msms",
-                      paths["msms.txt"], "--clusters", paths["c.tsv"])
+    wall = cli_ok("files convert", "convert", src, paths["conv.mgf"],
+                  "--msms", paths["msms.txt"], "--clusters",
+                  paths["c.tsv"])["wall_s"]
     with open(paths["conv.mgf"]) as fh:
         if fh.read() != "".join(mgf.format_spectrum_plain(s) for s in want):
             raise AssertionError("files convert: output differs")
-    run_cli("consensus", paths["conv.mgf"], paths["conv_out.mgf"],
-            "--qc-report", paths["conv_qc.json"])
+    cli_ok("files convert consensus", "consensus", paths["conv.mgf"],
+           paths["conv_out.mgf"], "--qc-report", paths["conv_qc.json"])
     rows = {}
     for device, report in (("cuda", "conv_eval.json"),
                            ("cpu", "conv_eval_cpu.json")):
@@ -2127,9 +2170,10 @@ def kill_resume_phase(src: str) -> dict:
         return json.loads(proc.stderr.strip().splitlines()[-1])
 
     full = paths("full")
-    t0 = time.perf_counter()
-    full_summary = run(full)
-    full_s = time.perf_counter() - t0
+    # the uninterrupted reference in this process: the same code without
+    # a process start
+    ref = cli_ok("kill phase reference", *argv(full)[3:])
+    full_summary, full_s = ref["summary"], ref["wall_s"]
     killed = paths("killed")
     proc = subprocess.Popen(argv(killed), cwd=ROOT, env=env,
                             stdout=subprocess.DEVNULL,
@@ -2782,6 +2826,56 @@ ELASTIC_SLOW_S = "1.5"  # the steal's donor: a stall per dispatch
 ELASTIC_KILL_AT = "15"  # write visit: ranges 1-7 whole, range 0's 1st chunk
 
 
+ELASTIC_OFFGRID = 200  # a range off the 128 grid: chunks of 128 and 72
+# the ROADMAP tolerances of a consensus whose f32 sums round differently
+OFF_GRID_TOL = {"mz": dict(rtol=1e-5, atol=1e-3),
+                "intensity": dict(rtol=1e-4, atol=1e-3),
+                "avg_cosine": dict(rtol=1e-5, atol=1e-6)}
+
+
+def off_grid_compare(got_mgf: str, want_mgf: str, got_qc: str,
+                     want_qc: str) -> dict:
+    """An off-grid range's merged output and QC report against the single
+    run's: the same spectra and peak counts, the peaks whose m/z or
+    intensity bits moved counted, the largest relative errors beside
+    ``OFF_GRID_TOL``; fails outside a tolerance."""
+    from specpride_tpu_torch.io import mgf
+
+    def rel(a, b) -> float:
+        nz = b != 0
+        return float((np.abs(a - b)[nz] / np.abs(b[nz])).max()) \
+            if nz.any() else 0.0
+
+    got, want = mgf.read_mgf(got_mgf), mgf.read_mgf(want_mgf)
+    if [g.title for g in got] != [w.title for w in want] or [
+            len(g.mz) for g in got] != [len(w.mz) for w in want]:
+        raise AssertionError("off-grid: the spectra or their peak counts "
+                             "differ from the single run's")
+    res: dict = {"spectra": len(got), "peaks": int(sum(len(g.mz)
+                                                       for g in got))}
+    cols = {"mz": ([g.mz for g in got], [w.mz for w in want]),
+            "intensity": ([g.intensity for g in got],
+                          [w.intensity for w in want])}
+    moved = np.zeros(res["peaks"], dtype=bool)
+    for key, (a, b) in cols.items():
+        a, b = np.concatenate(a), np.concatenate(b)
+        moved |= a != b
+        res[f"{key}_max_rel_err"] = rel(a, b)
+        res[f"{key}_ok"] = bool(np.allclose(a, b, **OFF_GRID_TOL[key]))
+    res["changed_peaks"] = int(moved.sum())
+    with open(got_qc) as fh, open(want_qc) as gh:
+        a = np.array([r["avg_cosine"] for r in json.load(fh)["clusters"]])
+        b = np.array([r["avg_cosine"] for r in json.load(gh)["clusters"]])
+    res["avg_cosine_changed"] = int((a != b).sum())
+    res["avg_cosine_max_rel_err"] = rel(a, b)
+    res["avg_cosine_ok"] = bool(np.allclose(a, b, **OFF_GRID_TOL[
+        "avg_cosine"]))
+    res["tolerances"] = OFF_GRID_TOL
+    if not all(res[f"{k}_ok"] for k in OFF_GRID_TOL):
+        raise AssertionError(f"off-grid: outside the tolerances {res}")
+    return res
+
+
 def launch_group(*argvs) -> list:
     """``python -m specpride_tpu_torch ARGV`` for each argv, started
     together by the launcher and reaped as each exits: per child its exit
@@ -3074,6 +3168,28 @@ def elastic_phase(src: str, clusters, exec_bytes: dict, single: dict
               f"chunk_reassign, audits clean, merged bytes = the single "
               f"run's; victim {victim_s:.3f} s, survivor "
               f"{survivor['wall_s']:.3f} s", flush=True)
+
+        # (c') a custom range off the chunk grid, in process: chunks of
+        # 128 and 72 where the single run has 128s; the f32 sums round by
+        # the new tiles, held at the tolerances with the changed peaks
+        t0 = time.perf_counter()
+        coord = path("coord_offgrid")
+        offgrid = run_main(*rank_argv(0, "offgrid", coord, "--elastic-range",
+                                      str(ELASTIC_OFFGRID)))
+        if offgrid["rc"] != 0:
+            raise AssertionError(f"off-grid: {offgrid['stderr'][-2000:]}")
+        got = run_main("merge-parts", path("offgrid.mgf"), "--elastic",
+                       coord, "--qc-report", path("offgrid.qc.json"))
+        if got["rc"] != 0:
+            raise AssertionError(f"off-grid merge: {got['stderr']}")
+        add_launches(res["launches"], offgrid["summary"])
+        res["off_grid"] = off_grid_compare(
+            path("offgrid.mgf"), path("single.mgf"), path("offgrid.qc.json"),
+            path("single.qc.json"))
+        res["off_grid"]["wall_s"] = time.perf_counter() - t0
+        print(f"compare elastic off-grid range (CLI-2k, --elastic-range "
+              f"{ELASTIC_OFFGRID}, --checkpoint-every {ELASTIC_EVERY}): "
+              f"{json.dumps(res['off_grid'])}", flush=True)
 
         # (d) the object store and the shared tier, cold then warm
         url = cas.stdout.readline().strip()
@@ -3862,9 +3978,10 @@ def serve_daemon_phase(src: str, clusters, exec_bytes: dict, work: str
     """serve (a): a real daemon process (``serve --journal --metrics-port
     0 --metrics-out``).  CLI-2k's bin-mean with QC, gap-average and medoid
     with QC, each as a ``submit`` child (no torch in its modules) and as a
-    cold one-shot CLI child on the same argv: the same output and QC
-    report bytes, every job journal read back clean, the bin-mean job's
-    4 + 4 ``dispatch`` events; ``profile --seconds 2`` during a further
+    one-shot CLI run on the same argv (a cold child for bin-mean, in this
+    process for the others): the same output and QC report bytes, every
+    job journal read back clean, the bin-mean job's 4 + 4 ``dispatch``
+    events; ``profile --seconds 2`` during a further
     CLI-2k job: both kernels in the trace; then files-20k (20,000
     clusters, the MGF written anew) twice: exec-20k's bytes both times,
     the repeat an ingest-cache hit; SIGTERM: exit 0, the journal ending in
@@ -3914,7 +4031,13 @@ def serve_daemon_phase(src: str, clusters, exec_bytes: dict, work: str
                     out.insert(i + 1, path(f"{who}_{tag}.qc.json"))
                 return out
 
-            cold, _ = run_cli(*argv("cold"))
+            # the main path's reference is a cold one-shot CLI child (the
+            # wall a served job saves); the others run in this process
+            if tag == "bin-mean":
+                cold, _ = run_cli(*argv("cold"))
+            else:
+                cold = cli_ok(f"serve {what} reference",
+                              *argv("cold"))["wall_s"]
             wall, out = run_child(
                 "submit", "--socket", sock, "--journal",
                 path(f"client_{tag}.jsonl"), "--", *argv("served"),
@@ -3939,12 +4062,14 @@ def serve_daemon_phase(src: str, clusters, exec_bytes: dict, work: str
                     "bin_mean_flat_intensity": 4, "cosine_flat": 4}:
                 raise AssertionError(f"serve {what}: dispatch events "
                                      f"{dispatch}")
-            res[what] = {"submit_wall_s": wall, "cold_cli_wall_s": cold,
+            ref = ("cold_cli_wall_s" if tag == "bin-mean"
+                   else "in_process_wall_s")
+            res[what] = {"submit_wall_s": wall, ref: cold,
                          "job_wall_s": term["wall_s"],
                          "dispatch_events": dispatch}
             print(f"serve {what}: submit child {wall:.3f} s (job "
-                  f"{term['wall_s']} s) vs cold CLI child {cold:.3f} s, "
-                  f"bytes identical, dispatch {dispatch}", flush=True)
+                  f"{term['wall_s']} s) vs {ref} {cold:.3f} s, bytes "
+                  f"identical, dispatch {dispatch}", flush=True)
 
         # profile --seconds 2 during a CLI-2k job: the capture first, the
         # job once its window is open (the daemon journals profile_start)
@@ -4173,6 +4298,309 @@ def serve_phase(kernels, src: str, clusters, exec_bytes: dict) -> dict:
     return res
 
 
+FLIGHTREC_SLO = "bin-mean=0.001"  # 1 ms: every CLI-2k job breaks it
+FLIGHTREC_FAULTS = ("--inject-faults", "dispatch:io:1:0:3", "--retries", "3",
+                    "--retry-backoff", "0.01")  # one dispatch to attempt 3
+
+
+def start_daemon(work: str, name: str, *flags) -> tuple:
+    """``serve --journal --slo FLIGHTREC_SLO`` as a child of this script
+    (the launcher reaps one child at a time; two daemons run here at
+    once): the process, its socket and its journal's path."""
+    import tempfile
+
+    sock = socket_path(os.path.join(work, name))
+    journal = os.path.join(work, f"{name}.jsonl")
+    err = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "specpride_tpu_torch", "serve", "--socket",
+         sock, "--journal", journal, "--slo", FLIGHTREC_SLO, *flags],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        stdout=subprocess.DEVNULL, stderr=err, text=True)
+    proc.err = err
+    return proc, sock, journal
+
+
+def stop_daemon(proc, what: str) -> float:
+    """SIGTERM, and the seconds to exit 0 (a drain past 60 s fails)."""
+    import signal
+
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed after 60 s"
+    drain_s = time.perf_counter() - t0
+    proc.err.seek(0)
+    text = proc.err.read()
+    proc.err.close()
+    if rc != 0:
+        raise AssertionError(f"{what}: the daemon exited {rc}:\n"
+                             f"{text[-3000:]}")
+    return drain_s
+
+
+def flightrec_phase(src: str, golden: list) -> dict:
+    """flightrec: the flight recorder on CLI-2k (``golden``: the output
+    and QC report of CLI-2k's one-shot bin-mean with QC).
+
+    (a) two daemon processes on the card, ``serve --journal --slo
+    bin-mean=0.001 --metrics-port 0 --metrics-out`` with and without
+    ``--flightrec on --incident-dir``, three bin-mean-with-QC ``submit``
+    children each, in turns: every job the golden bytes and 4 + 4
+    ``dispatch`` events; exactly one ``slo_breach`` incident, bundled,
+    on the recorder's daemon and none on the other; ``incidents list``,
+    ``show`` and ``export`` of the bundle, its ``metrics.prom`` counting
+    ``slo_breach`` 1 and the six other detectors 0; SIGTERM: both exit 0
+    within 60 s, the drain textfile counts the incident, and
+    ``incident-replay`` reproduces 1/1; the submit walls of both daemons,
+    the bundle's dump seconds and bytes.  (b) three elastic ranks
+    (``--elastic`` on their own stores, ``--journal``) started together:
+    ``--flightrec on --incident-dir`` with a fault plan that takes one
+    dispatch to attempt 3 (``retry_exhaust``, its bundle's ``host.json``
+    the coordinator's counters, the rank's journal replayed clean);
+    ``--flightrec off`` and no flag, the same launches and no incident;
+    each merged to the golden bytes.  (c) beside them, ``fleet --ranks 2
+    --flightrec observe --journal``: the golden bytes, no torch in the
+    supervisor, its journal replayed clean.  The child processes' own
+    launch counts are summed into ``launches``; the fleet's ranks report
+    none."""
+    import shutil
+    import threading
+
+    from specpride_tpu_torch.observability.exporter import (
+        parse_exposition,
+        validate_exposition,
+    )
+    from specpride_tpu_torch.serve import client as sc
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "flightrec")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    def path(name: str) -> str:
+        return os.path.join(work, name)
+
+    def incidents_of(journal: str, what: str) -> list:
+        return [e for e in job_journal(journal, what)
+                if e["event"] == "incident"]
+
+    res: dict = {"launches": {"seg_mean": 0, "seg_mean_heads": 0,
+                              "seg_scan": 0}}
+    inc_dir = path("incidents")
+    daemons = {
+        "on": start_daemon(work, "on", "--flightrec", "on",
+                           "--incident-dir", inc_dir, "--metrics-port",
+                           "0", "--metrics-out", path("on.prom")),
+        "off": start_daemon(work, "off", "--metrics-port", "0",
+                            "--metrics-out", path("off.prom")),
+    }
+    try:
+        for arm, (proc, sock, _) in daemons.items():
+            if not sc.wait_for_socket(sock, timeout=180):
+                raise AssertionError(f"flightrec {arm}: no ping")
+        walls: dict = {"on": [], "off": []}
+        summaries: dict = {}
+        for i in range(3):
+            for arm in ("off", "on") if i % 2 else ("on", "off"):
+                _, sock, _ = daemons[arm]
+                out = path(f"{arm}{i}.mgf")
+                wall, text = run_child(
+                    "submit", "--socket", sock, "--", "consensus", src, out,
+                    "--qc-report", f"{out}.qc.json", "--journal",
+                    path(f"{arm}{i}.job.jsonl"))
+                term = json.loads(text.strip().splitlines()[-1])
+                if term.get("status") != "done":
+                    raise AssertionError(f"flightrec {arm} job {i}: {term}")
+                if file_bytes(out, f"{out}.qc.json") != golden:
+                    raise AssertionError(f"flightrec {arm} job {i}: bytes "
+                                         "differ from the one-shot CLI's")
+                dispatch: dict = {}
+                for e in job_journal(path(f"{arm}{i}.job.jsonl"),
+                                     f"flightrec {arm} job {i}"):
+                    if e["event"] == "dispatch":
+                        dispatch[e["kernel"]] = dispatch.get(e["kernel"],
+                                                             0) + 1
+                if dispatch != {"bin_mean_flat_intensity": 4,
+                                "cosine_flat": 4}:
+                    raise AssertionError(f"flightrec {arm} job {i}: "
+                                         f"dispatch events {dispatch}")
+                walls[arm].append(wall)
+                # the daemon's launches since it started (it ran no other)
+                summaries[arm] = term["stats"]
+        status = sc.request(daemons["on"][1], {"op": "status"}, timeout=30)
+        res["recorder"] = status.get("flightrec")
+        for arm in ("on", "off"):
+            add_launches(res["launches"], summaries[arm])
+            if summaries[arm]["backend"]["launches"]["seg_mean"] != 12 or \
+                    summaries[arm]["backend"]["launches"]["seg_scan"] != 60:
+                raise AssertionError(f"flightrec {arm}: launches "
+                                     f"{summaries[arm]['backend']}")
+        # the bundle, read through the torch-free CLI while the daemon lives
+        _, listing = run_child("incidents", "list", inc_dir)
+        rows = listing.strip().splitlines()
+        if len(rows) != 1 or rows[0].split()[1] != "slo_breach":
+            raise AssertionError(f"flightrec: incidents list {rows}")
+        iid = rows[0].split()[0]
+        _, shown = run_child("incidents", "show", inc_dir, iid[:8])
+        manifest = json.loads(shown)
+        tarball = path("incident.tar.gz")
+        run_child("incidents", "export", inc_dir, iid, "--output", tarball)
+        bundle = manifest["dir"]
+        with open(os.path.join(bundle, "metrics.prom")) as fh:
+            prom, _ = parse_exposition(fh.read())
+        counts = {k[1][0][1]: v for k, v in prom.items()
+                  if k[0] == "specpride_incidents_total"}
+        if len(counts) != 7 or counts.pop("slo_breach") != 1 or any(
+                counts.values()):
+            raise AssertionError(f"flightrec: the bundle's incident counts "
+                                 f"{counts}")
+        res["bundle"] = {
+            "files": manifest["files"],
+            "bytes": sum(os.path.getsize(os.path.join(bundle, f))
+                         for f in os.listdir(bundle)),
+            "tarball_bytes": os.path.getsize(tarball),
+            "dump_s": res["recorder"]["dump_s"]}
+        res["drain_s"] = {arm: stop_daemon(daemons[arm][0],
+                                           f"flightrec {arm}")
+                          for arm in ("on", "off")}
+    finally:
+        for proc, _, _ in daemons.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    (incident,) = incidents_of(daemons["on"][2], "flightrec on")
+    if incident["detector"] != "slo_breach" or not incident["bundled"]:
+        raise AssertionError(f"flightrec: the incident {incident}")
+    if incidents_of(daemons["off"][2], "flightrec off"):
+        raise AssertionError("flightrec: an incident without a recorder")
+    for arm in ("on", "off"):
+        with open(path(f"{arm}.prom")) as fh:
+            text = fh.read()
+        samples, _ = parse_exposition(text)
+        n = samples.get(("specpride_incidents_total",
+                         (("detector", "slo_breach"),)))
+        if validate_exposition(text) or n != (1 if arm == "on" else 0):
+            raise AssertionError(f"flightrec {arm}: drain textfile "
+                                 f"slo_breach {n}")
+    _, replay = run_child("incident-replay", daemons["on"][2])
+    if "reproduced: 1/1" not in replay:
+        raise AssertionError(f"flightrec: incident-replay {replay}")
+    res["submit_wall_s"] = walls
+    print(f"compare flightrec serve (CLI-2k): 3 + 3 jobs the one-shot bytes "
+          f"with 4 + 4 dispatch events each, one slo_breach incident "
+          f"bundled ({iid}), none without the recorder, the bundle's "
+          f"metrics.prom slo_breach 1 and 6 detectors 0, both drains exit "
+          f"0, incident-replay 1/1; submit walls on {walls['on']} s, off "
+          f"{walls['off']} s; bundle {res['bundle']['bytes']} B dumped in "
+          f"{res['bundle']['dump_s']} s", flush=True)
+
+    # (c) starts first and runs beside (b): fleet, its supervisor
+    # torch-free (TORCH_FREE)
+    t_fleet = time.perf_counter()
+    fleet = subprocess.Popen(
+        [sys.executable, "-c", TORCH_FREE, "fleet", "--ranks", "2",
+         "--timeout", "300", "--flightrec", "observe", "--journal",
+         path("fleet.jsonl"), "--", "consensus", src, path("fleet.mgf"),
+         "--qc-report", path("fleet.qc.json"), "--elastic",
+         path("coord_fleet"), "--elastic-ttl", "3"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+
+    fleet_out: dict = {}
+
+    def reap() -> None:
+        fleet_out["err"] = fleet.communicate(timeout=600)[1]
+        fleet_out["wall_s"] = time.perf_counter() - t_fleet
+
+    reaper = threading.Thread(target=reap, daemon=True)
+    reaper.start()
+    try:
+        # (b) elastic ranks: the recorder's, off, and no flag, together
+        def rank(name, *extra):
+            return ["consensus", src, path(f"{name}.mgf"), "--qc-report",
+                    path(f"{name}.qc.json"), "--elastic",
+                    path(f"coord_{name}"), "--process-id", "0", "--journal",
+                    path(f"{name}.jsonl"), *FLIGHTREC_FAULTS, *extra]
+
+        ranks = launch_group(
+            rank("rank_on", "--flightrec", "on", "--incident-dir",
+                 path("rank_incidents")),
+            rank("rank_off", "--flightrec", "off"), rank("rank_none"))
+        res["elastic"] = {}
+        for name, r in zip(("rank_on", "rank_off", "rank_none"), ranks):
+            merged = run_main("merge-parts", path(f"{name}.mgf"),
+                              "--elastic", path(f"coord_{name}"),
+                              "--qc-report", path(f"{name}.qc.json"))
+            if merged["rc"] != 0 or file_bytes(
+                    path(f"{name}.mgf"), path(f"{name}.qc.json")) != golden:
+                raise AssertionError(f"flightrec {name}: the merged bytes "
+                                     f"differ from the one-shot CLI's "
+                                     f"{merged['stderr'][-1000:]}")
+            add_launches(res["launches"], r["summary"])
+            res["elastic"][name] = {"wall_s": r["wall_s"],
+                                    "launches": r["summary"]["backend"]
+                                    ["launches"]}
+        if len({json.dumps(v["launches"], sort_keys=True)
+                for v in res["elastic"].values()}) != 1:
+            raise AssertionError(f"flightrec elastic: launches "
+                                 f"{res['elastic']}")
+        journal = path("rank_on.jsonl.part00000")
+        (incident,) = incidents_of(journal, "flightrec rank_on")
+        if incident["detector"] != "retry_exhaust" or \
+                not incident["bundled"]:
+            raise AssertionError(f"flightrec rank_on: the incident "
+                                 f"{incident}")
+        for name in ("rank_off", "rank_none"):
+            if incidents_of(path(f"{name}.jsonl.part00000"), name):
+                raise AssertionError(f"flightrec {name}: an incident")
+        with open(os.path.join(incident["bundle_dir"], "host.json")) as fh:
+            host = json.load(fh)
+        if not {"ranges_run", "ranges_committed",
+                "reassignments"} <= set(host):
+            raise AssertionError(f"flightrec rank_on: host.json {host}")
+        _, replay = run_child("incident-replay", journal)
+        if "reproduced: 1/1" not in replay:
+            raise AssertionError(f"flightrec rank_on: incident-replay "
+                                 f"{replay}")
+        res["elastic"]["host"] = host
+        print(f"compare flightrec elastic (CLI-2k): retry_exhaust bundled "
+              f"with the coordinator's counters {host}, replayed 1/1; "
+              f"--flightrec on, off and no flag: the one-shot bytes, the "
+              f"same launches {res['elastic']['rank_none']['launches']}, "
+              f"incidents 1, 0, 0; walls {[r['wall_s'] for r in ranks]} s",
+              flush=True)
+
+        reaper.join(timeout=600)
+    finally:
+        if fleet.poll() is None:
+            fleet.kill()
+            fleet.wait()
+    wall = fleet_out.get("wall_s")
+    if "CHILD 0 False" not in fleet_out.get("err", ""):
+        raise AssertionError(f"flightrec fleet: "
+                             f"{fleet_out.get('err', '')[-3000:]}")
+    merged = run_main("merge-parts", path("fleet.mgf"), "--elastic",
+                      path("coord_fleet"), "--qc-report",
+                      path("fleet.qc.json"))
+    if merged["rc"] != 0 or file_bytes(path("fleet.mgf"),
+                                       path("fleet.qc.json")) != golden:
+        raise AssertionError("flightrec fleet: the merged bytes differ")
+    _, replay = run_child("incident-replay", path("fleet.jsonl"))
+    if not replay.strip().endswith("ok"):
+        raise AssertionError(f"flightrec fleet: incident-replay {replay}")
+    res["fleet_wall_s"] = wall
+    print(f"compare flightrec fleet (CLI-2k): --ranks 2 --flightrec "
+          f"observe, the one-shot bytes, no torch in the supervisor, its "
+          f"journal replayed clean; wall {wall:.3f} s (beside the three "
+          f"ranks)", flush=True)
+    print(f"flightrec {json.dumps(res)}", flush=True)
+    return res
+
+
 # each phase's wall (seconds), in the order run: chip_smoke.json's phase_s
 PHASE_S: dict[str, float] = {}
 
@@ -4245,7 +4673,8 @@ def smoke() -> int:
     bres = timed(bucketized_phase, kernels, clusters, slice_reps)
     meshres = timed(mesh_phase, kernels, clusters, bres.pop("reps"),
                     bres.pop("cosines"))
-    sortres = timed(sort_split_phase, clusters, slice_reps)
+    sortres = timed(sort_split_phase, clusters[:SORT_CLUSTERS],
+                    slice_reps[:SORT_CLUSTERS])
     exres = timed(executor_phase, kernels, clusters, slice_cos, picks)
     exec_bytes = exres.pop("bytes")
     fres = timed(files_phase, kernels, clusters, slice_cos,
@@ -4269,6 +4698,10 @@ def smoke() -> int:
                      exec_bytes)
     serveres = timed(serve_phase, kernels, cli_src, clusters, exec_bytes)
     del clusters, exec_bytes
+    serve_work = os.path.join(ROOT, "build", "chip_smoke", "serve")
+    frres = timed(flightrec_phase, cli_src, file_bytes(
+        os.path.join(serve_work, "cold_bin-mean.mgf"),
+        os.path.join(serve_work, "cold_bin-mean.qc.json")))
     startres = timed(process_start_phase, cli_src)
 
     main_case = mres["cases"][0]
@@ -4297,9 +4730,12 @@ def smoke() -> int:
     # the elastic phase's ranks (their processes' own counts), its
     # single-process reference and survivor in this process
     elastic = elres["launches"]
-    # the in-process serving daemons' runs (two lanes, then batched)
+    # the in-process serving daemons' runs (two lanes, then batched), and
+    # the flight-recorder phase's daemon processes and elastic ranks (their
+    # processes' own counts)
     served = {k: sum(serveres["in_process"][what]["launches"][k]
                      for what in ("two lanes", "batched"))
+              + frres["launches"][k]
               for k in main_run}
     entries = [{
         "name": "seg_mean",
@@ -4354,6 +4790,11 @@ def smoke() -> int:
         # no single PyTorch call computes a segmented scan
         "library_ms": None,
     }]
+    wall = time.perf_counter() - start
+    # the walls on stdout too: a run from a copy of the tree keeps its
+    # chiprun_out/ there
+    print(f"smoke {smi}: wall_s {wall}, build_s {info.get('seconds')}, "
+          f"phase_s {json.dumps(PHASE_S)}", flush=True)
     out = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "chip_smoke.json"), "w") as fh:
@@ -4369,9 +4810,9 @@ def smoke() -> int:
                    "mesh": meshres, "ranks": rankres, "elastic": elres,
                    "telemetry": telres, "tracing": trres,
                    "result_cache": cacheres, "serve": serveres,
-                   "process_start": startres,
+                   "flightrec": frres, "process_start": startres,
                    "build": info.get("seconds"), "phase_s": PHASE_S,
-                   "wall_s": time.perf_counter() - start}, fh, indent=1)
+                   "wall_s": wall}, fh, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

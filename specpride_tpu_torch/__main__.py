@@ -1,6 +1,8 @@
 """``python -m specpride_tpu_torch`` entry point.  ``submit`` and
 ``profile`` go to the serving client, ``fleet`` and ``cas-server`` to the
-fleet module, before the CLI is imported, so they start without torch."""
+fleet module, ``incident-replay`` and ``incidents`` to the flight
+recorder's read side, before the CLI is imported, so they start without
+torch."""
 import sys
 
 if __name__ == "__main__":
@@ -8,6 +10,8 @@ if __name__ == "__main__":
         from specpride_tpu_torch.serve.client import main
     elif sys.argv[1:2] in (["fleet"], ["cas-server"]):
         from specpride_tpu_torch.parallel.fleet import main
+    elif sys.argv[1:2] in (["incident-replay"], ["incidents"]):
+        from specpride_tpu_torch.observability.incident_cli import main
     else:
         from specpride_tpu_torch.cli import main
     raise SystemExit(main())

@@ -20,7 +20,10 @@
     python -m specpride_tpu_torch plot CLUSTERED CLUSTER_ID OUT_PREFIX \
         [--consensus REPS.mgf | --peptide PEPTIDE]
     python -m specpride_tpu_torch stats JOURNAL [JOURNAL ...] [--json F] \
-        [--top-spans N] [--trace TRACE_ID]
+        [--top-spans N] [--trace TRACE_ID] [--incidents]
+    python -m specpride_tpu_torch incident-replay JOURNAL [--json F]
+    python -m specpride_tpu_torch incidents list|show|export INCIDENT_DIR \
+        [INCIDENT_ID]
     python -m specpride_tpu_torch trace JOURNAL [JOURNAL ...] [-o T.json] \
         [--trace-id TRACE_ID | --job JOBID]
     python -m specpride_tpu_torch serve [--socket S] [--workers N] \
@@ -74,11 +77,24 @@ keeps N such ranks running (``parallel/fleet.py``).  ``--result-store``
 adds the result cache's shared tier on such a store, and an elastic
 rank's ``--metrics-port`` serves its live ``/metrics``.
 
+The flight recorder (``observability/flightrec.py``): ``--flightrec
+observe|on`` on an elastic rank, on ``serve`` and on ``fleet`` taps the
+host's journal with a ring of recent records and seven health detectors;
+a firing is journaled as an ``incident`` and, with ``on``, dumped as an
+atomic bundle under ``--incident-dir``.  As in the JAX CLI, a one-shot
+``consensus`` or ``select`` takes the flag and builds no recorder.
+``incident-replay`` re-derives every journaled incident from the stream
+and ``incidents`` reads the bundles (both torch-free,
+``observability/incident_cli.py``); ``stats --incidents`` renders the
+incident log.
+
 ``evaluate`` scores representatives against their clusters (the mean
 binned cosine on the card, flat or with ``--layout bucketized`` / ``--mesh``
 on the (B, K) layout, and the b/y-ion fraction on the host) and prints
-the summary on stdout; ``convert`` builds the clustered MGF (or mzML)
-from raw spectra, MaxQuant peptides and MaRaCluster clusters; ``plot``
+the summary on stdout (with ``--coordinator``, every rank scores the
+whole input, as the JAX CLI's ranks do); ``convert`` builds the
+clustered MGF (or mzML) from raw spectra, MaxQuant peptides and
+MaRaCluster clusters; ``plot``
 draws a cluster's members mirrored against a peptide's theoretical
 spectrum or against its representative (matplotlib, no card).  Every MGF
 is read and written through the host library (``io/native.py``).
@@ -148,6 +164,11 @@ from specpride_tpu_torch.io.mgf import (
 )
 from specpride_tpu_torch.io.mzml import read_mzml_scans
 from specpride_tpu_torch.observability import tracing
+from specpride_tpu_torch.observability.incident_cli import (
+    INCIDENT_COMMANDS,
+    add_flightrec_flags,
+    add_incident_parsers,
+)
 from specpride_tpu_torch.observability.journal import (
     NullJournal,
     emit_clock_anchor,
@@ -286,6 +307,8 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the cosines run (default: the GPU)")
     _add_layout(pe)
+    _add_coordinator(pe, "every process scores the whole input and "
+                     "prints the whole summary, as the JAX CLI's ranks do")
     pe.add_argument(
         "--precision", choices=list(quantize.PRECISIONS), default="f32",
         help="accepted for the JAX CLI's flag set and ignored: the QC "
@@ -368,6 +391,13 @@ def build_parser() -> argparse.ArgumentParser:
         help="also render the per-method SLO table (objective, jobs, "
         "breaches, burn) from a serving daemon's job_done events",
     )
+    pst.add_argument(
+        "--incidents", action="store_true",
+        help="also render the flight recorder's incident log (detector, "
+        "clock, reason, bundled, dedup suppression) from the journals' "
+        "incident events; works with --follow",
+    )
+    add_incident_parsers(sub)
 
     pt = sub.add_parser(
         "trace",
@@ -434,7 +464,7 @@ def _add_serve(sub) -> None:
                      "'teamA=3:2,teamB=1,*=1:1': WEIGHT biases the fair "
                      "queue, MAX_INFLIGHT caps queued + running jobs "
                      "(beyond it a submit is rejected retriable)")
-    _add_layout(psv)
+    _add_layout(psv, mesh=False)
     psv.add_argument("--precision", choices=list(quantize.PRECISIONS),
                      default="f32",
                      help="the lanes' packed channel precision (jobs cannot "
@@ -477,20 +507,38 @@ def _add_serve(sub) -> None:
                      help="(with --result-cache) the cache's shared tier: a "
                      "directory or an http(s):// object store (`cas-server`) "
                      "the whole fleet populates and consults")
+    add_flightrec_flags(psv)
 
 
-def _add_layout(p: argparse.ArgumentParser) -> None:
+def _add_layout(p: argparse.ArgumentParser, mesh: bool = True) -> None:
+    """``--layout``, and ``--mesh`` unless ``mesh`` is False (``serve``
+    places one card per lane, and the JAX ``serve`` has no ``--mesh``)."""
     p.add_argument(
         "--layout", choices=["auto", "flat", "bucketized"], default="auto",
         help="mesh-less device layout (escape hatch: 'bucketized' forces "
         "the (B, K) paths mesh runs use)",
     )
+    if not mesh:
+        return
     p.add_argument(
         "--mesh", action="store_true",
         help="split each (B, K) batch's clusters over ALL visible cards, "
         "one stream each (single-host multi-card; implied by "
         "--coordinator)",
     )
+
+
+def _add_coordinator(p: argparse.ArgumentParser, what: str) -> None:
+    """``--coordinator``, ``--num-processes`` and ``--process-id``."""
+    p.add_argument(
+        "--coordinator", metavar="HOST:PORT",
+        help="multi-host: torch.distributed (gloo) rendezvous address, "
+        f"rank 0 listening; {what}",
+    )
+    p.add_argument("--num-processes", type=int,
+                   help="multi-host: total process count")
+    p.add_argument("--process-id", type=int,
+                   help="multi-host: this process's rank")
 
 
 def _add_trace_dir(p: argparse.ArgumentParser, what: str) -> None:
@@ -525,17 +573,9 @@ def _add_common(p: argparse.ArgumentParser, what: str) -> None:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the method runs (default: the GPU)")
     _add_layout(p)
-    p.add_argument(
-        "--coordinator", metavar="HOST:PORT",
-        help="multi-host: torch.distributed (gloo) rendezvous address, "
-        "rank 0 listening; every process runs the same command with its "
-        "own --process-id and writes <output>.part<id> (merge with "
-        "`merge-parts`)",
-    )
-    p.add_argument("--num-processes", type=int,
-                   help="multi-host: total process count")
-    p.add_argument("--process-id", type=int,
-                   help="multi-host: this process's rank")
+    _add_coordinator(p, "every process runs the same command with its own "
+                     "--process-id and writes <output>.part<id> (merge "
+                     "with `merge-parts`)")
     p.add_argument("--append", action="store_true",
                    help="append to the output instead of replacing it")
     p.add_argument("--checkpoint", help="resume manifest path")
@@ -708,6 +748,7 @@ def _add_elastic(p: argparse.ArgumentParser) -> None:
         "--metrics-host", default="127.0.0.1", metavar="HOST",
         help="bind address for --metrics-port (default 127.0.0.1)",
     )
+    add_flightrec_flags(p, "(with --elastic) ")
 
 
 def _host_cores() -> int:
@@ -2299,9 +2340,22 @@ def _run_elastic(args, clusters, backend: TorchBackend, scores,
     nothing is claimable, steal the tail of a live peer's range, else wait
     as a warm spare until every range carries a commit marker (a peer's
     death is noticed by its lease's expiry).  ``--metrics-port`` serves
-    the rank's live ``/metrics``.  Returns the ``elastic`` summary: the
-    rank, the store, the plan and the lease counters."""
+    the rank's live ``/metrics``; ``--flightrec observe|on`` taps the
+    rank's journal with a flight recorder (its bundles carry the
+    coordinator's counters), stopped before the journal closes.  Returns
+    the ``elastic`` summary: the rank, the store, the plan and the lease
+    counters."""
     root, rank = args.elastic, args.process_id
+    if args.flightrec != "off":
+        from specpride_tpu_torch.observability import flightrec
+
+        if not journal.enabled:
+            raise SystemExit("--flightrec observe|on requires --journal: "
+                             "the detectors fold the journal stream")
+        try:
+            flightrec.check_mode(args.flightrec, args.incident_dir)
+        except ValueError as e:
+            raise SystemExit(str(e))
     local_dir = None
     if is_remote_spec(root):
         # the records live in the object store, the resume manifests (files
@@ -2322,7 +2376,7 @@ def _run_elastic(args, clusters, backend: TorchBackend, scores,
                 "%.1fs, steal %s)", rank, len(coord.ranges), range_size,
                 coord.store.describe(), coord.ttl,
                 "on" if coord.steal_enabled else "off")
-    exporter = None
+    exporter = metrics_fn = recorder = None
     if args.metrics_port is not None:
         from specpride_tpu_torch.observability.exporter import (
             ElasticTelemetry,
@@ -2331,11 +2385,26 @@ def _run_elastic(args, clusters, backend: TorchBackend, scores,
 
         telemetry = ElasticTelemetry(coord,
                                      extra_registries=(backend.metrics,))
+        metrics_fn = telemetry.exposition
         exporter = MetricsExporter(telemetry.exposition,
                                    host=args.metrics_host,
                                    port=args.metrics_port,
                                    health=telemetry.health).start()
         logger.info("elastic liveness metrics -> %s", exporter.url)
+    if args.flightrec != "off":
+        recorder = flightrec.FlightRecorder(
+            journal, mode=args.flightrec, incident_dir=args.incident_dir,
+            metrics_fn=metrics_fn,
+            # the store-derived lease view a dead rank's journal cannot
+            # rebuild
+            extra_fn=coord.counters,
+            config={"host": "elastic", "rank": rank,
+                    "store": coord.store.describe(),
+                    "n_ranges": len(coord.ranges), "range_size": range_size,
+                    "ttl_s": coord.ttl, "steal": coord.steal_enabled,
+                    "autotune": "off", "flightrec": args.flightrec},
+        ).start()
+        logger.info("elastic rank %d: flightrec %s", rank, args.flightrec)
     # one harness for the rank's life: the fault plan's visit counts and
     # the retry accounting span its ranges
     harness = Harness.from_args(args, journal)
@@ -2355,6 +2424,9 @@ def _run_elastic(args, clusters, backend: TorchBackend, scores,
                                stats, journal, harness, quarantine)
     finally:
         harness.close()
+        if recorder is not None:
+            # drains the queued firings into the journal before it closes
+            recorder.stop()
         if exporter is not None:
             exporter.stop()
         coord.stop()
@@ -2513,9 +2585,11 @@ def run_stats_command(args) -> int:
         if len(args.journals) != 1:
             raise SystemExit("--follow tails exactly one journal")
         return follow_stats(args.journals[0], interval=args.interval,
-                            top_spans=args.top_spans, slo=args.slo)
+                            top_spans=args.top_spans, slo=args.slo,
+                            incidents=args.incidents)
     return run_stats(args.journals, json_out=args.json,
-                     top_spans=args.top_spans, slo=args.slo)
+                     top_spans=args.top_spans, slo=args.slo,
+                     incidents=args.incidents)
 
 
 def run_trace(args) -> int:
@@ -2659,6 +2733,13 @@ def run_serve(args) -> int:
     if args.batch_max_clusters < 1:
         raise SystemExit("--batch-max-clusters must be >= 1 "
                          f"(got {args.batch_max_clusters})")
+    if args.flightrec != "off" and not args.journal:
+        raise SystemExit("serve --flightrec observe|on requires --journal: "
+                         "the detectors fold the journal stream")
+    if args.flightrec == "on" and not args.incident_dir:
+        raise SystemExit("serve --flightrec on dumps bundles and therefore "
+                         "requires --incident-dir (use 'observe' to journal "
+                         "firings without bundles)")
     if args.result_store and not args.result_cache:
         raise SystemExit("serve --result-store is the result cache's shared "
                          "tier; it needs --result-cache DIR[:MB] for the "
@@ -2673,6 +2754,7 @@ def run_serve(args) -> int:
         metrics_port=args.metrics_port, metrics_host=args.metrics_host,
         metrics_out=args.metrics_out, slo=slo,
         result_cache=args.result_cache, result_store=args.result_store,
+        flightrec=args.flightrec, incident_dir=args.incident_dir,
     ).run()
 
 
@@ -2704,19 +2786,22 @@ def main(argv: list[str] | None = None) -> int:
         return run_merge_parts(args)
     if args.command in FLEET_COMMANDS:
         return FLEET_COMMANDS[args.command](args)
+    if args.command in INCIDENT_COMMANDS:
+        return INCIDENT_COMMANDS[args.command](args)
     try:
         backend = _make_backend(args)
     except RuntimeError as exc:  # no CUDA for the default --device cuda
         ap.error(f"{exc} (here: --device cpu)")
-    if args.command == "evaluate":
-        print(json.dumps(run_evaluate(args, backend)))
-        return 0
     try:
         rank, world = initialize_distributed(
             args.coordinator, args.num_processes, args.process_id)
     except ValueError as exc:
         ap.error(str(exc))
     try:
+        if args.command == "evaluate":
+            # every rank scores the whole input, as the JAX CLI's do
+            print(json.dumps(run_evaluate(args, backend)))
+            return 0
         # the run summary: one JSON line on stderr
         summary = _run_pipeline_command(args, backend, rank, world)
     finally:

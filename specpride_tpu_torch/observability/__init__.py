@@ -14,5 +14,9 @@ package's ``observability/``):
 * ``tracing``   — the span tracer (``--chrome-trace``, the journal's
                   ``span`` events, ``trace``, ``stats --top-spans``);
 * ``traceplane``— one causal trace across journal shards (``trace
-                  --trace-id``, ``stats --trace``).
+                  --trace-id``, ``stats --trace``);
+* ``detect``, ``flightrec``, ``incident_cli`` — the flight recorder: its
+                  detectors, the recorder and its bundles
+                  (``--flightrec``), ``incident-replay`` and
+                  ``incidents``.
 """

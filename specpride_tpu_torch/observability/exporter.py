@@ -3,7 +3,8 @@ exporter and SLO accounting (the port's copy of the JAX package's
 ``observability/exporter.py``).
 
 * :class:`ServeTelemetry`: the daemon's resident registry, the event
-  hooks (``job_done``, ``job_rejected``, ``batch_dispatch``) and the
+  hooks (``job_done``, ``job_rejected``, ``batch_dispatch``, the flight
+  recorder's ``incident``) and the
   scrape-time samplers (queue depth, in flight, lanes, the ingest and
   result caches' process totals, the lanes' H2D and D2H bytes);
 * :class:`MetricsExporter`: ``/metrics`` and ``/healthz`` on a background
@@ -16,8 +17,8 @@ exporter and SLO accounting (the port's copy of the JAX package's
 or ``select`` with ``--elastic`` and ``--metrics-port``).  Series whose
 source the port has not got are left out: the XLA
 compile-cache counters (``specpride_compile_cache_*``, no XLA), the bucket
-plan cache's (``specpride_plan_cache_*``), and the autotune and incident
-families until the port has those planes.  Counters are cumulative over
+plan cache's (``specpride_plan_cache_*``), and the autotune family until
+the port has that plane.  Counters are cumulative over
 the daemon's life; per-job attribution stays with the journal's
 snapshot-and-diff deltas.
 """
@@ -29,6 +30,7 @@ import os
 import re
 import threading
 
+from specpride_tpu_torch.observability.detect import DETECTOR_NAMES
 from specpride_tpu_torch.observability.registry import (
     MetricsRegistry,
     render_labeled,
@@ -96,6 +98,7 @@ ZERO_AT_START_FAMILIES = (
     "specpride_serve_batch_*",
     "specpride_h2d_bytes_total",
     "specpride_d2h_bytes_total",
+    "specpride_incidents_*",
     "specpride_result_cache_*",
 )
 
@@ -239,6 +242,20 @@ class ServeTelemetry:
         self.batch_jobs.inc(0)
         self.batch_clusters.inc(0)
         self.batch_occupancy.set(0.0)
+        # the flight recorder's incidents and dedup suppressions, one
+        # series per detector of the catalog from the first scrape
+        self.incidents = r.counter(
+            "specpride_incidents_total",
+            "flight-recorder incidents journaled, by detector",
+            labels=("detector",))
+        self.incidents_suppressed = r.counter(
+            "specpride_incidents_suppressed_total",
+            "detector firings suppressed by the flight recorder's "
+            "per-detector dedup cooldown, by detector",
+            labels=("detector",))
+        for det in DETECTOR_NAMES:
+            self.incidents.inc(0, detector=det)
+            self.incidents_suppressed.inc(0, detector=det)
         # the lanes' transfer totals, mirrored by delta at scrape time
         r.counter(
             "specpride_h2d_bytes_total",
@@ -255,6 +272,15 @@ class ServeTelemetry:
 
     def job_rejected(self, reason: str) -> None:
         self.jobs_rejected.inc(1, reason=reason)
+
+    def incident(self, *, detector: str, suppressed: int = 0) -> None:
+        """Mirror one journaled ``incident`` event; its ``suppressed``
+        count (the firings the cooldown swallowed since the last one)
+        lands with it, as in the event."""
+        self.incidents.inc(1, detector=detector)
+        if suppressed:
+            self.incidents_suppressed.inc(int(suppressed),
+                                          detector=detector)
 
     def batch_dispatch(self, *, n_jobs: int, n_clusters: int,
                        window_wait_s: float,

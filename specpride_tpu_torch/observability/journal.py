@@ -13,8 +13,11 @@ name must stay unique there.
 A journal bound to a trace (``bind_trace``, the v4 causal envelope)
 stamps ``trace_id`` on every event it emits.  With ``rotate_mb`` (the
 serving daemon's ``--journal-rotate-mb``) the live file rolls over into
-numbered segments (``<journal>.1``, ``.2``, ...).  Left out: the
-in-process taps (autotune, flight recorder).  Multi-host runs write one
+numbered segments (``<journal>.1``, ``.2``, ...).  In-process observers
+(the flight recorder) tap the stream: ``attach_tap`` folds what the file
+already holds, then sees every record under the write lock, in line
+order.  Left out: ``emit_atomic`` (the autotune controller's decision
+write).  Multi-host runs write one
 journal per rank (``<journal>.part<id>``); ``expand_parts`` resolves a
 base path to its rank-ordered parts, each after its rotated segments.
 """
@@ -139,13 +142,21 @@ class Journal:
     ``.2``, ...) and a fresh live file opens with a clock anchor of its
     own, so a daemon's journal stays bounded and every segment aligns on
     its own; ``expand_segments`` and ``stats --follow`` read across
-    them."""
+    them.
+
+    Taps (``attach_tap``, ``detach_tap``, ``set_tap``) are in-process
+    observers called with every record while the write lock is held, so
+    an observer folds the records in the file's line order; a tap that
+    raises is ignored, never the emit's failure."""
 
     enabled = True
 
     def __init__(self, path: str | os.PathLike, rotate_mb: float = 0.0):
         self.path = str(path)
         self.trace_id: str | None = None
+        # a tuple swapped whole under the lock: an emit iterating it never
+        # sees a half-made change; fired in attach order
+        self._taps: tuple = ()
         self.rotate_bytes = int(max(float(rotate_mb), 0.0) * 1024 * 1024)
         self._lock = threading.Lock()
         self._fh = open(self.path, "a", buffering=1, encoding="utf-8")
@@ -168,6 +179,43 @@ class Journal:
         unbinds)."""
         self.trace_id = trace_id
 
+    def set_tap(self, tap) -> None:
+        """Replace every installed tap by ``tap`` (None clears them)."""
+        with self._lock:
+            self._taps = () if tap is None else (tap,)
+
+    def detach_tap(self, tap) -> None:
+        """Remove one tap and leave the others.  Matched by equality: a
+        bound method is a new object at each attribute access, and ``==``
+        compares its object and function.  An unknown tap is ignored."""
+        with self._lock:
+            self._taps = tuple(t for t in self._taps if t != tap)
+
+    def attach_tap(self, tap) -> None:
+        """Install ``tap`` after folding through it every record already
+        written (the rotated segments, then the live file), all under the
+        write lock: at every instant the observer holds the fold of the
+        file so far, which ``incident-replay`` refolds.  A torn line
+        is skipped."""
+        with self._lock:
+            self._fh.flush()
+            for path in expand_segments(self.path):
+                try:
+                    fh = open(path, encoding="utf-8")
+                except OSError:
+                    continue
+                with fh:
+                    for line in fh:
+                        try:
+                            rec = json.loads(line)
+                        except ValueError:
+                            continue
+                        try:
+                            tap(rec)
+                        except Exception:  # noqa: BLE001 - as a live tap
+                            pass
+            self._taps = self._taps + (tap,)
+
     def emit(self, event: str, **fields) -> dict:
         rec = {"v": SCHEMA_VERSION, "ts": time.time(),
                "mono": time.perf_counter(), "event": event}
@@ -184,6 +232,12 @@ class Journal:
                 self._bytes += len(line)
                 if self.rotate_bytes and self._bytes >= self.rotate_bytes:
                     self._rotate_locked()
+            # under the lock, after the line: fold order is line order
+            for tap in self._taps:
+                try:
+                    tap(rec)
+                except Exception:  # noqa: BLE001 - a broken observer
+                    pass           # never fails the emit
         return rec
 
     def _rotate_locked(self) -> None:
@@ -231,6 +285,15 @@ class NullJournal:
         return {}
 
     def bind_trace(self, trace_id: str | None) -> None:
+        pass
+
+    def set_tap(self, tap) -> None:
+        pass
+
+    def attach_tap(self, tap) -> None:
+        pass
+
+    def detach_tap(self, tap) -> None:
         pass
 
     def close(self) -> None:

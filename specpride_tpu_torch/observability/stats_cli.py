@@ -15,7 +15,9 @@ rotated segments, and renders again as events land.  An elastic rank's
 journal renders its ``elastic:`` line (``run_end.elastic``), and the
 journals read together the cross-rank view
 (``parallel.elastic.summarize_ranks``: ``--json``'s ``elastic`` key).
-Left out: the autotune and incident views.
+A flight recorder's ``incident`` events roll up by detector
+(``run["incidents"]``: its ``incidents:`` line); ``--incidents`` adds the
+per-incident log.  Left out: the autotune view.
 """
 
 from __future__ import annotations
@@ -74,6 +76,9 @@ def _summarize_run(path: str, events: list[dict]) -> dict:
         if end and end.get("robustness"):
             rb["run_end"] = end["robustness"]
         run["robustness"] = rb
+    incidents = _summarize_incidents(events)
+    if incidents is not None:
+        run["incidents"] = incidents
     if start:
         run.update(command=start.get("command"), method=start.get("method"),
                    backend=start.get("backend"),
@@ -140,6 +145,65 @@ def _summarize_run(path: str, events: list[dict]) -> dict:
             if pipeline.get(key) is not None:
                 run[key] = pipeline[key]
     return run
+
+
+def _summarize_incidents(events: list[dict]) -> dict | None:
+    """The flight recorder's rollup (the JAX package's): incidents,
+    bundled and suppressed firings in all and by detector, and the log;
+    None for a journal without ``incident`` events."""
+    inc_events = [e for e in events if e["event"] == "incident"]
+    if not inc_events:
+        return None
+    by_det: dict[str, dict] = {}
+    for e in inc_events:
+        row = by_det.setdefault(str(e.get("detector")), {
+            "incidents": 0, "bundled": 0, "suppressed": 0})
+        row["incidents"] += 1
+        if e.get("bundled"):
+            row["bundled"] += 1
+        row["suppressed"] += int(e.get("suppressed") or 0)
+    return {
+        "mode": inc_events[-1].get("mode"),
+        "incidents": len(inc_events),
+        "bundled": sum(1 for e in inc_events if e.get("bundled")),
+        "suppressed": sum(int(e.get("suppressed") or 0)
+                          for e in inc_events),
+        "detectors": by_det,
+        "log": [{"detector": e.get("detector"),
+                 "incident_id": e.get("incident_id"),
+                 "clock": e.get("clock"), "reason": e.get("reason"),
+                 "bundled": bool(e.get("bundled")),
+                 "suppressed": int(e.get("suppressed") or 0),
+                 **({"bundle_dir": e["bundle_dir"]}
+                    if e.get("bundle_dir") else {})}
+                for e in inc_events],
+    }
+
+
+def _render_incidents(run: dict, out, detail: bool = False) -> None:
+    """The recorder's line (mode, totals, incidents by detector); with
+    ``detail`` (``stats --incidents``) one line per incident."""
+    inc = run.get("incidents")
+    if not inc:
+        if detail:
+            print("  incidents: none in this journal (was the run booted "
+                  "with --flightrec observe|on?)", file=out)
+        return
+    per_det = " ".join(f"{d}={row['incidents']}"
+                       for d, row in sorted(inc["detectors"].items()))
+    print(f"  incidents: mode={inc.get('mode')} "
+          f"total={inc['incidents']} bundled={inc['bundled']} "
+          f"suppressed={inc['suppressed']}"
+          + (f" {per_det}" if per_det else ""), file=out)
+    if detail:
+        for i in inc["log"]:
+            mark = "bundled" if i["bundled"] else "observed"
+            sup = (f" (+{i['suppressed']} suppressed)"
+                   if i["suppressed"] else "")
+            where = f" -> {i['bundle_dir']}" if i.get("bundle_dir") else ""
+            print(f"    {i['incident_id']} {i['detector']} "
+                  f"@ {i['clock']}: {i['reason']} [{mark}]{sup}{where}",
+                  file=out)
 
 
 def _summarize_serving(events: list[dict]) -> dict | None:
@@ -312,7 +376,8 @@ def _render_rank_view(view: dict, out) -> None:
         print(f"  rank {rank}: {slow}{' '.join(bits)}", file=out)
 
 
-def _render_run(run: dict, out, slo: bool = False) -> None:
+def _render_run(run: dict, out, slo: bool = False,
+                incidents: bool = False) -> None:
     print(f"{run['journal']}: {run.get('command', '?')}"
           f"/{run.get('method', '?')} backend={run.get('backend', '?')}",
           file=out)
@@ -331,6 +396,7 @@ def _render_run(run: dict, out, slo: bool = False) -> None:
             _render_serving(live, out)
             if slo:
                 _render_slo(run, out)
+        _render_incidents(run, out, detail=incidents)
         return
     counters = run.get("counters", {})
     print(f"  clusters={counters.get('clusters', 0)} "
@@ -353,6 +419,7 @@ def _render_run(run: dict, out, slo: bool = False) -> None:
         _render_serving(live, out)
         if slo:
             _render_slo(run, out)
+    _render_incidents(run, out, detail=incidents)
     rb = run.get("robustness")
     if rb:
         bits = " ".join(f"{k}={rb[k]}" for k in ROBUSTNESS_EVENTS
@@ -449,7 +516,7 @@ def _poll_rotated(path: str, offset: int,
 
 def follow_stats(path: str, out=None, interval: float = 1.0, stop=None,
                  max_updates: int = 0, top_spans: int = 0,
-                 slo: bool = False) -> int:
+                 slo: bool = False, incidents: bool = False) -> int:
     """``stats --follow``: tail one live journal and render its last run
     again each time complete events land.  ``stop`` (a
     ``threading.Event``) and ``max_updates`` end it from a program;
@@ -478,7 +545,7 @@ def follow_stats(path: str, out=None, interval: float = 1.0, stop=None,
                 print(f"--- {time.strftime('%H:%M:%S')} update {updates}: "
                       f"{len(events)} event(s) ---", file=out)
                 _render_run(_summarize_run(path, segments[-1]), out,
-                            slo=slo)
+                            slo=slo, incidents=incidents)
                 view = summarize_ranks([segments[-1]])
                 if view is not None:
                     _render_rank_view(view, out)
@@ -499,11 +566,13 @@ def follow_stats(path: str, out=None, interval: float = 1.0, stop=None,
 
 
 def run_stats(journal_paths: list[str], json_out: str | None = None,
-              out=None, top_spans: int = 0, slo: bool = False) -> int:
+              out=None, top_spans: int = 0, slo: bool = False,
+              incidents: bool = False) -> int:
     """Summarize the journals at ``journal_paths`` on ``out`` (stdout),
-    with the ``top_spans`` slowest spans when above 0 and, with ``slo``,
-    a serving daemon's SLO table; 1 when no file was found or an event
-    broke the schema."""
+    with the ``top_spans`` slowest spans when above 0, with ``slo`` a
+    serving daemon's SLO table and with ``incidents`` the flight
+    recorder's incident log; 1 when no file was found or an event broke
+    the schema."""
     out = out or sys.stdout
     files: list[str] = []
     for p in journal_paths:
@@ -526,7 +595,7 @@ def run_stats(journal_paths: list[str], json_out: str | None = None,
             label = path if len(segments) == 1 else f"{path}#run{i}"
             runs.append(_summarize_run(label, seg))
     for run in runs:
-        _render_run(run, out, slo=slo)
+        _render_run(run, out, slo=slo, incidents=incidents)
     rank_view = summarize_ranks(events_per_file)
     if rank_view is not None:
         _render_rank_view(rank_view, out)

@@ -21,9 +21,11 @@ Each decision is journaled: ``rank_spawn`` (``reason`` ``boot``,
 ``excess_capacity``).  The supervisor holds no lease and writes no
 output.  A worker is ``python -m specpride_tpu_torch`` on the supervised
 argv, a ``consensus`` or ``select`` command line with ``--elastic`` and
-without ``--process-id`` (each worker takes a fresh rank).  The JAX
-supervisor's autotune and flight-recorder planes are not in the port
-yet and are refused.  The module holds no torch: ``fleet`` and
+without ``--process-id`` (each worker takes a fresh rank).  With
+``--flightrec observe|on`` a flight recorder taps the supervisor's
+journal (its bundles carry the process counts).  The JAX supervisor's
+autotune plane is not in the port yet and is refused.  The module holds
+no torch (nor does the recorder): ``fleet`` and
 ``cas-server`` run here (``cmd_fleet``, ``cmd_cas_server``), routed by
 ``__main__`` before the CLI, and its torch, is imported.
 """
@@ -41,6 +43,8 @@ import tempfile
 import time
 
 from specpride_tpu_torch.observability import tracing
+from specpride_tpu_torch.observability.flightrec import FlightRecorder
+from specpride_tpu_torch.observability.incident_cli import add_flightrec_flags
 from specpride_tpu_torch.observability.journal import (
     emit_clock_anchor,
     open_journal,
@@ -85,7 +89,7 @@ class FleetSupervisor:
                  poll_interval: float = 0.5,
                  scale_horizon: float = DEFAULT_SCALE_HORIZON_S,
                  env: dict | None = None, autotune: str = "off",
-                 flightrec: str = "off"):
+                 flightrec: str = "off", incident_dir: str | None = None):
         spec = extract_flag(job_argv, "--elastic")
         if not spec:
             raise ValueError(
@@ -97,9 +101,13 @@ class FleetSupervisor:
         if autotune != "off":
             raise ValueError("fleet --autotune is not in the port yet "
                              "(ROADMAP A8)")
-        if flightrec != "off":
-            raise ValueError("fleet --flightrec is not in the port yet "
-                             "(ROADMAP A7)")
+        if flightrec not in ("off", "observe", "on"):
+            raise ValueError(f"fleet flightrec {flightrec!r} must be off, "
+                             "observe or on")
+        if flightrec != "off" and not getattr(journal, "enabled", False):
+            raise ValueError("fleet --flightrec observe|on requires "
+                             "--journal: the detectors fold the journal "
+                             "stream")
         self.job_argv = list(job_argv)
         self.spec = spec
         self.ranks = max(int(ranks), 0)
@@ -126,6 +134,22 @@ class FleetSupervisor:
         self.replaced = 0
         self.failures: list[str] = []
         self._done_cache: set[str] = set()
+        # off builds no recorder: a recorder-free supervisor
+        self.recorder = None
+        if flightrec != "off":
+            self.recorder = FlightRecorder(
+                journal, mode=flightrec, incident_dir=incident_dir,
+                extra_fn=lambda: {
+                    "procs_alive": sum(1 for p in self.procs
+                                       if p.poll() is None),
+                    "spawned": self.spawned, "retired": self.retired,
+                    "replaced": self.replaced,
+                    "failures": list(self.failures)},
+                config={"host": "fleet", "elastic": self.spec,
+                        "ranks": self.ranks, "spares": self.spares,
+                        "max_ranks": self.max_ranks, "ttl_s": self.ttl,
+                        "autotune": autotune, "flightrec": flightrec},
+            ).start()
 
     # -- store views --------------------------------------------------------
 
@@ -288,6 +312,10 @@ class FleetSupervisor:
                     return 1
                 time.sleep(self.poll_interval)
         finally:
+            if self.recorder is not None:
+                # journals the queued firings before the caller closes
+                # the journal
+                self.recorder.stop()
             for proc in self.procs:
                 if proc.poll() is None:
                     proc.terminate()
@@ -311,12 +339,14 @@ class FleetSupervisor:
 
     def summary(self) -> dict:
         return {"spawned": self.spawned, "retired": self.retired,
-                "replaced": self.replaced, "failures": list(self.failures)}
+                "replaced": self.replaced, "failures": list(self.failures),
+                **({"flightrec": self.recorder.status()}
+                   if self.recorder is not None else {})}
 
 
 def add_fleet_parsers(sub) -> None:
     """The ``fleet`` and ``cas-server`` subcommands, the JAX CLI's flags
-    without its autotune and flight-recorder ones."""
+    without its autotune one."""
     pf = sub.add_parser(
         "fleet",
         help="warm-spare supervisor of an elastic run: spawn N rank "
@@ -347,6 +377,7 @@ def add_fleet_parsers(sub) -> None:
                     help="JSONL journal of the supervisor's rank_spawn and "
                     "rank_retire decisions (workers journal through their "
                     "own --journal)")
+    add_flightrec_flags(pf, "(over the supervisor's journal) ")
     pf.add_argument("job", nargs=argparse.REMAINDER,
                     help="the rank argv after --: consensus|select INPUT "
                     "OUTPUT --elastic DIR|URL [flags], without --process-id")
@@ -388,7 +419,9 @@ def cmd_fleet(args) -> int:
             sup = FleetSupervisor(job, ranks=args.ranks, spares=args.spares,
                                   max_ranks=args.max_ranks, journal=journal,
                                   poll_interval=args.poll,
-                                  scale_horizon=args.scale_horizon, env=env)
+                                  scale_horizon=args.scale_horizon, env=env,
+                                  flightrec=args.flightrec,
+                                  incident_dir=args.incident_dir)
         except ValueError as e:
             raise SystemExit(str(e))
         rc = sup.run(timeout=args.timeout)
@@ -409,14 +442,20 @@ def cmd_cas_server(args) -> int:
     """``cas-server``: the in-tree object store behind ``--elastic URL``;
     prints its URL on stdout (and to ``--url-file``) and serves until
     SIGTERM or SIGINT."""
-    server = CasServer(host=args.host, port=args.port)
-    print(server.url, flush=True)
-    if args.url_file:
-        with open(args.url_file, "w", encoding="utf-8") as fh:
-            fh.write(server.url + "\n")
-    # SIGTERM ends the loop like Ctrl-C, through the finally below
+    # SIGTERM ends the loop like Ctrl-C, through the finally below; the
+    # handler, then the URL file, then the printed line: a reader acting on
+    # the line finds the file, and a SIGTERM sent on it exits 0
     signal.signal(signal.SIGTERM, signal.default_int_handler)
+    server = CasServer(host=args.host, port=args.port)
     try:
+        if args.url_file:
+            # whole or absent: a temporary name in the same directory,
+            # then a rename
+            tmp = f"{args.url_file}.tmp-{os.getpid()}"
+            with open(tmp, "w", encoding="utf-8") as fh:
+                fh.write(server.url + "\n")
+            os.replace(tmp, args.url_file)
+        print(server.url, flush=True)
         server.serve_forever()
     except KeyboardInterrupt:
         pass

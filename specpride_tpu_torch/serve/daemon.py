@@ -46,7 +46,11 @@ The live telemetry plane (``observability.exporter``): ``--metrics-port``
 serves ``/metrics`` and ``/healthz``; ``--slo`` arms per-job latency
 objectives; the ``profile`` op captures a bounded ``torch.profiler``
 trace of the running daemon; ``--metrics-out`` writes the final
-exposition at drain.
+exposition at drain.  ``--flightrec observe|on`` taps the daemon's
+journal with the flight recorder (``observability.flightrec``): its
+detectors journal ``incident`` events, count them on ``/metrics``
+(``specpride_incidents_*``) and, in mode ``on``, dump bundles under
+``--incident-dir``; the recorder drains before the final exposition.
 """
 
 from __future__ import annotations
@@ -149,7 +153,12 @@ class ServeDaemon:
         batch_max_clusters: int = 4096,
         result_cache: str | None = None,
         result_store: str | None = None,
+        flightrec: str = "off",
+        incident_dir: str | None = None,
     ):
+        if flightrec not in ("off", "observe", "on"):
+            raise ValueError(f"flightrec mode {flightrec!r} must be off, "
+                             "observe or on")
         self.socket_path = socket_path or protocol.default_socket_path()
         self.device = device
         self.result_cache = result_cache
@@ -175,6 +184,10 @@ class ServeDaemon:
         self.exporter = None  # MetricsExporter with --metrics-port
         self._profile_lock = threading.Lock()  # one capture at a time
         self.watchdog = Watchdog(watchdog_timeout)
+        # the flight recorder: off builds none (a recorder-free daemon)
+        self.flightrec = flightrec
+        self.incident_dir = incident_dir
+        self.recorder = None  # flightrec.FlightRecorder, built at boot
         # the port has no shape manifest to warm (see the module doc)
         self.warmed_kernels = 0
         self.jobs_done = 0
@@ -286,6 +299,7 @@ class ServeDaemon:
             self.exporter = MetricsExporter(
                 self.telemetry.exposition, host=self.metrics_host,
                 port=self.metrics_port, health=self._healthz).start()
+        self._boot_flightrec()
         sock_dir = os.path.dirname(self.socket_path)
         if sock_dir:
             os.makedirs(sock_dir, exist_ok=True)
@@ -319,6 +333,10 @@ class ServeDaemon:
             **({"slo": self.slo} if self.slo else {}),
             **({"quota": {c: repr(q) for c, q in self.quotas.items()}}
                if self.quotas else {}),
+            **({"flightrec": self.flightrec,
+                **({"incident_dir": self.incident_dir}
+                   if self.incident_dir else {})}
+               if self.flightrec != "off" else {}),
         )
         logger.info("serving on %s (boot %.2fs, queue depth %d, %d worker "
                     "lane(s): %s)", self.socket_path, boot_s,
@@ -327,6 +345,42 @@ class ServeDaemon:
         if self.exporter is not None:
             logger.info("live metrics on %s", self.exporter.url)
         return self
+
+    def _boot_flightrec(self) -> None:
+        """The flight recorder (``--flightrec observe|on``): a ring of
+        recent journal records and the detector set, tapping the daemon's
+        journal; its bundles carry the ``/metrics`` exposition and the
+        daemon's config."""
+        if self.flightrec == "off":
+            return
+        if not self.journal.enabled:
+            raise SystemExit("serve --flightrec observe|on requires "
+                             "--journal: the detectors fold the journal "
+                             "stream")
+        from specpride_tpu_torch.observability.flightrec import (
+            FlightRecorder,
+        )
+
+        self.recorder = FlightRecorder(
+            self.journal, mode=self.flightrec,
+            incident_dir=self.incident_dir,
+            metrics_fn=self.telemetry.exposition,
+            config={"host": "serve", "socket": self.socket_path,
+                    "workers": len(self.slots),
+                    "max_queue": self.queue.capacity,
+                    "batch_window_s": self.batch_window,
+                    "batch_max_clusters": self.batch_max_clusters,
+                    "precision": self.precision, "layout": self.layout,
+                    "device": self.device,
+                    "watchdog_timeout_s": self.watchdog.timeout_s,
+                    "slo": self.slo, "autotune": "off",
+                    "flightrec": self.flightrec},
+            telemetry=self.telemetry).start()
+        logger.info("flightrec %s: %d detectors, ring %d%s", self.flightrec,
+                    len(self.recorder.detect.detectors),
+                    self.recorder.ring.capacity,
+                    f", bundles under {self.incident_dir}"
+                    if self.incident_dir else "")
 
     def _sample_live(self, telemetry) -> None:
         """Scrape-time gauges: every ``/metrics`` read (and the drain
@@ -1024,6 +1078,11 @@ class ServeDaemon:
             logger.warning("drain: a profile capture did not finish within "
                            "60s")
         self.watchdog.stop()
+        # after the lanes joined (their last events still fold) and before
+        # the exporter stops and --metrics-out flushes: stop() journals
+        # every queued firing, so a drain swallows no incident
+        if self.recorder is not None:
+            self.recorder.stop()
         if self.exporter is not None:
             self.exporter.stop()
         if self.metrics_out and self.telemetry is not None:
@@ -1086,6 +1145,8 @@ class ServeDaemon:
                 "metrics_url": self.exporter.url}
                if self.exporter is not None else {}),
             **({"slo": self.slo} if self.slo else {}),
+            **({"flightrec": self.recorder.status()}
+               if self.recorder is not None else {}),
             **self._result_cache_status(),
         }
 

@@ -36,12 +36,11 @@ from specpride_tpu_torch.serve.daemon import ServeDaemon
 
 # the JAX daemon's series whose source the port has not got: the XLA
 # compile cache and the bucket plan cache (no counterpart), and the
-# autotune and incident planes (ROADMAP A8, A7)
+# autotune plane (ROADMAP A8)
 JAX_ONLY_SERIES = (
     "specpride_compile_cache_*",
     "specpride_plan_cache_*",
     "specpride_autotune_*",
-    "specpride_incidents_*",
 )
 
 

@@ -258,8 +258,9 @@ def test_fleet_refuses_bad_argv_and_spawns_the_port(tmp_path):
     with pytest.raises(ValueError):
         FleetSupervisor(["consensus", "a", "b", "--elastic", str(tmp_path),
                          "--process-id", "0"], ranks=1)
-    for plane in ({"autotune": "on"}, {"flightrec": "observe"}):
-        with pytest.raises(ValueError, match="ROADMAP A[78]"):
+    for plane, match in (({"autotune": "on"}, "ROADMAP A8"),
+                         ({"flightrec": "observe"}, "requires --journal")):
+        with pytest.raises(ValueError, match=match):
             FleetSupervisor(["consensus", "a", "b", "--elastic",
                              str(tmp_path)], ranks=1, **plane)
     argv = ["--elastic=x", "--elastic", "y", "--elastic-ttl=2"]
