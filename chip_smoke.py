@@ -29,7 +29,9 @@ NVIDIA GPU:
 3. slice phase: ``TorchBackend(device="cuda").run_bin_mean_with_cosines``
    (consensus and QC cosine) on 20,000 synthetic clusters (seed 42, about
    27M peaks, two or more consensus and cosine chunks), counting kernel
-   launches, against the same run on the CPU; precision phase: the same
+   launches, against the same run on the CPU (of every
+   ``REF_STRIDE``-th cluster, as every 20k CPU reference, so every chunk
+   is held); precision phase: the same
    consensus at ``precision="bf16"`` and ``"int8"``, each
    representative's cosine to the f32 one held to the precision
    tolerance, H2D bytes per peak beside f32's; gap phase:
@@ -134,8 +136,8 @@ NVIDIA GPU:
    gap-average consensus and medoid select with QC, cold (the launches
    and bytes of a run without it) and warm (every cluster a hit, no
    launch, no ``dispatch`` event, the same bytes), the digest, read,
-   write and scan costs on one thread, then exec-20k's cold and warm
-   walls; serve phase: a daemon process (``serve --journal
+   write and scan costs on one thread, then the executor on slice-20k's
+   first 2,000 clusters without the cache, cold and warm; serve phase: a daemon process (``serve --journal
    --metrics-port 0 --metrics-out``), its spawn-to-ping wall and
    ``boot_s``; CLI-2k's bin-mean with QC, gap-average and medoid with QC
    as ``submit`` children (no torch imported) beside the one-shot CLI on
@@ -158,8 +160,22 @@ NVIDIA GPU:
    on`` and an injected retry (``retry_exhaust``, the coordinator's
    counters in the bundle), ``off`` and no flag (the same launches and
    bytes), and ``fleet --flightrec observe`` (no torch in the
-   supervisor, its journal replayed clean); process-start phase: a
-   child interpreter's start,
+   supervisor, its journal replayed clean); autotune phase: a daemon
+   process with ``--autotune on`` under a burst of five CLI-2k jobs (an
+   acted ``batch_window_ms`` decision, the golden bytes, the
+   ``specpride_autotune_*`` series, ``autotune.json`` in the
+   ``slo_breach`` bundle, ``autotune-replay`` exit 0, the drain exit 0),
+   two ``--elastic`` ranks with ``--autotune on`` and a forced steal (the
+   single run's bytes, every cede within the split hint and one cut
+   down to it) and ``fleet --autotune observe`` (no torch in the
+   supervisor); warmup phase: a shape manifest from a CLI-2k run,
+   ``warmup`` in a fresh child (each
+   entry's status and seconds), a ``--warmup manifest`` daemon and a
+   ``--warmup off`` one taking three jobs each in turns (``warmed_kernels``,
+   the first and repeat ``submit`` walls, the warm's own launches, every
+   job the cold job's launches and the golden bytes), and ``--warmup
+   manifest`` without a manifest refused with the JAX message;
+   process-start phase: a child interpreter's start,
    ``import torch``, the package's import, CUDA init, the two libraries'
    hash check and load, each timed, beside a 3-cluster CLI run's wall;
 9. prints a ``{"kernels": [...]}`` line (launches: the executor's runs at
@@ -167,7 +183,7 @@ NVIDIA GPU:
    and real OOM runs, the bucketized, mesh and rank runs, the elastic
    ranks whose summaries are read, the telemetry, tracing and
    result-cache phases' runs, the in-process serving daemons' runs, the
-   flight-recorder phase's daemons and ranks) and,
+   flight-recorder, autotune and warmup phases' daemons and ranks) and,
    last, the ``{"ok": true, "device": {...}}`` line.
 
 Every comparison of a kernel with its plain version prints its largest
@@ -200,6 +216,10 @@ RAGGED_N = 10_000_019
 SLICE_CLUSTERS = 20_000
 CLI_CLUSTERS = 2_000
 PATH_N = 2_841_563  # slice-20k's largest cosine chunk, member side
+# the CPU references of the 20k card runs: every 4th cluster, 5,000 of
+# them spread over every chunk and bucket of the card run (a cluster's
+# result depends on no other's, on the CPU in any chunking)
+REF_STRIDE = 4
 STRESS_CALLS = 200
 STREAM_ROUNDS = 10
 
@@ -897,10 +917,10 @@ def slice_phase(kernels, clusters, gen_s: float) -> dict:
             f"{launches['seg_scan']} seg_scan launches"
         )
     ref_reps, ref_cos = TorchBackend(device="cpu").run_bin_mean_with_cosines(
-        clusters
+        clusters[::REF_STRIDE]
     )
-    check_same(reps, ref_reps, "slice")
-    cos_err = check_cosines(cosines, ref_cos, "slice")
+    check_same(reps[::REF_STRIDE], ref_reps, "slice")
+    cos_err = check_cosines(cosines[::REF_STRIDE], ref_cos, "slice")
     split = host_split(backend, clusters, reps)
     res = {
         "clusters": len(clusters), "peaks": n_peaks,
@@ -1052,8 +1072,8 @@ def gap_phase(kernels, clusters) -> dict:
         check_launches(launches, "seg_mean_heads", backend.chunks,
                        f"gap {precision}")
         ref = TorchBackend(device="cpu", precision=precision)\
-            .run_gap_average(clusters)
-        check_gap_same(reps, ref, f"gap {precision}")
+            .run_gap_average(clusters[::REF_STRIDE])
+        check_gap_same(reps[::REF_STRIDE], ref, f"gap {precision}")
         run = {}
         if precision == "f32":
             run["singletons"] = check_singletons(reps, clusters,
@@ -2667,17 +2687,19 @@ def bucketized_phase(kernels, clusters, flat_reps) -> dict:
                "padded_elements": backend.bucket_elements["padded"],
                "h2d_bytes": backend.h2d_bytes,
                "h2d_bytes_per_peak": backend.h2d_bytes["h2d"] / n_peaks}
+        # a row's sums do not depend on the other rows of its batch
+        held, ref = reps[::REF_STRIDE], clusters[::REF_STRIDE]
         if what == "gap f32":
-            check_gap_same(reps, cpu.run_gap_average(clusters),
+            check_gap_same(held, cpu.run_gap_average(ref),
                            "bucketized gap f32", exact_mz=False)
         elif cosines is not None:
-            run["vs_cpu"] = check_bucket_same(reps, cpu.run_bin_mean(clusters),
+            run["vs_cpu"] = check_bucket_same(held, cpu.run_bin_mean(ref),
                                               "bucketized bin-mean QC")
             # the CPU's cosines of the card's own representatives: m/z
             # means from the card's float32 sums sit an ulp from the CPU's,
             # enough to move a peak across a QC bin edge
             run["cosine_err"] = check_cosines(
-                cosines, cpu.average_cosines(reps, clusters),
+                cosines[::REF_STRIDE], cpu.average_cosines(held, ref),
                 "bucketized bin-mean QC")
             # the flat layout's host quorum int(n * 0.25) + 1 against the
             # float32 device quorum: equal for every member count here
@@ -2693,7 +2715,7 @@ def bucketized_phase(kernels, clusters, flat_reps) -> dict:
             res["reps"], res["cosines"] = reps, cosines
         else:
             run["vs_cpu"] = check_bucket_same(
-                reps, cpu.run_bin_mean(clusters), "bucketized bin-mean int8")
+                held, cpu.run_bin_mean(ref), "bucketized bin-mean int8")
         print(f"bucketized {what} {json.dumps(run)}", flush=True)
         res[what] = run
     return res
@@ -3702,17 +3724,17 @@ CACHE_RUNS = (
 )
 
 
-def result_cache_phase(kernels, src: str, clusters, exec_bytes: dict
-                       ) -> dict:
+def result_cache_phase(kernels, src: str, clusters) -> dict:
     """result-cache: on CLI-2k through ``cli.main`` in process, for
     bin-mean and gap-average consensus and medoid select, each with QC: a
     run without the cache, a cold run with ``--result-cache D`` (the same
     launches, output and QC report bytes) and a warm rerun (every cluster
     a hit, no launch and no ``dispatch`` event, the same bytes), and the
-    cache's host costs on one thread (``cache_split``).  Then exec-20k's
-    cold and warm walls (``executor_run``), its bytes those of
-    the tracing phase's untraced runs.  ``launches``: every run's (the
-    warm runs launch none)."""
+    cache's host costs on one thread (``cache_split``).  Then the
+    chunked executor (``executor_run``) on slice-20k's first 2,000
+    clusters (exec-2k) without the cache, cold and warm: the walls, the
+    warm's hits and no launch, all three the same bytes.  ``launches``:
+    every run's (the warm runs launch none)."""
     import shutil
 
     from specpride_tpu_torch.observability.journal import read_events
@@ -3778,16 +3800,21 @@ def result_cache_phase(kernels, src: str, clusters, exec_bytes: dict
     res["split"] = cache_split(src, path("bin-mean.tier"), path("split.tier"))
 
     tier = path("exec.tier")
+    head = clusters[:CLI_CLUSTERS]
+    run, exec_bytes = executor_run(kernels, head, "cache_off", "consensus")
+    res["exec_off"] = run
+    for k in launched:
+        launched[k] += run["launches"][k]
     for mode in ("cold", "warm"):
-        run, got = executor_run(kernels, clusters, f"cache_{mode}",
+        run, got = executor_run(kernels, head, f"cache_{mode}",
                                 "consensus", ("--result-cache", tier))
         if got != exec_bytes:
-            raise AssertionError(f"result-cache exec-20k {mode}: bytes "
+            raise AssertionError(f"result-cache exec-2k {mode}: bytes "
                                  "differ from the run without it")
         hits = run["counters"].get("result_cache_hits", 0)
-        if mode == "warm" and (hits != len(clusters)
+        if mode == "warm" and (hits != len(head)
                                or any(run["launches"].values())):
-            raise AssertionError(f"result-cache exec-20k warm: {hits} hits, "
+            raise AssertionError(f"result-cache exec-2k warm: {hits} hits, "
                                  f"launches {run['launches']}")
         if mode == "cold":
             for k in launched:
@@ -3795,10 +3822,11 @@ def result_cache_phase(kernels, src: str, clusters, exec_bytes: dict
         res[f"exec_{mode}"] = run
     res["exec_tier_bytes"] = sum(
         os.path.getsize(os.path.join(tier, f)) for f in os.listdir(tier))
-    print(f"result-cache exec-20k: cold {res['exec_cold']['wall_s']} s, "
-          f"warm {res['exec_warm']['wall_s']} s ({len(clusters)} hits), "
-          f"bytes = the run without the cache; tier "
-          f"{res['exec_tier_bytes']} bytes", flush=True)
+    print(f"result-cache exec-2k: off {res['exec_off']['wall_s']} s, cold "
+          f"{res['exec_cold']['wall_s']} s, warm "
+          f"{res['exec_warm']['wall_s']} s ({len(head)} hits), bytes = the "
+          f"run without the cache; tier {res['exec_tier_bytes']} bytes",
+          flush=True)
     return res
 
 
@@ -4601,6 +4629,483 @@ def flightrec_phase(src: str, golden: list) -> dict:
     return res
 
 
+AUTOTUNE_BURST = 5  # submit children at once: the queue passes queue_hi (3)
+# the steal pair: one range of 2,048 in chunks of 16.  The donor stalls
+# AUTOTUNE_SLOW_S s in each of its first AUTOTUNE_STALLS dispatches (a
+# rank slow for a while, longer than the thief takes to start), so its
+# chunk walls put its elastic_range hint near 30 s / (1.5 s / 16) = 320,
+# far under the half of its range that steal-half would cede when the
+# thief comes: the hint caps the cede, and the donor runs its kept work
+# fast once the stall is over
+AUTOTUNE_EVERY = 16
+AUTOTUNE_SLOW_S = "1.5"
+AUTOTUNE_STALLS = 12
+
+
+def popen_child(*argv, env=None, torch_free: bool = False):
+    """``python -m specpride_tpu_torch ARGV`` (or ``TORCH_FREE``) started
+    now, its stdout and stderr in temporary files; ``reap_child`` waits.
+    A thread notes when it exits (``t_end``), so a child reaped after
+    others keeps its own wall."""
+    import tempfile
+    import threading
+
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    head = ([sys.executable, "-c", TORCH_FREE] if torch_free
+            else [sys.executable, "-m", "specpride_tpu_torch"])
+    proc = subprocess.Popen([*head, *argv], cwd=ROOT,
+                            env=dict(env or os.environ, PYTHONPATH=ROOT),
+                            stdout=out, stderr=err, text=True)
+    proc.out, proc.err, proc.t0 = out, err, time.perf_counter()
+    proc.t_end = None
+
+    def note_exit():
+        proc.wait()
+        proc.t_end = time.perf_counter()
+
+    proc.waiter = threading.Thread(target=note_exit, daemon=True)
+    proc.waiter.start()
+    return proc
+
+
+def reap_child(proc, what: str, timeout: float = 600) -> dict:
+    """Wait for ``proc``: its wall, stdout and stderr; fails unless it
+    exited 0."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = f"killed after {timeout} s"
+    proc.waiter.join(timeout=5)
+    wall = (proc.t_end or time.perf_counter()) - proc.t0
+    texts = []
+    for fh in (proc.out, proc.err):
+        fh.seek(0)
+        texts.append(fh.read())
+        fh.close()
+    if rc != 0:
+        raise AssertionError(f"{what}: exited {rc}:\n{texts[1][-3000:]}\n"
+                             f"{texts[0][-1000:]}")
+    return {"wall_s": wall, "stdout": texts[0], "stderr": texts[1]}
+
+
+def submit_terminal(child: dict, what: str) -> dict:
+    term = json.loads(child["stdout"].strip().splitlines()[-1])
+    if term.get("status") != "done":
+        raise AssertionError(f"{what}: {term}")
+    return term
+
+
+def autotune_phase(src: str, golden: list) -> dict:
+    """autotune: the closed-loop controller on CLI-2k (``golden``: the
+    output and QC report of CLI-2k's one-shot bin-mean with QC).
+
+    (a) a daemon process, ``serve --journal --autotune on
+    --autotune-interval 0.2 --autotune-batch-window 0:20 --flightrec on
+    --incident-dir --metrics-port 0`` (and the 1 ms SLO): a burst of
+    ``AUTOTUNE_BURST`` bin-mean-with-QC ``submit`` children at once, so
+    the queue passes the batch-window policy's ``queue_hi`` (3): every
+    job the golden bytes, at least one acted ``batch_window_ms``
+    decision, the ``specpride_autotune_*`` series on the live
+    ``/metrics``, the ``slo_breach`` bundle carrying ``autotune.json``,
+    ``autotune-replay`` exiting 0 on the journal and SIGTERM draining
+    with exit 0.  (b) beside it, two ``--elastic`` ranks with
+    ``--autotune on`` on one range of 2,048 in chunks of
+    ``AUTOTUNE_EVERY`` with heartbeats every 0.5 s, the donor stalled
+    ``AUTOTUNE_SLOW_S`` s in each of its first ``AUTOTUNE_STALLS``
+    dispatches and the thief started once
+    the donor's lease is journaled: a forced steal, the merged bytes
+    those of the single run with the same chunks (the ``off`` bytes),
+    every cede within the split hint its rank's controller had journaled
+    (``ceded_within_hint``) and at least one cede cut down to it, both
+    ranks' journals replayed clean.  (c) beside them, ``fleet
+    --ranks 2 --spares 1 --autotune observe``: the golden bytes, no torch
+    in the supervisor, its journal replayed clean.  ``launches``: the
+    daemon's and the elastic ranks' own counts (the fleet's ranks report
+    none)."""
+    import shutil
+    import urllib.request
+
+    from specpride_tpu_torch.observability.exporter import (
+        parse_exposition,
+        validate_exposition,
+    )
+    from specpride_tpu_torch.serve import client as sc
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "autotune")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    def path(name: str) -> str:
+        return os.path.join(work, name)
+
+    res: dict = {"launches": {"seg_mean": 0, "seg_mean_heads": 0,
+                              "seg_scan": 0}}
+    single = run_main("consensus", src, path("single.mgf"), "--qc-report",
+                      path("single.qc.json"), "--checkpoint-every",
+                      str(AUTOTUNE_EVERY), "--checkpoint",
+                      path("single.ck"))
+    if single["rc"] != 0:
+        raise AssertionError(f"autotune single: {single['stderr'][-2000:]}")
+    add_launches(res["launches"], single["summary"])
+    off_bytes = file_bytes(path("single.mgf"), path("single.qc.json"))
+
+    def rank(r: int, env=None):
+        return popen_child(
+            "consensus", src, path("el.mgf"), "--qc-report",
+            path("el.qc.json"), "--elastic", path("coord_el"),
+            "--process-id", str(r), "--elastic-range", "2048",
+            "--checkpoint-every", str(AUTOTUNE_EVERY), "--journal",
+            path("el.jsonl"), "--autotune", "on", "--elastic-heartbeat",
+            "0.5", env=env)
+
+    fleet = popen_child(
+        "fleet", "--ranks", "2", "--spares", "1", "--timeout", "300",
+        "--autotune", "observe", "--journal", path("fleet.jsonl"), "--",
+        "consensus", src, path("fleet.mgf"), "--qc-report",
+        path("fleet.qc.json"), "--elastic", path("coord_fleet"),
+        torch_free=True)
+    donor = rank(0, env=dict(
+        os.environ, SPECPRIDE_SLOW_S=AUTOTUNE_SLOW_S,
+        SPECPRIDE_FAULTS=f"dispatch:rank_slow:1:0:{AUTOTUNE_STALLS}"))
+    proc, sock, journal = start_daemon(
+        work, "daemon", "--autotune", "on", "--autotune-interval", "0.2",
+        "--autotune-batch-window", "0:20", "--flightrec", "on",
+        "--incident-dir", path("incidents"), "--metrics-port", "0")
+    children = [fleet, donor]
+    thief = None
+    try:
+        if not sc.wait_for_socket(sock, timeout=180):
+            raise AssertionError("autotune: the daemon never answered")
+        burst = [popen_child("submit", "--socket", sock, "--", "consensus",
+                             src, path(f"job{i}.mgf"), "--qc-report",
+                             path(f"job{i}.qc.json"), torch_free=True)
+                 for i in range(AUTOTUNE_BURST)]
+        children += burst
+        deadline = time.perf_counter() + 300
+        while thief is None:
+            try:
+                with open(path("el.jsonl.part00000")) as fh:
+                    if '"lease_claim"' in fh.read():
+                        thief = rank(1)
+                        children.append(thief)
+                        break
+            except OSError:
+                pass
+            if donor.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError("autotune: the donor never claimed")
+            time.sleep(0.05)
+        stats, burst_walls = [], []
+        for i, child in enumerate(burst):
+            got = reap_child(child, f"autotune job {i}")
+            burst_walls.append(got["wall_s"])
+            if "CHILD 0 False" not in got["stderr"]:
+                raise AssertionError(f"autotune job {i}: {got['stderr']}")
+            stats.append(submit_terminal(got, f"autotune job {i}")["stats"])
+            if file_bytes(path(f"job{i}.mgf"),
+                          path(f"job{i}.qc.json")) != golden:
+                raise AssertionError(f"autotune job {i}: bytes differ from "
+                                     "the one-shot CLI's")
+        status = sc.request(sock, {"op": "status"}, timeout=30)
+        with urllib.request.urlopen(status["metrics_url"],
+                                    timeout=30) as r:
+            text = r.read().decode()
+        samples, _ = parse_exposition(text)
+        decisions = {k[1]: v for k, v in samples.items()
+                     if k[0] == "specpride_autotune_decisions_total"}
+        if validate_exposition(text) or not decisions or not any(
+                k[0] == "specpride_autotune_knob" for k in samples):
+            raise AssertionError("autotune: /metrics lacks the "
+                                 "specpride_autotune_* series")
+        res["status"] = status["autotune"]
+        res["drain_s"] = stop_daemon(proc, "autotune daemon")
+        # the daemon's launches since it started (it ran nothing else)
+        last = max(stats, key=lambda s: s["backend"]["launches"]["seg_mean"])
+        add_launches(res["launches"], last)
+        ranks = [reap_child(donor, "autotune donor"),
+                 reap_child(thief, "autotune thief")]
+        fleet_out = reap_child(fleet, "autotune fleet")
+    finally:
+        for p in [proc, *children]:
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+    events = job_journal(journal, "autotune daemon")
+    acted = [e for e in events if e["event"] == "autotune"
+             and e["knob"] == "batch_window_ms" and e["acted"]]
+    if not acted:
+        raise AssertionError("autotune: no acted batch_window_ms decision")
+    bundles = [os.path.join(d, "autotune.json")
+               for d, _, fs in os.walk(path("incidents"))
+               if "autotune.json" in fs]
+    if not bundles:
+        raise AssertionError("autotune: no bundle carries autotune.json")
+    with open(bundles[0]) as fh:
+        knobs = json.load(fh)["knobs"]
+    _, replay = run_child("autotune-replay", journal)
+    if not replay.strip().endswith("ok"):
+        raise AssertionError(f"autotune: autotune-replay {replay}")
+    res["daemon"] = {
+        "decisions": [[e["knob"], e["old"], e["new"], e["acted"]]
+                      for e in events if e["event"] == "autotune"],
+        "submit_wall_s": burst_walls,
+        "bundle_knobs": knobs}
+    print(f"compare autotune serve (CLI-2k): {AUTOTUNE_BURST} jobs at once, "
+          f"the one-shot bytes each; {len(acted)} acted batch_window_ms "
+          f"decision(s) (first {acted[0]['old']} -> {acted[0]['new']} ms at "
+          f"queue depth {acted[0]['signal']['queue_depth']}); /metrics "
+          f"decisions {decisions}; the slo_breach bundle's autotune.json "
+          f"{knobs}; autotune-replay ok; drain exit 0 in "
+          f"{res['drain_s']:.3f} s", flush=True)
+
+    merged = run_main("merge-parts", path("el.mgf"), "--elastic",
+                      path("coord_el"), "--qc-report", path("el.qc.json"))
+    if merged["rc"] != 0 or file_bytes(path("el.mgf"),
+                                       path("el.qc.json")) != off_bytes:
+        raise AssertionError("autotune elastic: the merged bytes differ from "
+                             "the single run's")
+    cuts = []
+    for r in (0, 1):
+        cuts += ceded_within_hint(
+            job_journal(path(f"el.jsonl.part{r:05d}"), "autotune rank"), r)
+    if not cuts:
+        raise AssertionError("autotune elastic: the donor was never "
+                             "relieved")
+    if not any(c["capped"] for c in cuts):
+        raise AssertionError(f"autotune elastic: no cede was capped by the "
+                             f"split hint: {cuts}")
+    hint = [c["hint"] for c in cuts if c["capped"]][0]
+    _, replay = run_child("autotune-replay", path("el.jsonl"))
+    if not replay.strip().endswith("ok"):
+        raise AssertionError(f"autotune elastic: autotune-replay {replay}")
+    for r in ranks:
+        add_launches(res["launches"],
+                     json.loads(r["stderr"].strip().splitlines()[-1]))
+    res["elastic"] = {"walls_s": [r["wall_s"] for r in ranks], "cuts": cuts,
+                      "hint": hint}
+    print(f"compare autotune elastic (CLI-2k): two ranks --autotune on, the "
+          f"donor stalled {AUTOTUNE_SLOW_S} s in its first "
+          f"{AUTOTUNE_STALLS} dispatches: cuts {cuts}, the cede capped by "
+          f"the hint {hint}, the merged bytes = the single run's "
+          f"at --checkpoint-every {AUTOTUNE_EVERY}; both journals replayed "
+          f"ok; walls {res['elastic']['walls_s']} s", flush=True)
+
+    if "CHILD 0 False" not in fleet_out["stderr"]:
+        raise AssertionError(f"autotune fleet: {fleet_out['stderr'][-3000:]}")
+    merged = run_main("merge-parts", path("fleet.mgf"), "--elastic",
+                      path("coord_fleet"), "--qc-report",
+                      path("fleet.qc.json"))
+    if merged["rc"] != 0 or file_bytes(path("fleet.mgf"),
+                                       path("fleet.qc.json")) != golden:
+        raise AssertionError("autotune fleet: the merged bytes differ")
+    _, replay = run_child("autotune-replay", path("fleet.jsonl"))
+    if not replay.strip().endswith("ok"):
+        raise AssertionError(f"autotune fleet: autotune-replay {replay}")
+    fleet_summary = json.loads([ln for ln in fleet_out["stderr"].splitlines()
+                                if ln.startswith("{")][-1])
+    res["fleet"] = {"wall_s": fleet_out["wall_s"],
+                    "autotune": fleet_summary.get("autotune")}
+    print(f"compare autotune fleet (CLI-2k): --ranks 2 --spares 1 --autotune "
+          f"observe, the one-shot bytes, no torch in the supervisor, "
+          f"{fleet_summary.get('autotune')}, its journal replayed ok; wall "
+          f"{fleet_out['wall_s']:.3f} s", flush=True)
+    print(f"autotune {json.dumps(res)}", flush=True)
+    return res
+
+
+def hint_cap(hint):
+    """The most a donor cedes under the split hint ``hint`` on the
+    ``AUTOTUNE_EVERY`` grid (``Coordinator.clip_or_ratify``); None, no
+    hint, for steal-half's uncapped cede."""
+    return (max(hint // AUTOTUNE_EVERY, 1) * AUTOTUNE_EVERY if hint
+            else None)
+
+
+def ceded_within_hint(events: list, rank: int) -> list:
+    """Each ``lease_split`` of one rank's journal against the split hint
+    its own controller had journaled (acted ``autotune`` decisions): the
+    cede at most the hint's cap, and ``capped`` when it is the cap.  The
+    controller sets the hint just after journaling it, so a ratification
+    that read the previous hint can be journaled just after the new one:
+    within ``HINT_RACE_S`` of a decision the previous hint's cap also
+    holds.  ``after_claim_s``: the cut's seconds after the rank's first
+    lease claim."""
+    cuts, hint, prev, decided, claimed = [], None, None, None, None
+    for e in events:
+        if e["event"] == "lease_claim" and claimed is None:
+            claimed = e["mono"]
+        if e["event"] == "autotune" and e["acted"]:
+            prev, hint, decided = hint, e["new"], e["mono"]
+        if e["event"] != "lease_split":
+            continue
+        ceded, cap = e["n_clusters_split"], hint_cap(hint)
+        caps = [cap]
+        if decided is not None and e["mono"] - decided < HINT_RACE_S:
+            caps.append(hint_cap(prev))
+        if all(c is not None and ceded > c for c in caps):
+            raise AssertionError(f"autotune elastic: rank {rank} ceded "
+                                 f"{ceded} past the hint {hint}")
+        cuts.append({"rank": rank, "split_at": e["split_at"],
+                     "ceded": ceded, "hint": hint,
+                     "capped": cap is not None and ceded == cap,
+                     "after_claim_s": (e["mono"] - claimed
+                                       if claimed is not None else None)})
+    return cuts
+
+
+HINT_RACE_S = 0.5
+WARMUP_JOBS = 3  # per daemon, in turns: the first and two repeats
+
+
+def warmup_phase(src: str, golden: list) -> dict:
+    """warmup: warm start on CLI-2k (``golden`` as for the autotune phase).
+
+    ``consensus --qc-report --warmup-manifest M`` in this process writes
+    the manifest (the golden bytes); ``--warmup manifest`` without a
+    manifest stops ``consensus`` and ``serve`` with the JAX CLI's
+    message.  Then, started together: ``warmup M --journal`` in a fresh
+    child (each entry's status and seconds) and two daemon processes,
+    ``serve --warmup manifest --warmup-manifest M`` and ``serve --warmup
+    off``; ``WARMUP_JOBS`` bin-mean-with-QC ``submit`` children each, in
+    turns: every job the golden bytes and the launches of the cold
+    daemon's job; ``warmed_kernels`` (the entries, and 0), each daemon's
+    first and repeat submit walls, the warm's own launches (the warmed
+    daemon's ``warmup`` events), both drains exit 0."""
+    import shutil
+
+    from specpride_tpu_torch import cli
+    from specpride_tpu_torch.serve import client as sc
+    from specpride_tpu_torch.warmstart.manifest import load_manifest
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "warmup")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    def path(name: str) -> str:
+        return os.path.join(work, name)
+
+    res: dict = {"launches": {"seg_mean": 0, "seg_mean_heads": 0,
+                              "seg_scan": 0}}
+    manifest = path("shapes.json")
+    seed = run_main("consensus", src, path("seed.mgf"), "--qc-report",
+                    path("seed.qc.json"), "--warmup-manifest", manifest)
+    if seed["rc"] != 0 or file_bytes(path("seed.mgf"),
+                                     path("seed.qc.json")) != golden:
+        raise AssertionError("warmup: the manifest's run differs from the "
+                             "one-shot bytes")
+    add_launches(res["launches"], seed["summary"])
+    entries = load_manifest(manifest)
+    want = "--warmup manifest: no shape manifest at <no --warmup-manifest " \
+        "and no compile cache>"
+    refusals = {}
+    for what, argv in (("consensus", ["consensus", src, path("x.mgf"),
+                                      "--warmup", "manifest"]),
+                       ("serve", ["serve", "--warmup", "manifest",
+                                  "--socket", path("x.sock")])):
+        try:
+            rc = cli.main(argv)
+        except SystemExit as e:
+            rc, refusals[what] = 1, str(e.code)
+        if rc == 0 or want not in refusals.get(what, ""):
+            raise AssertionError(f"warmup: {what} --warmup manifest without "
+                                 f"one: {refusals.get(what)}")
+
+    child = popen_child("warmup", manifest, "--journal",
+                        path("warmup.jsonl"))
+    daemons = {
+        "warm": start_daemon(work, "warm", "--warmup", "manifest",
+                             "--warmup-manifest", manifest),
+        "cold": start_daemon(work, "cold", "--warmup", "off"),
+    }
+    walls: dict = {"warm": [], "cold": []}
+    cum: dict = {"warm": [], "cold": []}
+    try:
+        warm = reap_child(child, "warmup child")
+        counts = json.loads(warm["stdout"].strip().splitlines()[-1])
+        if counts["compiled"] != len(entries):
+            raise AssertionError(f"warmup child: {counts}")
+        for arm, (_, sock, _) in daemons.items():
+            if not sc.wait_for_socket(sock, timeout=180):
+                raise AssertionError(f"warmup {arm}: no ping")
+        status = {arm: sc.request(daemons[arm][1], {"op": "status"},
+                                  timeout=30) for arm in daemons}
+        for i in range(WARMUP_JOBS):
+            for arm in ("cold", "warm") if i % 2 else ("warm", "cold"):
+                out = path(f"{arm}{i}.mgf")
+                wall, text = run_child(
+                    "submit", "--socket", daemons[arm][1], "--",
+                    "consensus", src, out, "--qc-report", f"{out}.qc.json")
+                term = json.loads(text.strip().splitlines()[-1])
+                if term.get("status") != "done" or file_bytes(
+                        out, f"{out}.qc.json") != golden:
+                    raise AssertionError(f"warmup {arm} job {i}: {term}")
+                walls[arm].append(wall)
+                cum[arm].append(term["stats"]["backend"]["launches"])
+        res["drain_s"] = {arm: stop_daemon(daemons[arm][0], f"warmup {arm}")
+                          for arm in daemons}
+    finally:
+        for proc, _, _ in daemons.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    warm_events = [e for e in job_journal(daemons["warm"][2], "warmup warm")
+                   if e["event"] == "warmup"]
+    warm_launches = {k: 0 for k in res["launches"]}
+    for e in warm_events:
+        for k, v in (e.get("launches") or {}).items():
+            warm_launches[k] += v
+    if [e["status"] for e in warm_events] != ["compiled"] * len(entries):
+        raise AssertionError(f"warmup warm daemon: {warm_events}")
+    if any(e["event"] == "warmup" for e in job_journal(
+            daemons["cold"][2], "warmup cold")):
+        raise AssertionError("warmup: the --warmup off daemon warmed")
+    if (status["warm"]["warmed_kernels"] != len(entries)
+            or status["cold"]["warmed_kernels"] != 0):
+        raise AssertionError(f"warmup: warmed_kernels "
+                             f"{status['warm']['warmed_kernels']} / "
+                             f"{status['cold']['warmed_kernels']}")
+    per_job: dict = {}
+    for arm, before in (("warm", warm_launches),
+                        ("cold", {k: 0 for k in warm_launches})):
+        per_job[arm] = []
+        for now in cum[arm]:
+            per_job[arm].append({k: now[k] - before[k] for k in now})
+            before = now
+    if len({json.dumps(j, sort_keys=True)
+            for arm in per_job for j in per_job[arm]}) != 1:
+        raise AssertionError(f"warmup: per-job launches {per_job}")
+    for k in res["launches"]:
+        res["launches"][k] += cum["warm"][-1][k] + cum["cold"][-1][k]
+    res.update(
+        entries=[[e.kernel, list(e.shape_key)] for e in entries],
+        warmup_child={"wall_s": warm["wall_s"], **counts},
+        warmed_kernels={arm: status[arm]["warmed_kernels"]
+                        for arm in status},
+        warm_launches=warm_launches,
+        warm_seconds=[e["seconds"] for e in warm_events],
+        submit_wall_s=walls, job_launches=per_job["cold"][0],
+        refusals=refusals)
+    for e in counts["entries"]:
+        print(f"warmup entry {e['kernel']} {e['shape_key']}: {e['status']} "
+              f"in {e['seconds']} s", flush=True)
+    print(f"warmup launches {json.dumps(warm_launches)} (the warmed "
+          f"daemon's boot)", flush=True)
+    print(f"compare warmup (CLI-2k): {len(entries)} manifest entries, the "
+          f"warmup child {counts['compiled']} compiled in "
+          f"{counts['seconds']} s; warmed_kernels {res['warmed_kernels']}; "
+          f"{WARMUP_JOBS} + {WARMUP_JOBS} jobs the one-shot bytes and the "
+          f"same launches {per_job['cold'][0]}; submit walls warm "
+          f"{walls['warm']} s, cold {walls['cold']} s; both drains exit 0; "
+          f"--warmup manifest without one refused as the JAX CLI does",
+          flush=True)
+    print(f"warmup {json.dumps(res)}", flush=True)
+    return res
+
+
 # each phase's wall (seconds), in the order run: chip_smoke.json's phase_s
 PHASE_S: dict[str, float] = {}
 
@@ -4694,14 +5199,15 @@ def smoke() -> int:
     telres = timed(telemetry_phase, kernels, cli_src)
     trres = timed(tracing_phase, kernels, cli_src, clusters)
     exec_bytes = trres.pop("exec_bytes")
-    cacheres = timed(result_cache_phase, kernels, cli_src, clusters,
-                     exec_bytes)
+    cacheres = timed(result_cache_phase, kernels, cli_src, clusters)
     serveres = timed(serve_phase, kernels, cli_src, clusters, exec_bytes)
     del clusters, exec_bytes
     serve_work = os.path.join(ROOT, "build", "chip_smoke", "serve")
-    frres = timed(flightrec_phase, cli_src, file_bytes(
-        os.path.join(serve_work, "cold_bin-mean.mgf"),
-        os.path.join(serve_work, "cold_bin-mean.qc.json")))
+    golden = file_bytes(os.path.join(serve_work, "cold_bin-mean.mgf"),
+                        os.path.join(serve_work, "cold_bin-mean.qc.json"))
+    frres = timed(flightrec_phase, cli_src, golden)
+    atres = timed(autotune_phase, cli_src, golden)
+    wres = timed(warmup_phase, cli_src, golden)
     startres = timed(process_start_phase, cli_src)
 
     main_case = mres["cases"][0]
@@ -4731,11 +5237,12 @@ def smoke() -> int:
     # single-process reference and survivor in this process
     elastic = elres["launches"]
     # the in-process serving daemons' runs (two lanes, then batched), and
-    # the flight-recorder phase's daemon processes and elastic ranks (their
-    # processes' own counts)
+    # the flight-recorder, autotune and warmup phases' daemon processes,
+    # elastic ranks and in-process references (the processes' own counts)
     served = {k: sum(serveres["in_process"][what]["launches"][k]
                      for what in ("two lanes", "batched"))
-              + frres["launches"][k]
+              + frres["launches"][k] + atres["launches"][k]
+              + wres["launches"][k]
               for k in main_run}
     entries = [{
         "name": "seg_mean",
@@ -4810,7 +5317,8 @@ def smoke() -> int:
                    "mesh": meshres, "ranks": rankres, "elastic": elres,
                    "telemetry": telres, "tracing": trres,
                    "result_cache": cacheres, "serve": serveres,
-                   "flightrec": frres, "process_start": startres,
+                   "flightrec": frres, "autotune": atres, "warmup": wres,
+                   "process_start": startres,
                    "build": info.get("seconds"), "phase_s": PHASE_S,
                    "wall_s": wall}, fh, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -1,8 +1,8 @@
 """``python -m specpride_tpu_torch`` entry point.  ``submit`` and
 ``profile`` go to the serving client, ``fleet`` and ``cas-server`` to the
 fleet module, ``incident-replay`` and ``incidents`` to the flight
-recorder's read side, before the CLI is imported, so they start without
-torch."""
+recorder's read side, ``autotune-replay`` to the autotune audit, before
+the CLI is imported, so they start without torch."""
 import sys
 
 if __name__ == "__main__":
@@ -12,6 +12,8 @@ if __name__ == "__main__":
         from specpride_tpu_torch.parallel.fleet import main
     elif sys.argv[1:2] in (["incident-replay"], ["incidents"]):
         from specpride_tpu_torch.observability.incident_cli import main
+    elif sys.argv[1:2] == ["autotune-replay"]:
+        from specpride_tpu_torch.autotune.cli import main
     else:
         from specpride_tpu_torch.cli import main
     raise SystemExit(main())

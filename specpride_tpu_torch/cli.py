@@ -136,6 +136,10 @@ import threading
 import time
 
 from specpride_tpu_torch import convert, metrics
+from specpride_tpu_torch.autotune.cli import (
+    AUTOTUNE_COMMANDS,
+    add_replay_parser,
+)
 from specpride_tpu_torch.backends import numpy_backend
 from specpride_tpu_torch.backends.torch_backend import TorchBackend
 from specpride_tpu_torch.config import (
@@ -392,12 +396,45 @@ def build_parser() -> argparse.ArgumentParser:
         "breaches, burn) from a serving daemon's job_done events",
     )
     pst.add_argument(
+        "--autotune", action="store_true",
+        help="also render the controller's decision log (knob, old -> new, "
+        "acted, reason) from the journals' autotune events; works with "
+        "--follow",
+    )
+    pst.add_argument(
         "--incidents", action="store_true",
         help="also render the flight recorder's incident log (detector, "
         "clock, reason, bundled, dedup suppression) from the journals' "
         "incident events; works with --follow",
     )
     add_incident_parsers(sub)
+    add_replay_parser(sub)
+
+    pwu = sub.add_parser(
+        "warmup",
+        help="dispatch every shape class of a shape manifest once on the "
+        "card (the kernel library, the stream's workspace, the device "
+        "code of the path's torch ops), so the next run's first chunk "
+        "pays none of it",
+    )
+    pwu.add_argument(
+        "manifest",
+        help="shape manifest JSON, written by consensus/select runs with "
+        "--warmup-manifest (the JAX package's manifests read too)",
+    )
+    pwu.add_argument(
+        "--jobs", type=int, default=0, metavar="N",
+        help="entries warmed at once: the port warms one at a time on its "
+        "stream, so 0 (the default) and 1 are taken and more is refused",
+    )
+    pwu.add_argument(
+        "--journal", metavar="FILE",
+        help="append warmup events (per-kernel status, seconds, launches) "
+        "to this JSONL journal",
+    )
+    pwu.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                     help="where the shape classes are dispatched (default: "
+                     "the GPU)")
 
     pt = sub.add_parser(
         "trace",
@@ -507,6 +544,35 @@ def _add_serve(sub) -> None:
                      help="(with --result-cache) the cache's shared tier: a "
                      "directory or an http(s):// object store (`cas-server`) "
                      "the whole fleet populates and consults")
+    psv.add_argument(
+        "--warmup", choices=["auto", "manifest", "off"], default="auto",
+        help="boot-time warmup from --warmup-manifest, on every lane's own "
+        "stream: auto warms when the file exists, manifest requires it, "
+        "off skips (default auto)")
+    psv.add_argument("--warmup-manifest", metavar="FILE",
+                     help="shape manifest path (no default: the port has no "
+                     "compile cache to keep one beside)")
+    psv.add_argument(
+        "--warmup-jobs", type=int, default=0, metavar="N",
+        help="entries warmed at once per lane: each lane warms one at a "
+        "time on its stream, so 0 (the default) and 1 are taken and more "
+        "is refused")
+    psv.add_argument(
+        "--autotune", choices=["off", "observe", "on"], default="off",
+        help="closed-loop controller over the daemon's live knobs (batch "
+        "window, active worker lanes), driven by the journal's own "
+        "telemetry: 'observe' journals every would-be decision without "
+        "acting, 'on' also acts; every decision is an `autotune` journal "
+        "event carrying its evidence.  Requires --journal; replay with "
+        "`autotune-replay` (default off)")
+    psv.add_argument("--autotune-interval", type=float, default=1.0,
+                     metavar="S",
+                     help="controller tick interval in seconds (default 1.0)")
+    psv.add_argument(
+        "--autotune-batch-window", metavar="LO:HI", default=None,
+        help="clamp for the tuned batch window in milliseconds, e.g. 0:50: "
+        "the controller never moves --batch-window outside [LO, HI] "
+        "(default 0:50)")
     add_flightrec_flags(psv)
 
 
@@ -655,6 +721,20 @@ def _add_common(p: argparse.ArgumentParser, what: str) -> None:
         "jitter: same plan + seed fires at the same visits every run",
     )
     p.add_argument(
+        "--warmup", choices=["auto", "manifest", "off"], default="auto",
+        help="shape-class warmup before the pack lane starts: 'auto' "
+        "(default) dispatches every class of --warmup-manifest once when "
+        "the file exists, and afterwards adds this run's classes to it; "
+        "'manifest' requires the file and fails without it; 'off' "
+        "disables both.  Each class is journaled as a warmup event (see "
+        "`warmup`)",
+    )
+    p.add_argument(
+        "--warmup-manifest", metavar="FILE",
+        help="shape manifest path (no default: the port has no compile "
+        "cache to keep one beside)",
+    )
+    p.add_argument(
         "--journal", metavar="FILE",
         help="append-only JSONL run journal: typed events (run_start, "
         "chunk heartbeats, compile/dispatch, checkpoint_write, resume, "
@@ -747,6 +827,16 @@ def _add_elastic(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--metrics-host", default="127.0.0.1", metavar="HOST",
         help="bind address for --metrics-port (default 127.0.0.1)",
+    )
+    p.add_argument(
+        "--autotune", choices=["off", "observe", "on"], default="off",
+        help="(with --elastic) closed-loop controller sizing split-off "
+        "ranges from the heartbeats' EWMA chunk walls: 'observe' journals "
+        "every would-be --elastic-range decision without acting, 'on' "
+        "also caps how much tail a donor cedes per steal; claimed ranges "
+        "are never resized, so the merged output stays the same bytes.  "
+        "Requires --journal; every decision is an `autotune` event "
+        "(default off)",
     )
     add_flightrec_flags(p, "(with --elastic) ")
 
@@ -2152,8 +2242,10 @@ def _open_run_journal(args, backend: TorchBackend, n_clusters: int):
     journal = open_journal(args.journal)
     backend.journal = journal
     # a serving lane's registry outlives the job: run_end reports the
-    # counters' growth since here
+    # counters' growth since here, and the shape manifest takes the
+    # classes first dispatched since here
     args._device_snapshot = device_counters_snapshot(backend.metrics)
+    args._shapes_snapshot = set(backend._seen_shapes)
     ctx = (getattr(args, "_trace_ctx", None) or TraceContext.from_env()
            or TraceContext.mint())
     args._trace_ctx = ctx
@@ -2304,6 +2396,156 @@ def _warm_device(backend: TorchBackend) -> None:
         torch.cuda.synchronize(backend.device)
 
 
+# kernel-name prefixes each method can dispatch: a run's warmup takes
+# only what this run can use (the cosine kernels serve every method's
+# --qc-report); `warmup` warms a whole manifest
+_METHOD_KERNEL_PREFIXES = {
+    "bin-mean": ("bin_mean", "cosine_"),
+    "gap-average": ("gap_average", "cosine_"),
+    "medoid": ("shared_bins", "cosine_"),
+    "best": ("cosine_",),
+}
+
+# a run's warmup ceiling: a long-lived manifest unions every workload
+# ever run, so the rest is logged, never warmed silently
+_WARMUP_MAX_ENTRIES = 64
+
+
+def _run_warmup(args, backend: TorchBackend, journal) -> None:
+    """``--warmup``: dispatch each ``--warmup-manifest`` class this method
+    can use once before the pack lane starts, journaled as ``warmup``
+    events.  ``auto`` without the file does nothing (the run seeds it),
+    ``manifest`` without it stops with the JAX CLI's message.  A served
+    job skips it: its daemon warmed every lane at boot."""
+    mode = args.warmup
+    if mode == "off" or getattr(args, "_resident_warm", False):
+        return
+    path = args.warmup_manifest
+    exists = path is not None and os.path.exists(path)
+    if mode == "manifest" and not exists:
+        raise SystemExit(
+            "--warmup manifest: no shape manifest at "
+            f"{path or '<no --warmup-manifest and no compile cache>'} "
+            "(run the workload once with --warmup auto, or point "
+            "--warmup-manifest at a saved one)")
+    if not exists:
+        return
+    from specpride_tpu_torch.warmstart.manifest import load_manifest
+    from specpride_tpu_torch.warmstart.warmup import warm_entries
+
+    try:
+        entries = load_manifest(path)
+    except (OSError, ValueError) as e:
+        if mode == "manifest":
+            raise SystemExit(f"unreadable shape manifest {path}: {e}")
+        logger.warning("ignoring shape manifest %s (%s)", path, e)
+        return
+    prefixes = _METHOD_KERNEL_PREFIXES.get(args.method)
+    if prefixes is not None:
+        kept = [e for e in entries if e.kernel.startswith(prefixes)]
+        if len(kept) < len(entries):
+            logger.info("warmup: %d of %d manifest entries apply to "
+                        "--method %s", len(kept), len(entries), args.method)
+        entries = kept
+    if len(entries) > _WARMUP_MAX_ENTRIES:
+        logger.warning("warmup: manifest has %d entries for this method; "
+                       "warming the first %d (run `warmup %s` to warm them "
+                       "all)", len(entries), _WARMUP_MAX_ENTRIES, path)
+        entries = entries[:_WARMUP_MAX_ENTRIES]
+    warm_entries(entries, journal=journal, backend=backend)
+
+
+# serving lanes finish jobs, and so merge manifests, concurrently
+_manifest_lock = threading.Lock()
+
+
+def _save_shape_manifest(args, backend: TorchBackend) -> None:
+    """Add the shape classes this run dispatched (those the backend had
+    not dispatched before its journal opened: a serving lane's earlier
+    jobs are not this run's) to ``--warmup-manifest``, so the next
+    process can warm them.  Nothing with ``--warmup off`` or without a
+    manifest path."""
+    path = args.warmup_manifest
+    if args.warmup == "off" or not path:
+        return
+    seen = set(getattr(backend, "_seen_shapes", ()) or ())
+    seen -= getattr(args, "_shapes_snapshot", set())
+    if not seen:
+        return
+    from specpride_tpu_torch.warmstart.manifest import (
+        entries_from_seen,
+        merge_manifest,
+    )
+
+    entries = entries_from_seen(seen, method_config(args))
+    if not entries:
+        return
+    try:
+        with _manifest_lock:
+            n = merge_manifest(path, entries)
+    except (OSError, ValueError) as e:
+        logger.warning("could not update shape manifest %s (%s)", path, e)
+        return
+    logger.info("shape manifest: %d shape class(es) -> %s", n, path)
+
+
+def run_warmup(args) -> int:
+    """``warmup MANIFEST``: every class of the manifest dispatched once on
+    ``--device``, each journaled as a ``warmup`` event; one JSON line of
+    counts on stdout (the JAX CLI's keys; ``cache_dir`` is null, the port
+    has no compile cache)."""
+    from specpride_tpu_torch.warmstart.manifest import load_manifest
+    from specpride_tpu_torch.warmstart.warmup import check_jobs, warm_entries
+
+    try:
+        check_jobs(args.jobs)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    try:
+        entries = load_manifest(args.manifest)
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"unreadable shape manifest {args.manifest}: {e}")
+    backend = TorchBackend(device=args.device)
+    _warm_device(backend)
+    journal = open_journal(args.journal)
+    journal.emit("run_start", command="warmup", method="warmup",
+                 backend="torch", n_clusters=0, manifest=args.manifest,
+                 device=str(backend.device))
+    before = dict(kernels.launches)
+    t0 = time.perf_counter()
+    results = warm_entries(entries, journal=journal, jobs=args.jobs,
+                           backend=backend)
+    elapsed = time.perf_counter() - t0
+    n_hits = sum(r.cache_hit for r in results)
+    n_compiled = sum(r.status == "compiled" for r in results)
+    for r in results:
+        if r.status == "error":
+            logger.warning("warmup %s %s failed: %s", r.entry.kernel,
+                           list(r.entry.shape_key), r.detail)
+    journal.emit(
+        "run_end",
+        counters={"kernels_warmed": len(results),
+                  "warmup_cache_hits": n_hits,
+                  "warmup_compiled": n_compiled},
+        phases_s={"warmup": round(elapsed, 4)},
+        elapsed_s=round(elapsed, 4), device=device_summary(None))
+    journal.close()
+    print(json.dumps({
+        "kernels": len(results), "compiled": n_compiled,
+        "cache_hits": n_hits,
+        "skipped_or_failed": len(results) - n_hits - n_compiled,
+        "seconds": round(elapsed, 3), "cache_dir": None,
+        "launches": {k: n - before.get(k, 0)
+                     for k, n in kernels.launches.items()},
+        "entries": [{"kernel": r.entry.kernel,
+                     "shape_key": list(r.entry.shape_key),
+                     "status": r.status, "seconds": round(r.seconds, 4),
+                     **({"detail": r.detail} if r.detail else {})}
+                    for r in results],
+    }))
+    return 0
+
+
 def _elastic_rank(args, quarantine: Quarantine | None) -> None:
     """An elastic rank's identity, before its journal opens: the rank
     (``--process-id``, else the lowest free one in the store), the
@@ -2340,12 +2582,17 @@ def _run_elastic(args, clusters, backend: TorchBackend, scores,
     nothing is claimable, steal the tail of a live peer's range, else wait
     as a warm spare until every range carries a commit marker (a peer's
     death is noticed by its lease's expiry).  ``--metrics-port`` serves
-    the rank's live ``/metrics``; ``--flightrec observe|on`` taps the
-    rank's journal with a flight recorder (its bundles carry the
-    coordinator's counters), stopped before the journal closes.  Returns
+    the rank's live ``/metrics``; ``--autotune observe|on`` runs a
+    controller over the split hint (``ElasticRangePolicy``);
+    ``--flightrec observe|on`` taps the rank's journal with a flight
+    recorder (its bundles carry the coordinator's counters and the
+    controller's knobs), both stopped before the journal closes.  Returns
     the ``elastic`` summary: the rank, the store, the plan and the lease
     counters."""
     root, rank = args.elastic, args.process_id
+    if args.autotune != "off" and not journal.enabled:
+        raise SystemExit("--autotune observe|on requires --journal: every "
+                         "decision must be journaled as evidence")
     if args.flightrec != "off":
         from specpride_tpu_torch.observability import flightrec
 
@@ -2376,7 +2623,23 @@ def _run_elastic(args, clusters, backend: TorchBackend, scores,
                 "%.1fs, steal %s)", rank, len(coord.ranges), range_size,
                 coord.store.describe(), coord.ttl,
                 "on" if coord.steal_enabled else "off")
-    exporter = metrics_fn = recorder = None
+    exporter = metrics_fn = recorder = ctl_thread = None
+    if args.autotune != "off":
+        from specpride_tpu_torch.autotune import (
+            Controller,
+            ControllerThread,
+            ElasticRangePolicy,
+        )
+
+        chunk = max(int(args.checkpoint_every), 1)
+        ctl = Controller(journal, mode=args.autotune)
+        ctl.register(
+            ElasticRangePolicy(lo=chunk, hi=4 * range_size, chunk_hint=chunk),
+            get=lambda: coord.split_hint or range_size,
+            set=coord.set_split_hint)
+        ctl_thread = ControllerThread(ctl, interval=1.0).start()
+        logger.info("elastic rank %d: autotune %s (elastic_range clamp [%d, "
+                    "%d])", rank, args.autotune, chunk, 4 * range_size)
     if args.metrics_port is not None:
         from specpride_tpu_torch.observability.exporter import (
             ElasticTelemetry,
@@ -2392,9 +2655,13 @@ def _run_elastic(args, clusters, backend: TorchBackend, scores,
                                    health=telemetry.health).start()
         logger.info("elastic liveness metrics -> %s", exporter.url)
     if args.flightrec != "off":
+        ctl = ctl_thread.controller if ctl_thread is not None else None
         recorder = flightrec.FlightRecorder(
             journal, mode=args.flightrec, incident_dir=args.incident_dir,
             metrics_fn=metrics_fn,
+            autotune_fn=((lambda: {"status": ctl.status(),
+                                   "knobs": ctl.knob_values()})
+                         if ctl is not None else None),
             # the store-derived lease view a dead rank's journal cannot
             # rebuild
             extra_fn=coord.counters,
@@ -2402,7 +2669,7 @@ def _run_elastic(args, clusters, backend: TorchBackend, scores,
                     "store": coord.store.describe(),
                     "n_ranges": len(coord.ranges), "range_size": range_size,
                     "ttl_s": coord.ttl, "steal": coord.steal_enabled,
-                    "autotune": "off", "flightrec": args.flightrec},
+                    "autotune": args.autotune, "flightrec": args.flightrec},
         ).start()
         logger.info("elastic rank %d: flightrec %s", rank, args.flightrec)
     # one harness for the rank's life: the fault plan's visit counts and
@@ -2424,6 +2691,12 @@ def _run_elastic(args, clusters, backend: TorchBackend, scores,
                                stats, journal, harness, quarantine)
     finally:
         harness.close()
+        if ctl_thread is not None:
+            # a last progress beat first (a rank done inside one heartbeat
+            # interval gives the drain tick its chunk walls), then the
+            # controller stops before the journal closes
+            coord.flush_progress()
+            ctl_thread.stop()
         if recorder is not None:
             # drains the queued firings into the journal before it closes
             recorder.stop()
@@ -2470,6 +2743,10 @@ def _run_pipeline_command(args, backend: TorchBackend, rank: int = 0,
             logger.warning("--metrics-port serves an elastic rank's live "
                            "metrics; ignoring it without --elastic (the "
                            "run's metrics: --metrics-out)")
+        if args.autotune != "off" and not args.elastic:
+            logger.warning("--autotune tunes an elastic rank's split ranges "
+                           "(serve has its own); ignoring it without "
+                           "--elastic")
         if args.elastic:
             # the gate first: a reduced precision that fails it claims no
             # range (its verdict rides the rank's run_end)
@@ -2480,6 +2757,7 @@ def _run_pipeline_command(args, backend: TorchBackend, rank: int = 0,
         journal = _open_run_journal(args, backend, len(clusters))
         if quarantine is not None:
             quarantine.bind(journal)  # the blocks found while parsing
+        _run_warmup(args, backend, journal)
         failed = ()
         if args.elastic:
             with device_trace(args.trace_dir, backend.device):
@@ -2497,6 +2775,7 @@ def _run_pipeline_command(args, backend: TorchBackend, rank: int = 0,
             stats.precision = precision_gate(
                 backend, args.method, clusters, method_config(args),
                 _cosine_config(args), journal)
+        _save_shape_manifest(args, backend)
         _finish_run(args, backend, stats, journal)
     finally:
         _restore_tracer(args)
@@ -2586,10 +2865,10 @@ def run_stats_command(args) -> int:
             raise SystemExit("--follow tails exactly one journal")
         return follow_stats(args.journals[0], interval=args.interval,
                             top_spans=args.top_spans, slo=args.slo,
-                            incidents=args.incidents)
+                            incidents=args.incidents, autotune=args.autotune)
     return run_stats(args.journals, json_out=args.json,
                      top_spans=args.top_spans, slo=args.slo,
-                     incidents=args.incidents)
+                     incidents=args.incidents, autotune=args.autotune)
 
 
 def run_trace(args) -> int:
@@ -2733,6 +3012,24 @@ def run_serve(args) -> int:
     if args.batch_max_clusters < 1:
         raise SystemExit("--batch-max-clusters must be >= 1 "
                          f"(got {args.batch_max_clusters})")
+    if args.autotune != "off" and not args.journal:
+        raise SystemExit("serve --autotune observe|on requires --journal: "
+                         "every decision must be journaled as evidence")
+    autotune_bw = None
+    if args.autotune_batch_window:
+        from specpride_tpu_torch.autotune.policy import parse_clamp
+
+        try:
+            autotune_bw = parse_clamp(args.autotune_batch_window,
+                                      "--autotune-batch-window")
+        except ValueError as e:
+            raise SystemExit(str(e))
+    from specpride_tpu_torch.warmstart.warmup import check_jobs
+
+    try:
+        check_jobs(args.warmup_jobs, "--warmup-jobs")
+    except ValueError as e:
+        raise SystemExit(str(e))
     if args.flightrec != "off" and not args.journal:
         raise SystemExit("serve --flightrec observe|on requires --journal: "
                          "the detectors fold the journal stream")
@@ -2755,6 +3052,9 @@ def run_serve(args) -> int:
         metrics_out=args.metrics_out, slo=slo,
         result_cache=args.result_cache, result_store=args.result_store,
         flightrec=args.flightrec, incident_dir=args.incident_dir,
+        autotune=args.autotune, autotune_interval=args.autotune_interval,
+        autotune_batch_window=autotune_bw, warmup=args.warmup,
+        warmup_manifest=args.warmup_manifest, warmup_jobs=args.warmup_jobs,
     ).run()
 
 
@@ -2788,6 +3088,13 @@ def main(argv: list[str] | None = None) -> int:
         return FLEET_COMMANDS[args.command](args)
     if args.command in INCIDENT_COMMANDS:
         return INCIDENT_COMMANDS[args.command](args)
+    if args.command in AUTOTUNE_COMMANDS:
+        return AUTOTUNE_COMMANDS[args.command](args)
+    if args.command == "warmup":
+        try:
+            return run_warmup(args)
+        except RuntimeError as exc:  # no CUDA for the default --device cuda
+            ap.error(f"{exc} (here: --device cpu)")
     try:
         backend = _make_backend(args)
     except RuntimeError as exc:  # no CUDA for the default --device cuda

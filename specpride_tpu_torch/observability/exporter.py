@@ -4,7 +4,8 @@ exporter and SLO accounting (the port's copy of the JAX package's
 
 * :class:`ServeTelemetry`: the daemon's resident registry, the event
   hooks (``job_done``, ``job_rejected``, ``batch_dispatch``, the flight
-  recorder's ``incident``) and the
+  recorder's ``incident``, the autotune controller's
+  ``autotune_decision``) and the
   scrape-time samplers (queue depth, in flight, lanes, the ingest and
   result caches' process totals, the lanes' H2D and D2H bytes);
 * :class:`MetricsExporter`: ``/metrics`` and ``/healthz`` on a background
@@ -16,9 +17,8 @@ exporter and SLO accounting (the port's copy of the JAX package's
 :class:`ElasticTelemetry` is an elastic rank's ``/metrics`` (``consensus``
 or ``select`` with ``--elastic`` and ``--metrics-port``).  Series whose
 source the port has not got are left out: the XLA
-compile-cache counters (``specpride_compile_cache_*``, no XLA), the bucket
-plan cache's (``specpride_plan_cache_*``), and the autotune family until
-the port has that plane.  Counters are cumulative over
+compile-cache counters (``specpride_compile_cache_*``, no XLA) and the bucket
+plan cache's (``specpride_plan_cache_*``).  Counters are cumulative over
 the daemon's life; per-job attribution stays with the journal's
 snapshot-and-diff deltas.
 """
@@ -98,9 +98,15 @@ ZERO_AT_START_FAMILIES = (
     "specpride_serve_batch_*",
     "specpride_h2d_bytes_total",
     "specpride_d2h_bytes_total",
+    "specpride_autotune_*",
     "specpride_incidents_*",
     "specpride_result_cache_*",
 )
+
+# the daemon's autotune knobs: a value gauge and decision counters (both
+# values of ``acted``) per knob from the first scrape, so "the controller
+# never moved this knob" is a 0-valued series, not an absent one
+AUTOTUNE_KNOBS = ("batch_window_ms", "workers")
 
 # the result cache's process totals, mirrored by delta at scrape time:
 # (metric name, key of cache.result_cache.totals(), help)
@@ -242,6 +248,21 @@ class ServeTelemetry:
         self.batch_jobs.inc(0)
         self.batch_clusters.inc(0)
         self.batch_occupancy.set(0.0)
+        # the autotune controller's knobs, mirrored from every journaled
+        # ``autotune`` event
+        self.autotune_knob = r.gauge(
+            "specpride_autotune_knob",
+            "current value of each controller-managed knob",
+            labels=("knob",))
+        self.autotune_decisions = r.counter(
+            "specpride_autotune_decisions_total",
+            "autotune decisions journaled, by knob and whether the "
+            "controller acted (mode on) or only observed",
+            labels=("knob", "acted"))
+        for knob in AUTOTUNE_KNOBS:
+            self.autotune_knob.set(0.0, knob=knob)
+            self.autotune_decisions.inc(0, knob=knob, acted="true")
+            self.autotune_decisions.inc(0, knob=knob, acted="false")
         # the flight recorder's incidents and dedup suppressions, one
         # series per detector of the catalog from the first scrape
         self.incidents = r.counter(
@@ -272,6 +293,15 @@ class ServeTelemetry:
 
     def job_rejected(self, reason: str) -> None:
         self.jobs_rejected.inc(1, reason=reason)
+
+    def autotune_decision(self, *, knob: str, value, acted: bool) -> None:
+        """Mirror one journaled ``autotune`` event: the knob gauge holds
+        the value in effect after the decision (the old value when the
+        controller only observed)."""
+        if isinstance(value, (int, float)):
+            self.autotune_knob.set(float(value), knob=knob)
+        self.autotune_decisions.inc(
+            1, knob=knob, acted="true" if acted else "false")
 
     def incident(self, *, detector: str, suppressed: int = 0) -> None:
         """Mirror one journaled ``incident`` event; its ``suppressed``

@@ -9,9 +9,9 @@ post-mortem needs and nothing unbounded: the ring, live thread stacks,
 a ``/metrics`` exposition snapshot, the host's config digest, host
 state (``extra_fn``) and the trailing journal window.  The bundle
 layout is the JAX package's (``BUNDLE_SCHEMA``), so either package's
-``incidents`` reads the other's bundles.  The port has no autotune
-controller yet: ``autotune_fn`` stays None, and a bundle then has no
-``autotune.json``, as a JAX host without a controller has none.
+``incidents`` reads the other's bundles.  A host with an autotune
+controller passes ``autotune_fn`` and its bundles carry
+``autotune.json``; without one the bundle has none.
 
 Wiring contract:
 
@@ -47,17 +47,14 @@ import json
 import logging
 import os
 import queue
-import re
 import sys
 import threading
 import time
 import traceback
 
+from specpride_tpu_torch.autotune.replay import _same, _streams
 from specpride_tpu_torch.observability.detect import DetectorSet
-from specpride_tpu_torch.observability.journal import (
-    expand_parts,
-    read_events,
-)
+from specpride_tpu_torch.observability.journal import read_events
 
 logger = logging.getLogger("specpride_tpu_torch")
 
@@ -169,7 +166,7 @@ class FlightRecorder:
     * ``metrics_fn()`` -> Prometheus exposition text
       (``metrics.prom``)
     * ``autotune_fn()`` -> an autotune controller's knob/decision state
-      (``autotune.json``; None in the port until it has a controller)
+      (``autotune.json``; None without a controller)
     * ``config`` — the host's boot config dict (``config.json``, with
       its sha256 digest)
     * ``extra_fn()`` -> any further host state, e.g. the elastic
@@ -458,36 +455,6 @@ def find_bundle(incident_dir: str, incident_id: str) -> dict | None:
 
 
 # -- offline replay audit ------------------------------------------------
-
-_PART_RE = re.compile(r"^(.*\.part\d+)(?:\.\d+)?$")
-
-
-def _streams(path: str) -> tuple[dict[str, list[str]], list[str]]:
-    """Group a journal path's files into per-process streams: rotated
-    segments chain under their live file's key, rank shards split (the
-    JAX package's ``autotune/replay.py`` grouping)."""
-    paths, warnings = expand_parts(path)
-    streams: dict[str, list[str]] = {}
-    for p in paths:
-        m = _PART_RE.match(p)
-        if m:
-            key = m.group(1)
-        elif re.fullmatch(r".*\.\d+", p) and p.rsplit(".", 1)[0]:
-            key = p.rsplit(".", 1)[0]
-        else:
-            key = p
-        streams.setdefault(key, []).append(p)
-    return streams, warnings
-
-
-def _same(a, b) -> bool:
-    """Structural equality through one JSON round-trip, so a live
-    payload that held numpy scalars compares equal to its file form."""
-    return json.dumps(a, sort_keys=True, default=str) == json.dumps(
-        b, sort_keys=True, default=str
-    )
-
-
 
 def replay_incidents(path: str) -> dict:
     """Re-derive every ``incident`` event under ``path`` from the

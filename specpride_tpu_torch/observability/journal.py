@@ -16,8 +16,8 @@ serving daemon's ``--journal-rotate-mb``) the live file rolls over into
 numbered segments (``<journal>.1``, ``.2``, ...).  In-process observers
 (the flight recorder) tap the stream: ``attach_tap`` folds what the file
 already holds, then sees every record under the write lock, in line
-order.  Left out: ``emit_atomic`` (the autotune controller's decision
-write).  Multi-host runs write one
+order.  ``emit_atomic`` builds an event under the write lock (the
+autotune controller's decision write).  Multi-host runs write one
 journal per rank (``<journal>.part<id>``); ``expand_parts`` resolves a
 base path to its rank-ordered parts, each after its rotated segments.
 """
@@ -216,28 +216,50 @@ class Journal:
                             pass
             self._taps = self._taps + (tap,)
 
-    def emit(self, event: str, **fields) -> dict:
+    def _build_rec(self, event: str, fields: dict) -> dict:
         rec = {"v": SCHEMA_VERSION, "ts": time.time(),
                "mono": time.perf_counter(), "event": event}
         if self.trace_id is not None and "trace_id" not in fields:
             rec["trace_id"] = self.trace_id
         rec.update(fields)
+        return rec
+
+    def _write_locked(self, rec: dict) -> None:
         line = json.dumps(rec, default=_json_default) + "\n"
+        # a late event from a lane racing close() is dropped, not written
+        # to a closed file
+        if not self._fh.closed:
+            self._fh.write(line)
+            # ASCII JSON: the character count is the byte count
+            self._bytes += len(line)
+            if self.rotate_bytes and self._bytes >= self.rotate_bytes:
+                self._rotate_locked()
+        # under the lock, after the line: fold order is line order
+        for tap in self._taps:
+            try:
+                tap(rec)
+            except Exception:  # noqa: BLE001 - a broken observer
+                pass           # never fails the emit
+
+    def emit(self, event: str, **fields) -> dict:
+        rec = self._build_rec(event, fields)
         with self._lock:
-            # a late event from a lane racing close() is dropped, not
-            # written to a closed file
-            if not self._fh.closed:
-                self._fh.write(line)
-                # ASCII JSON: the character count is the byte count
-                self._bytes += len(line)
-                if self.rotate_bytes and self._bytes >= self.rotate_bytes:
-                    self._rotate_locked()
-            # under the lock, after the line: fold order is line order
-            for tap in self._taps:
-                try:
-                    tap(rec)
-                except Exception:  # noqa: BLE001 - a broken observer
-                    pass           # never fails the emit
+            self._write_locked(rec)
+        return rec
+
+    def emit_atomic(self, build) -> dict | None:
+        """Emit one event whose payload is computed under the write lock:
+        ``build()`` returns ``(event, fields)``, or None to emit nothing,
+        and runs with no other emit in flight, so the state it snapshots
+        (the autotune controller's tapped signal fold) cannot move
+        between the snapshot and the line."""
+        with self._lock:
+            built = build()
+            if built is None:
+                return None
+            event, fields = built
+            rec = self._build_rec(event, fields)
+            self._write_locked(rec)
         return rec
 
     def _rotate_locked(self) -> None:
@@ -283,6 +305,9 @@ class NullJournal:
 
     def emit(self, event: str, **fields) -> dict:
         return {}
+
+    def emit_atomic(self, build) -> dict | None:
+        return None
 
     def bind_trace(self, trace_id: str | None) -> None:
         pass

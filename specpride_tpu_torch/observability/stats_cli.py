@@ -17,7 +17,10 @@ journals read together the cross-rank view
 (``parallel.elastic.summarize_ranks``: ``--json``'s ``elastic`` key).
 A flight recorder's ``incident`` events roll up by detector
 (``run["incidents"]``: its ``incidents:`` line); ``--incidents`` adds the
-per-incident log.  Left out: the autotune view.
+per-incident log.  The autotune controller's ``autotune`` events roll up
+by knob (``run["autotune"]``: its ``autotune:`` line); ``--autotune`` adds
+the per-decision log.  ``warmup`` events give the ``warmstart:`` line
+(the port has no XLA compile cache, so no cache counters).
 """
 
 from __future__ import annotations
@@ -79,6 +82,18 @@ def _summarize_run(path: str, events: list[dict]) -> dict:
     incidents = _summarize_incidents(events)
     if incidents is not None:
         run["incidents"] = incidents
+    autotune = _summarize_autotune(events)
+    if autotune is not None:
+        run["autotune"] = autotune
+    warmups = [e for e in events if e["event"] == "warmup"]
+    if warmups:
+        run["warmstart"] = {
+            "kernels_warmed": len(warmups),
+            "warmup_cache_hits": sum(1 for e in warmups
+                                     if e.get("cache_hit")),
+            "warmup_s": round(sum(e.get("seconds", 0.0) for e in warmups),
+                              4),
+        }
     if start:
         run.update(command=start.get("command"), method=start.get("method"),
                    backend=start.get("backend"),
@@ -178,6 +193,64 @@ def _summarize_incidents(events: list[dict]) -> dict | None:
                     if e.get("bundle_dir") else {})}
                 for e in inc_events],
     }
+
+
+def _summarize_autotune(events: list[dict]) -> dict | None:
+    """The controller's rollup (the JAX package's): decisions and acted
+    ones in all and by knob (with the last acted value), and the log;
+    None for a journal without ``autotune`` events."""
+    at_events = [e for e in events if e["event"] == "autotune"]
+    if not at_events:
+        return None
+    knobs: dict[str, dict] = {}
+    for e in at_events:
+        row = knobs.setdefault(str(e.get("knob")),
+                               {"decisions": 0, "acted": 0})
+        row["decisions"] += 1
+        if e.get("acted"):
+            row["acted"] += 1
+            row["value"] = e.get("new")
+    return {
+        "mode": at_events[-1].get("mode"),
+        "decisions": len(at_events),
+        "acted": sum(1 for e in at_events if e.get("acted")),
+        "knobs": knobs,
+        "log": [{"knob": e.get("knob"), "old": e.get("old"),
+                 "new": e.get("new"), "acted": bool(e.get("acted")),
+                 "reason": e.get("reason"), "clock": e.get("clock")}
+                for e in at_events],
+    }
+
+
+def _render_autotune(run: dict, out, detail: bool = False) -> None:
+    """The controller's line (mode, decisions, acted, each knob's last
+    acted value); with ``detail`` (``stats --autotune``) one line per
+    decision."""
+    at = run.get("autotune")
+    if not at:
+        if detail:
+            print("  autotune: no decisions in this journal (was the run "
+                  "booted with --autotune observe|on?)", file=out)
+        return
+    per_knob = " ".join(f"{k}={row['value']}"
+                        for k, row in sorted(at["knobs"].items())
+                        if "value" in row)
+    print(f"  autotune: mode={at.get('mode')} "
+          f"decisions={at['decisions']} acted={at['acted']}"
+          + (f" {per_knob}" if per_knob else ""), file=out)
+    if detail:
+        for d in at["log"]:
+            mark = "acted" if d["acted"] else "observed"
+            print(f"    {d['knob']}: {d['old']} -> {d['new']} [{mark}] "
+                  f"{d['reason']}", file=out)
+
+
+def _render_warmstart(run: dict, out) -> None:
+    ws = run.get("warmstart")
+    if ws:
+        print(f"  warmstart: kernels_warmed={ws['kernels_warmed']} "
+              f"warmup_cache_hits={ws['warmup_cache_hits']} "
+              f"warmup_s={ws['warmup_s']}", file=out)
 
 
 def _render_incidents(run: dict, out, detail: bool = False) -> None:
@@ -377,7 +450,7 @@ def _render_rank_view(view: dict, out) -> None:
 
 
 def _render_run(run: dict, out, slo: bool = False,
-                incidents: bool = False) -> None:
+                incidents: bool = False, autotune: bool = False) -> None:
     print(f"{run['journal']}: {run.get('command', '?')}"
           f"/{run.get('method', '?')} backend={run.get('backend', '?')}",
           file=out)
@@ -396,6 +469,7 @@ def _render_run(run: dict, out, slo: bool = False,
             _render_serving(live, out)
             if slo:
                 _render_slo(run, out)
+        _render_autotune(run, out, detail=autotune)
         _render_incidents(run, out, detail=incidents)
         return
     counters = run.get("counters", {})
@@ -419,7 +493,9 @@ def _render_run(run: dict, out, slo: bool = False,
         _render_serving(live, out)
         if slo:
             _render_slo(run, out)
+    _render_autotune(run, out, detail=autotune)
     _render_incidents(run, out, detail=incidents)
+    _render_warmstart(run, out)
     rb = run.get("robustness")
     if rb:
         bits = " ".join(f"{k}={rb[k]}" for k in ROBUSTNESS_EVENTS
@@ -516,7 +592,8 @@ def _poll_rotated(path: str, offset: int,
 
 def follow_stats(path: str, out=None, interval: float = 1.0, stop=None,
                  max_updates: int = 0, top_spans: int = 0,
-                 slo: bool = False, incidents: bool = False) -> int:
+                 slo: bool = False, incidents: bool = False,
+                 autotune: bool = False) -> int:
     """``stats --follow``: tail one live journal and render its last run
     again each time complete events land.  ``stop`` (a
     ``threading.Event``) and ``max_updates`` end it from a program;
@@ -545,7 +622,7 @@ def follow_stats(path: str, out=None, interval: float = 1.0, stop=None,
                 print(f"--- {time.strftime('%H:%M:%S')} update {updates}: "
                       f"{len(events)} event(s) ---", file=out)
                 _render_run(_summarize_run(path, segments[-1]), out,
-                            slo=slo, incidents=incidents)
+                            slo=slo, incidents=incidents, autotune=autotune)
                 view = summarize_ranks([segments[-1]])
                 if view is not None:
                     _render_rank_view(view, out)
@@ -567,11 +644,12 @@ def follow_stats(path: str, out=None, interval: float = 1.0, stop=None,
 
 def run_stats(journal_paths: list[str], json_out: str | None = None,
               out=None, top_spans: int = 0, slo: bool = False,
-              incidents: bool = False) -> int:
+              incidents: bool = False, autotune: bool = False) -> int:
     """Summarize the journals at ``journal_paths`` on ``out`` (stdout),
     with the ``top_spans`` slowest spans when above 0, with ``slo`` a
-    serving daemon's SLO table and with ``incidents`` the flight
-    recorder's incident log; 1 when no file was found or an event broke
+    serving daemon's SLO table, with ``incidents`` the flight recorder's
+    incident log and with ``autotune`` the controller's decision log; 1
+    when no file was found or an event broke
     the schema."""
     out = out or sys.stdout
     files: list[str] = []
@@ -595,7 +673,8 @@ def run_stats(journal_paths: list[str], json_out: str | None = None,
             label = path if len(segments) == 1 else f"{path}#run{i}"
             runs.append(_summarize_run(label, seg))
     for run in runs:
-        _render_run(run, out, slo=slo, incidents=incidents)
+        _render_run(run, out, slo=slo, incidents=incidents,
+                    autotune=autotune)
     rank_view = summarize_ranks(events_per_file)
     if rank_view is not None:
         _render_rank_view(rank_view, out)

@@ -193,6 +193,9 @@ class Coordinator:
         self._lock = threading.Lock()
         self._held: dict[int, Claim] = {}
         self._cuts: dict[int, int] = {}  # range -> ratified cut (global)
+        # autotune's elastic_range actuator: caps a future cede (None is
+        # steal-half)
+        self._split_hint: int | None = None
         self._progress: dict[int, dict] = {}  # range -> {done, chunk_s}
         # the rank's EWMA chunk wall, the journal heartbeat's chunk_s: it
         # outlives any one range (the held-range view above empties at
@@ -736,6 +739,7 @@ class Coordinator:
                 return None
             rng = self._by_id[k]
             cut = self._cuts.get(k)
+            hint = self._split_hint
         if cut is not None:
             return max(cut - rng.start, 0)
         if not self.steal_enabled or next_min_idx <= 0:
@@ -755,6 +759,16 @@ class Coordinator:
         chunk = max(self.chunk_hint, 1)
         remaining = rng.stop - (rng.start + int(next_min_idx))
         keep = max((remaining // 2) // chunk, 1) * chunk
+        if hint:
+            # the autotune cap: cede at most ~hint clusters (whole chunks,
+            # at least one), so split-off tails land near the tuned range
+            # size.  It only grows ``keep``, and keeps it whole chunks: the
+            # cut stays on the donor's chunk grid, where the card's f32
+            # sums are the single run's (the JAX package keeps
+            # ``remaining - cede``, off the grid when the range's last
+            # chunk is short)
+            cede = max(int(hint) // chunk, 1) * chunk
+            keep = max(keep, -(-(remaining - cede) // chunk) * chunk)
         cut_global = rng.start + int(next_min_idx) + keep
         if cut_global >= rng.stop:
             # nothing left to give: publish a declined cut so the
@@ -789,6 +803,19 @@ class Coordinator:
             rng.stop - cut_global, new_id,
         )
         return max(cut_global - rng.start, 0)
+
+    @property
+    def split_hint(self) -> int | None:
+        with self._lock:
+            return self._split_hint
+
+    def set_split_hint(self, n: int | None) -> None:
+        """Autotune's ``elastic_range`` actuator: later ratified splits
+        cede at most ~``n`` clusters (whole chunks).  It applies only to
+        ranges not yet cut, never resizes claimed work, so the bytes are
+        untouched.  ``None`` restores steal-half."""
+        with self._lock:
+            self._split_hint = int(n) if n else None
 
     def check_lease(self, k: int) -> None:
         """The basic fence: raise :class:`LeaseExpiredError` when this
@@ -971,6 +998,17 @@ class Coordinator:
             timeout if timeout is not None
             else min(self.heartbeat_interval, 0.5)
         )
+
+    def flush_progress(self) -> None:
+        """Publish one heartbeat now (store record and journal event) with
+        the current progress.  A rank that finishes inside one heartbeat
+        interval never reaches a timed beat with its chunk walls folded
+        in; the autotune drain tick asks for the final EWMA this way."""
+        try:
+            self._beat()
+        except OSError as e:
+            logger.warning("rank %d flush heartbeat failed: %s",
+                           self.rank, e)
 
     def stop(self) -> None:
         self._stop.set()

@@ -23,9 +23,11 @@ output.  A worker is ``python -m specpride_tpu_torch`` on the supervised
 argv, a ``consensus`` or ``select`` command line with ``--elastic`` and
 without ``--process-id`` (each worker takes a fresh rank).  With
 ``--flightrec observe|on`` a flight recorder taps the supervisor's
-journal (its bundles carry the process counts).  The JAX supervisor's
-autotune plane is not in the port yet and is refused.  The module holds
-no torch (nor does the recorder): ``fleet`` and
+journal (its bundles carry the process counts).  With ``--autotune
+observe|on`` a controller (``FleetSparesPolicy``) tunes the spare count
+from the steal pressure the store shows, ticked from the poll loop.  The
+module holds no torch (nor do the recorder and the controller): ``fleet``
+and
 ``cas-server`` run here (``cmd_fleet``, ``cmd_cas_server``), routed by
 ``__main__`` before the CLI, and its torch, is imported.
 """
@@ -98,9 +100,13 @@ class FleetSupervisor:
             raise ValueError(
                 "drop --process-id from the supervised argv: every spawned "
                 "worker must auto-assign a fresh rank")
-        if autotune != "off":
-            raise ValueError("fleet --autotune is not in the port yet "
-                             "(ROADMAP A8)")
+        if autotune not in ("off", "observe", "on"):
+            raise ValueError(f"fleet autotune {autotune!r} must be off, "
+                             "observe or on")
+        if autotune != "off" and not getattr(journal, "enabled", False):
+            raise ValueError("fleet --autotune observe|on requires "
+                             "--journal: every decision must be journaled "
+                             "as evidence")
         if flightrec not in ("off", "observe", "on"):
             raise ValueError(f"fleet flightrec {flightrec!r} must be off, "
                              "observe or on")
@@ -134,11 +140,31 @@ class FleetSupervisor:
         self.replaced = 0
         self.failures: list[str] = []
         self._done_cache: set[str] = set()
+        # off builds no controller: a controller-free supervisor
+        self.autotune = autotune
+        self.controller = None
+        if autotune != "off":
+            from specpride_tpu_torch.autotune import (
+                Controller,
+                FleetSparesPolicy,
+            )
+
+            ctl = Controller(journal, mode=autotune)
+            ctl.register(
+                FleetSparesPolicy(lo=0, hi=max(self.max_ranks - self.ranks,
+                                               0)),
+                get=lambda: self.spares,
+                set=lambda n: setattr(self, "spares", max(int(n), 0)))
+            self.controller = ctl
         # off builds no recorder: a recorder-free supervisor
         self.recorder = None
         if flightrec != "off":
+            ctl = self.controller
             self.recorder = FlightRecorder(
                 journal, mode=flightrec, incident_dir=incident_dir,
+                autotune_fn=((lambda: {"status": ctl.status(),
+                                       "knobs": ctl.knob_values()})
+                             if ctl is not None else None),
                 extra_fn=lambda: {
                     "procs_alive": sum(1 for p in self.procs
                                        if p.poll() is None),
@@ -310,8 +336,12 @@ class FleetSupervisor:
                     self.failures.append(
                         "no worker alive and no plan registered")
                     return 1
+                if self.controller is not None:
+                    self._tick()
                 time.sleep(self.poll_interval)
         finally:
+            if self.controller is not None:
+                self.controller.close()
             if self.recorder is not None:
                 # journals the queued firings before the caller closes
                 # the journal
@@ -324,6 +354,19 @@ class FleetSupervisor:
                     proc.wait(timeout=10)
                 except subprocess.TimeoutExpired:
                     proc.kill()
+
+    def _tick(self) -> None:
+        """One controller tick from the poll loop (no thread): the steal
+        pressure the store shows (open split proposals, stale heartbeats)
+        rides the decision as snapshot extras, recorded evidence that the
+        journal alone cannot rebuild."""
+        proposals = sum(1 for key in self.store.list_keys("split/")
+                        if ".cut." not in key)
+        stale = sum(1 for hb, age in self._heartbeats()
+                    if not hb.get("stopped")
+                    and age > hb.get("ttl", self.ttl) + self.grace)
+        self.controller.tick({"steal_proposals": proposals,
+                              "stale_ranks": stale})
 
     def _scale_down(self, n: int) -> None:
         """Retire up to ``n`` workers the store shows idle (no lease held),
@@ -340,13 +383,16 @@ class FleetSupervisor:
     def summary(self) -> dict:
         return {"spawned": self.spawned, "retired": self.retired,
                 "replaced": self.replaced, "failures": list(self.failures),
+                **({"autotune": {**self.controller.status(),
+                                 "spares": self.spares}}
+                   if self.controller is not None else {}),
                 **({"flightrec": self.recorder.status()}
                    if self.recorder is not None else {})}
 
 
 def add_fleet_parsers(sub) -> None:
-    """The ``fleet`` and ``cas-server`` subcommands, the JAX CLI's flags
-    without its autotune one."""
+    """The ``fleet`` and ``cas-server`` subcommands, with the JAX CLI's
+    flags."""
     pf = sub.add_parser(
         "fleet",
         help="warm-spare supervisor of an elastic run: spawn N rank "
@@ -377,6 +423,13 @@ def add_fleet_parsers(sub) -> None:
                     help="JSONL journal of the supervisor's rank_spawn and "
                     "rank_retire decisions (workers journal through their "
                     "own --journal)")
+    pf.add_argument(
+        "--autotune", choices=["off", "observe", "on"], default="off",
+        help="closed-loop controller over the warm-spare count, driven by "
+        "live steal pressure (split proposals, stale heartbeats): "
+        "'observe' journals every would-be --spares decision without "
+        "acting, 'on' also acts within [0, max-ranks - ranks].  Requires "
+        "--journal; every decision is an `autotune` event (default off)")
     add_flightrec_flags(pf, "(over the supervisor's journal) ")
     pf.add_argument("job", nargs=argparse.REMAINDER,
                     help="the rank argv after --: consensus|select INPUT "
@@ -420,6 +473,7 @@ def cmd_fleet(args) -> int:
                                   max_ranks=args.max_ranks, journal=journal,
                                   poll_interval=args.poll,
                                   scale_horizon=args.scale_horizon, env=env,
+                                  autotune=args.autotune,
                                   flightrec=args.flightrec,
                                   incident_dir=args.incident_dir)
         except ValueError as e:

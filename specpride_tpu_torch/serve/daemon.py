@@ -8,8 +8,10 @@ Lifecycle:
   host library (``load_host``), and for each execution lane creates its
   CUDA context on its card, its own stream (``serve.placement``) and its
   resident ``TorchBackend``.  The first job then pays no build, no load
-  and no context.  The port compiles nothing per shape, so there is no
-  shape manifest to warm: ``serve_start.warmed_kernels`` is 0.
+  and no context.  With ``--warmup-manifest`` (``--warmup auto|manifest``)
+  each lane then dispatches every shape class of the manifest once on
+  its own stream (``warmstart.warmup``), so its first job pays no first
+  dispatch either; ``serve_start.warmed_kernels`` counts the entries.
 * **serve**: each connection is one job.  A reader thread validates the
   argv with the CLI's own parser and offers it to the bounded
   weighted-fair ``AdmissionQueue`` (``--quota``); the worker lanes
@@ -51,6 +53,14 @@ journal with the flight recorder (``observability.flightrec``): its
 detectors journal ``incident`` events, count them on ``/metrics``
 (``specpride_incidents_*``) and, in mode ``on``, dump bundles under
 ``--incident-dir``; the recorder drains before the final exposition.
+
+``--autotune observe|on`` boots a controller (``autotune.Controller``)
+on the daemon's journal with two knobs: the batch window
+(``BatchWindowPolicy``, clamped by ``--autotune-batch-window``) and the
+active lanes (``WorkerPolicy``: lanes ``wid >= active_workers`` park,
+their backends stay warm).  Each knob is read under ``_live_lock``; in
+mode ``on`` the lanes poll the queue every 0.2 s so a parked lane sees
+its unparking.  ``off`` builds no controller and keeps the blocking pop.
 """
 
 from __future__ import annotations
@@ -155,9 +165,18 @@ class ServeDaemon:
         result_store: str | None = None,
         flightrec: str = "off",
         incident_dir: str | None = None,
+        autotune: str = "off",
+        autotune_interval: float = 1.0,
+        autotune_batch_window: tuple | None = None,
+        warmup: str = "auto",
+        warmup_manifest: str | None = None,
+        warmup_jobs: int = 0,
     ):
         if flightrec not in ("off", "observe", "on"):
             raise ValueError(f"flightrec mode {flightrec!r} must be off, "
+                             "observe or on")
+        if autotune not in ("off", "observe", "on"):
+            raise ValueError(f"autotune mode {autotune!r} must be off, "
                              "observe or on")
         self.socket_path = socket_path or protocol.default_socket_path()
         self.device = device
@@ -188,13 +207,32 @@ class ServeDaemon:
         self.flightrec = flightrec
         self.incident_dir = incident_dir
         self.recorder = None  # flightrec.FlightRecorder, built at boot
-        # the port has no shape manifest to warm (see the module doc)
+        # boot's warmup: the manifest's entries warmed on every lane
+        self.warmup = warmup
+        self.warmup_manifest = warmup_manifest
+        self.warmup_jobs = int(warmup_jobs)
         self.warmed_kernels = 0
         self.jobs_done = 0
         self.jobs_failed = 0
         self.jobs_rejected = 0
+        # the live knobs the autotune controller moves, read under this
+        # lock at every use (a leaf lock, never held while calling out);
+        # with --autotune off nothing writes them after boot
+        self._live_lock = threading.Lock()
         self.batch_window = max(float(batch_window), 0.0)
         self.batch_max_clusters = max(int(batch_max_clusters), 1)
+        # the controller: off builds none (a controller-free daemon)
+        self.autotune = autotune
+        self._active_workers_v: int | None = None  # None: every lane
+        self.autotune_interval = max(float(autotune_interval), 0.05)
+        self.autotune_batch_window = (tuple(autotune_batch_window)
+                                      if autotune_batch_window is not None
+                                      else (0.0, 50.0))
+        self.controller = None  # autotune.Controller, built at boot
+        self._controller_thread = None
+        # parking needs lanes that poll the pop; every other mode keeps
+        # the blocking pop
+        self._pop_timeout = 0.2 if autotune == "on" else None
         self.batches_dispatched = 0
         self.jobs_batched = 0
         self._batch_ids = iter(range(1, 1 << 62)).__next__
@@ -225,6 +263,34 @@ class ServeDaemon:
     def _inflight(self) -> Job | None:
         """Any in-flight job (the single-lane view)."""
         return next(iter(self._inflight_by.values()), None)
+
+    # -- live knobs (the autotune controller's actuators) ----------------
+
+    @property
+    def batch_window(self) -> float:
+        """The micro-batch window in seconds, read under the live lock at
+        every use (admission's eligibility, the collector's deadline)."""
+        with self._live_lock:
+            return self._batch_window_v
+
+    @batch_window.setter
+    def batch_window(self, value) -> None:
+        with self._live_lock:
+            self._batch_window_v = max(float(value), 0.0)
+
+    @property
+    def active_workers(self) -> int:
+        """Lanes taking work: lanes ``wid >= active_workers`` park (each
+        finishes its job, then idles with its backend warm)."""
+        with self._live_lock:
+            n = self._active_workers_v
+        return n if n is not None else max(len(self.slots), 1)
+
+    @active_workers.setter
+    def active_workers(self, value) -> None:
+        with self._live_lock:
+            self._active_workers_v = min(max(int(value), 1),
+                                         max(len(self.slots), 1))
 
     # -- boot -----------------------------------------------------------
 
@@ -281,6 +347,8 @@ class ServeDaemon:
                     torch.empty(1, device=slot.device).add_(1)
                     slot.stream.synchronize()
             self.worker_backends.append(backend)
+        # before the exporter binds: a refused manifest leaves no port open
+        self._boot_warmup()
         if len(self.worker_backends) == 1:
             # one lane: its registry rides the exposition unlabeled
             self.telemetry = ServeTelemetry(
@@ -299,6 +367,7 @@ class ServeDaemon:
             self.exporter = MetricsExporter(
                 self.telemetry.exposition, host=self.metrics_host,
                 port=self.metrics_port, health=self._healthz).start()
+        self._boot_autotune()
         self._boot_flightrec()
         sock_dir = os.path.dirname(self.socket_path)
         if sock_dir:
@@ -333,18 +402,93 @@ class ServeDaemon:
             **({"slo": self.slo} if self.slo else {}),
             **({"quota": {c: repr(q) for c, q in self.quotas.items()}}
                if self.quotas else {}),
+            **({"autotune": self.autotune,
+                "autotune_interval_s": self.autotune_interval,
+                "autotune_batch_window_ms": list(
+                    self.autotune_batch_window)}
+               if self.autotune != "off" else {}),
             **({"flightrec": self.flightrec,
                 **({"incident_dir": self.incident_dir}
                    if self.incident_dir else {})}
                if self.flightrec != "off" else {}),
         )
-        logger.info("serving on %s (boot %.2fs, queue depth %d, %d worker "
-                    "lane(s): %s)", self.socket_path, boot_s,
+        logger.info("serving on %s (boot %.2fs, %d shape classes warmed, "
+                    "queue depth %d, %d worker lane(s): %s)",
+                    self.socket_path, boot_s, self.warmed_kernels,
                     self.queue.capacity, len(self.slots),
                     " ".join(slot.describe() for slot in self.slots))
         if self.exporter is not None:
             logger.info("live metrics on %s", self.exporter.url)
         return self
+
+    def _boot_warmup(self) -> None:
+        """Every lane dispatches each ``--warmup-manifest`` class once, on
+        its own card and stream (a warm is per card and per stream), so
+        no lane's first job pays a first dispatch.  The port keeps no
+        manifest by default: ``auto`` without the flag does nothing,
+        ``manifest`` without a readable file stops the boot."""
+        if self.warmup == "off":
+            return
+        from specpride_tpu_torch.warmstart.manifest import load_manifest
+        from specpride_tpu_torch.warmstart.warmup import warm_entries
+
+        path = self.warmup_manifest
+        if path is None or not os.path.exists(path):
+            if self.warmup == "manifest":
+                raise SystemExit(
+                    "serve --warmup manifest: no shape manifest at "
+                    f"{path or '<no --warmup-manifest and no compile cache>'}")
+            if path is not None:
+                logger.info("serve: no shape manifest yet (%s); jobs with "
+                            "--warmup-manifest will seed it", path)
+            return
+        try:
+            entries = load_manifest(path)
+        except (OSError, ValueError) as e:
+            if self.warmup == "manifest":
+                raise SystemExit(f"unreadable shape manifest {path}: {e}")
+            logger.warning("ignoring shape manifest %s (%s)", path, e)
+            return
+        for slot, backend in zip(self.slots, self.worker_backends):
+            with placement.device_scope(slot):
+                warm_entries(entries, journal=self.journal,
+                             jobs=self.warmup_jobs, backend=backend)
+        self.warmed_kernels = len(entries)
+
+    def _boot_autotune(self) -> None:
+        """The controller (``--autotune observe|on``) on the daemon's
+        journal, with the batch-window and active-lane policies bound to
+        the live knobs.  ``off`` builds nothing."""
+        if self.autotune == "off":
+            return
+        if not self.journal.enabled:
+            raise SystemExit("serve --autotune observe|on requires "
+                             "--journal: every decision must be journaled "
+                             "as evidence")
+        from specpride_tpu_torch.autotune import (
+            BatchWindowPolicy,
+            Controller,
+            ControllerThread,
+            WorkerPolicy,
+        )
+
+        lo_ms, hi_ms = self.autotune_batch_window
+        ctl = Controller(self.journal, mode=self.autotune,
+                         telemetry=self.telemetry)
+        ctl.register(BatchWindowPolicy(lo_ms=lo_ms, hi_ms=hi_ms),
+                     get=lambda: round(self.batch_window * 1000.0, 3),
+                     set=lambda ms: setattr(self, "batch_window",
+                                            float(ms) / 1000.0))
+        ctl.register(WorkerPolicy(lo=1, hi=len(self.slots)),
+                     get=lambda: self.active_workers,
+                     set=lambda n: setattr(self, "active_workers", int(n)))
+        self.controller = ctl
+        self._controller_thread = ControllerThread(
+            ctl, interval=self.autotune_interval).start()
+        logger.info("autotune %s: knobs %s, tick %.2fs, batch-window clamp "
+                    "[%g, %g] ms", self.autotune,
+                    ",".join(ctl.status()["knobs"]), self.autotune_interval,
+                    lo_ms, hi_ms)
 
     def _boot_flightrec(self) -> None:
         """The flight recorder (``--flightrec observe|on``): a ring of
@@ -361,10 +505,14 @@ class ServeDaemon:
             FlightRecorder,
         )
 
+        ctl = self.controller
         self.recorder = FlightRecorder(
             self.journal, mode=self.flightrec,
             incident_dir=self.incident_dir,
             metrics_fn=self.telemetry.exposition,
+            autotune_fn=((lambda: {"status": ctl.status(),
+                                   "knobs": ctl.knob_values()})
+                         if ctl is not None else None),
             config={"host": "serve", "socket": self.socket_path,
                     "workers": len(self.slots),
                     "max_queue": self.queue.capacity,
@@ -373,7 +521,8 @@ class ServeDaemon:
                     "precision": self.precision, "layout": self.layout,
                     "device": self.device,
                     "watchdog_timeout_s": self.watchdog.timeout_s,
-                    "slo": self.slo, "autotune": "off",
+                    "warmup": self.warmup,
+                    "slo": self.slo, "autotune": self.autotune,
                     "flightrec": self.flightrec},
             telemetry=self.telemetry).start()
         logger.info("flightrec %s: %d detectors, ring %d%s", self.flightrec,
@@ -738,8 +887,18 @@ class ServeDaemon:
 
     def _worker_loop(self, wid: int) -> None:
         while True:
-            job = self.queue.pop()
+            if self._pop_timeout is not None and wid >= self.active_workers:
+                # a parked lane (the autotune workers knob, mode on): its
+                # backend idles warm until it is unparked or the daemon
+                # drains
+                if self._stop.wait(self._pop_timeout):
+                    return
+                continue
+            job = self.queue.pop(timeout=self._pop_timeout)
             if job is None:
+                if self._pop_timeout is not None and \
+                        not self._stop.is_set():
+                    continue  # a poll tick: check parking again
                 return  # the queue was drained
             self._inflight_by[wid] = job
             self._gate.wait()
@@ -1025,6 +1184,9 @@ class ServeDaemon:
         backend = self.worker_backends[wid]
         backend.reset_run_counters()
         backend.journal = NullJournal()
+        # boot warmed the lanes: a job's --warmup warms nothing again (its
+        # --warmup-manifest still takes the job's new shape classes)
+        job.args._resident_warm = True
         if shared is not None:
             from specpride_tpu_torch.serve.batcher import BatchResultBackend
 
@@ -1045,6 +1207,11 @@ class ServeDaemon:
         self._stop.set()
         if self.journal is None:
             return  # boot never completed
+        # the controller stops first: a tick racing the drain's last
+        # events (or the journal's close) would land inside them
+        if self._controller_thread is not None:
+            self._controller_thread.stop()
+            self._controller_thread = None
         if self._listener is not None:
             try:
                 self._listener.close()
@@ -1145,6 +1312,11 @@ class ServeDaemon:
                 "metrics_url": self.exporter.url}
                if self.exporter is not None else {}),
             **({"slo": self.slo} if self.slo else {}),
+            **({"autotune": {
+                **self.controller.status(),
+                "batch_window_ms": round(self.batch_window * 1000.0, 3),
+                "active_workers": self.active_workers}}
+               if self.controller is not None else {}),
             **({"flightrec": self.recorder.status()}
                if self.recorder is not None else {}),
             **self._result_cache_status(),

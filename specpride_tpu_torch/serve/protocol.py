@@ -66,9 +66,10 @@ SERVABLE_COMMANDS = ("consensus", "select")
 # snapshot); --elastic*, --metrics-port: a job is one tenant of the
 # daemon, not a rank (it would lease ranges and bind ports inside the
 # daemon); --trace-dir: one profiler session per process (profile the
-# daemon instead); --result-cache, --result-store: the tiers are the
-# daemon's, shared by every lane; --device: a job may not move a
-# resident lane to the CPU or to another card.
+# daemon instead); --autotune: the controller is the daemon's
+# (``serve --autotune``), one per process; --result-cache, --result-store:
+# the tiers are the daemon's, shared by every lane; --device: a job may
+# not move a resident lane to the CPU or to another card.
 JOB_REFUSED_FLAGS = (
     "--layout",
     "--precision",
@@ -82,6 +83,7 @@ JOB_REFUSED_FLAGS = (
     "--elastic-local",
     "--metrics-port",
     "--trace-dir",
+    "--autotune",
     "--result-cache",
     "--result-store",
     "--device",

@@ -612,3 +612,45 @@ def test_fleet_and_cas_server_start_without_torch(command):
     assert proc.returncode == 0, proc.stderr
     assert "TORCH False" in proc.stdout
     assert "--url-file" in proc.stdout or "--ranks" in proc.stdout
+
+
+# the JAX flags the port leaves out by its north star (ROADMAP): no JAX
+# backend switch, no XLA donation, compile cache or routing table
+NOT_PORTED_FLAGS = {"--backend", "--force-device", "--no-donate",
+                    "--compile-cache", "--routing-table"}
+# the port's subcommands that run on a device take --device
+DEVICE_COMMANDS = {"consensus", "select", "evaluate", "serve", "warmup"}
+
+
+def _subcommands(ap):
+    import argparse
+
+    return next(a.choices for a in ap._actions
+                if isinstance(a, argparse._SubParsersAction))
+
+
+def _options(p):
+    return {o for a in p._actions for o in a.option_strings}
+
+
+def _positionals(p):
+    return [a.dest for a in p._actions if not a.option_strings]
+
+
+def test_every_subcommand_has_the_jax_flags_but_lint():
+    """The ``--help`` parity: every JAX subcommand but ``lint`` is in the
+    port, each with the JAX flag set less the flags the north star leaves
+    out, plus ``--device`` on the commands that run on a device."""
+    from specpride_tpu_torch import cli
+
+    jax, port = jcli.build_parser(), cli.build_parser()
+    jsub, psub = _subcommands(jax), _subcommands(port)
+    assert set(jsub) - set(psub) == {"lint"}
+    assert set(psub) <= set(jsub)
+    assert _options(port) == _options(jax)
+    for name in sorted(psub):
+        want = _options(jsub[name]) - NOT_PORTED_FLAGS
+        if name in DEVICE_COMMANDS:
+            want |= {"--device"}
+        assert _options(psub[name]) == want, name
+        assert _positionals(psub[name]) == _positionals(jsub[name]), name

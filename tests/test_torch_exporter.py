@@ -35,12 +35,10 @@ from specpride_tpu_torch.serve import ingest_cache
 from specpride_tpu_torch.serve.daemon import ServeDaemon
 
 # the JAX daemon's series whose source the port has not got: the XLA
-# compile cache and the bucket plan cache (no counterpart), and the
-# autotune plane (ROADMAP A8)
+# compile cache and the bucket plan cache (no counterpart)
 JAX_ONLY_SERIES = (
     "specpride_compile_cache_*",
     "specpride_plan_cache_*",
-    "specpride_autotune_*",
 )
 
 

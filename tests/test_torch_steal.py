@@ -258,11 +258,12 @@ def test_fleet_refuses_bad_argv_and_spawns_the_port(tmp_path):
     with pytest.raises(ValueError):
         FleetSupervisor(["consensus", "a", "b", "--elastic", str(tmp_path),
                          "--process-id", "0"], ranks=1)
-    for plane, match in (({"autotune": "on"}, "ROADMAP A8"),
-                         ({"flightrec": "observe"}, "requires --journal")):
-        with pytest.raises(ValueError, match=match):
-            FleetSupervisor(["consensus", "a", "b", "--elastic",
-                             str(tmp_path)], ranks=1, **plane)
+    for plane in ({"autotune": "on"}, {"flightrec": "observe"}):
+        # both planes fold the supervisor's journal, as in the JAX CLI
+        for cls in (FleetSupervisor, jfleet.FleetSupervisor):
+            with pytest.raises(ValueError, match="requires --journal"):
+                cls(["consensus", "a", "b", "--elastic", str(tmp_path)],
+                    ranks=1, **plane)
     argv = ["--elastic=x", "--elastic", "y", "--elastic-ttl=2"]
     for flag in ("--elastic", "--elastic-ttl", "--nope"):
         assert extract_flag(argv, flag) == jfleet.extract_flag(argv, flag)
