@@ -178,6 +178,9 @@ NVIDIA GPU:
    process-start phase: a child interpreter's start,
    ``import torch``, the package's import, CUDA init, the two libraries'
    hash check and load, each timed, beside a 3-cluster CLI run's wall;
+   lint phase: ``python -m specpride_tpu_torch lint <this tree> --json
+   -`` in a child, which must exit 0 with no new finding and without
+   importing torch; its wall and checker count are printed;
 9. prints a ``{"kernels": [...]}`` line (launches: the executor's runs at
    the defaults, the files phase's consensus runs and evaluate, the chaos
    and real OOM runs, the bucketized, mesh and rank runs, the elastic
@@ -5110,6 +5113,22 @@ def warmup_phase(src: str, golden: list) -> dict:
 PHASE_S: dict[str, float] = {}
 
 
+def lint_phase() -> dict:
+    """The port's static analyzer over this tree (``TORCH_FREE``, so the
+    child fails unless it exits 0 without importing torch): no new
+    finding, no baseline entry without a reason.  Prints its wall and
+    checker count."""
+    wall, out = run_child("lint", ROOT, "--json", "-")
+    report = json.loads(out)
+    summary, checkers = report["summary"], len(report["checks"])
+    if summary["new"] or summary["baseline_entries_missing_reason"]:
+        raise AssertionError(f"lint: {summary}")
+    print(f"lint: {checkers} checkers, {summary['new']} new findings, "
+          f"{summary['baselined']} baselined, wall {wall:.3f} s, no torch "
+          "in the child", flush=True)
+    return {"wall_s": wall, "checkers": checkers, **summary}
+
+
 def timed(phase, *args):
     """``phase(*args)``, its wall kept in ``PHASE_S`` under its name."""
     t0 = time.perf_counter()
@@ -5209,6 +5228,7 @@ def smoke() -> int:
     atres = timed(autotune_phase, cli_src, golden)
     wres = timed(warmup_phase, cli_src, golden)
     startres = timed(process_start_phase, cli_src)
+    lintres = timed(lint_phase)
 
     main_case = mres["cases"][0]
     path_case = pres["cases"][0]
@@ -5318,7 +5338,7 @@ def smoke() -> int:
                    "telemetry": telres, "tracing": trres,
                    "result_cache": cacheres, "serve": serveres,
                    "flightrec": frres, "autotune": atres, "warmup": wres,
-                   "process_start": startres,
+                   "process_start": startres, "lint": lintres,
                    "build": info.get("seconds"), "phase_s": PHASE_S,
                    "wall_s": wall}, fh, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)

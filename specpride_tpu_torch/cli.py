@@ -31,6 +31,8 @@
     python -m specpride_tpu_torch submit [--socket S] -- consensus IN OUT ...
     python -m specpride_tpu_torch profile [--socket S] [--seconds T] \
         [--trace-dir DIR]
+    python -m specpride_tpu_torch lint [ROOT] [--select IDS] [--list] \
+        [--json F] [--baseline F | --no-baseline | --update-baseline]
 
 ``consensus`` and ``select`` read the clustered MGF (or, with
 ``--clusters``, an mzML file and a MaRaCluster TSV) and group it into
@@ -121,6 +123,11 @@ then runs ``consensus`` and ``select`` jobs sent by ``submit`` (the
 one-shot CLI's argv, its bytes) until SIGTERM drains it; ``profile``
 captures a ``torch.profiler`` trace of a running daemon.  ``submit`` and
 ``profile`` start without torch (``serve/client.py``).
+
+``lint`` is the port's static analyzer (``analysis/``, torch-free): the
+JAX package's checkers aimed at the port's own tree and anchors, with
+``kernel-hygiene`` in place of ``jit-hygiene``, gated by the port's
+baseline ``lint-baseline.torch.json``.
 """
 
 from __future__ import annotations
@@ -136,6 +143,7 @@ import threading
 import time
 
 from specpride_tpu_torch import convert, metrics
+from specpride_tpu_torch.analysis import runner as lint_runner
 from specpride_tpu_torch.autotune.cli import (
     AUTOTUNE_COMMANDS,
     add_replay_parser,
@@ -409,6 +417,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     add_incident_parsers(sub)
     add_replay_parser(sub)
+    lint_runner.add_lint_parser(sub)
 
     pwu = sub.add_parser(
         "warmup",
@@ -3090,6 +3099,8 @@ def main(argv: list[str] | None = None) -> int:
         return INCIDENT_COMMANDS[args.command](args)
     if args.command in AUTOTUNE_COMMANDS:
         return AUTOTUNE_COMMANDS[args.command](args)
+    if args.command == "lint":
+        return lint_runner.main(args)
     if args.command == "warmup":
         try:
             return run_warmup(args)

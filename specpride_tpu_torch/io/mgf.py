@@ -302,7 +302,8 @@ class StreamedClusters:
                 offset += len(line)
             if begin >= 0:
                 spans.append((begin, offset))
-        self.malformed_spans = spans
+        with self._cache_lock:  # drain_malformed swaps it under the lock
+            self.malformed_spans = spans
         return records
 
     def drain_malformed(self, malformed) -> int:
