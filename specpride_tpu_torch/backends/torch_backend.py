@@ -80,6 +80,7 @@ from specpride_tpu_torch.data.peaks import Cluster, Spectrum
 from specpride_tpu_torch.observability import tracing
 from specpride_tpu_torch.observability.journal import NullJournal
 from specpride_tpu_torch.observability.registry import MetricsRegistry
+from specpride_tpu_torch.observability.stats import Lap, RunStats
 from specpride_tpu_torch.ops import binning, gap_average, quantize, similarity
 from specpride_tpu_torch.parallel.mesh import (
     DeviceMesh,
@@ -115,17 +116,17 @@ class PreparedChunk:
     """Host product of ``TorchBackend.prepare_chunk``, phase 1 of the
     two-phase chunk protocol: numpy arrays and host tensors built with no
     device call and no write to the backend, so pack workers can build
-    chunks while the dispatch lane runs an earlier one.  ``phases`` holds
-    the seconds of its host stages (and of a staged copy,
-    ``stage_chunk``); ``run_prepared`` adds them to the backend's
-    ``phase_seconds`` on the dispatch lane."""
+    chunks while the dispatch lane runs an earlier one.  ``stats``, its
+    own, holds the wall and thread CPU of its host stages (and of a
+    staged copy, ``stage_chunk``); ``run_prepared`` adds their seconds to
+    the backend's ``phase_seconds`` on the dispatch lane."""
 
     method: str  # one of PREPARED_METHODS
     clusters: list
     config: object
     cos_config: object | None = None
     data: dict = dataclasses.field(default_factory=dict)
-    phases: dict = dataclasses.field(default_factory=dict)
+    stats: RunStats = dataclasses.field(default_factory=RunStats)
 
 
 def check_no_empty(clusters: list[Cluster]) -> None:
@@ -266,25 +267,24 @@ class TorchBackend:
 
     def prepare_chunk(
         self, method: str, clusters: list[Cluster], config,
-        cos_config: CosineConfig | None = None, phases: dict | None = None,
+        cos_config: CosineConfig | None = None,
     ) -> PreparedChunk | None:
         """Phase 1: every host input ``method`` needs for ``clusters``:
         validation, the packs, their sorts and host run passes, and, for
         bin-mean with ``cos_config``, the QC member prep on the same
         ``SpectraTable``.  No device call and no write to the backend, so
         pack workers may call it side by side on distinct chunks.  Its
-        seconds go to ``phases`` (default: a new dict), kept as the
-        chunk's ``phases``.  None for a method without a pack stage.
+        stages' wall and thread CPU go to the chunk's own ``stats``.
+        None for a method without a pack stage.
         The ``prepare`` fault site."""
         if not self.supports_prepare(method):
             return None
         faults.check("prepare")
-        return self._prepare(method, clusters, config, cos_config, phases)
+        return self._prepare(method, clusters, config, cos_config)
 
-    def _prepare(self, method, clusters, config, cos_config=None,
-                 phases=None) -> PreparedChunk:
-        prepared = PreparedChunk(method, clusters, config, cos_config,
-                                 phases={} if phases is None else phases)
+    def _prepare(self, method, clusters, config,
+                 cos_config=None) -> PreparedChunk:
+        prepared = PreparedChunk(method, clusters, config, cos_config)
         if method == "bin-mean":
             self._prepare_bin_mean(prepared)
         elif method == "gap-average":
@@ -317,7 +317,7 @@ class TorchBackend:
         return [c.members[i] for c, i in zip(prepared.clusters, indices)], None
 
     def _merge_prepared(self, prepared: PreparedChunk) -> None:
-        for phase, seconds in prepared.phases.items():
+        for phase, seconds in prepared.stats.phases.items():
             self.phase_seconds[phase] += seconds
         staged = prepared.data.pop("staged_bytes", 0)
         self.h2d_bytes["h2d"] += staged  # lint: ok[lane-safety] owned by one lane: CLI main or one serve worker
@@ -336,7 +336,7 @@ class TorchBackend:
         The dispatch lane's stream waits on the event before its kernel
         (``_take_staged``).  Returns the bytes staged; they and the seconds
         go to the chunk, merged by ``run_prepared``."""
-        t0 = time.perf_counter()
+        lap = Lap()
         staged, total = [], 0
         hosts = [tensors for _, tensors, _, _ in prepared.data["chunks"]]
         if self.device.type == "cuda":
@@ -354,7 +354,7 @@ class TorchBackend:
             staged.append((dev, event))
         prepared.data["staged"] = staged
         prepared.data["staged_bytes"] = total
-        _add_time(prepared.phases, "h2d", t0)
+        prepared.stats.add("h2d", lap.stop())
         return total
 
     def _take_staged(self, staged) -> list:
@@ -401,7 +401,7 @@ class TorchBackend:
         check_no_empty(clusters)
         for c in clusters:
             check_uniform_charge(c.members)
-        t0 = time.perf_counter()
+        lap = Lap()
         table = _as_table(clusters)
         prepared.data["chunks"] = [
             (batch, *self._flat_chunk_host_args(batch, config))
@@ -410,12 +410,12 @@ class TorchBackend:
                 precision=self.precision,
             )
         ]
-        _add_time(prepared.phases, "pack", t0)
+        prepared.stats.add("pack", lap.stop())
         if prepared.cos_config is not None:
-            t0 = time.perf_counter()
+            lap = Lap()
             prepared.data["mprep"] = self._prep_cosine_members(
                 table, prepared.cos_config)
-            _add_time(prepared.phases, "qc_pack", t0)
+            prepared.stats.add("qc_pack", lap.stop())
 
     def _finish_bin_mean(
         self, prepared: PreparedChunk
@@ -865,7 +865,7 @@ class TorchBackend:
 
     def _prepare_gap_average(self, prepared: PreparedChunk) -> None:
         check_no_empty(prepared.clusters)
-        t0 = time.perf_counter()
+        lap = Lap()
         prepared.data["batches"] = [
             (batch, [quantize.codes_tensor(a) for a in (
                 batch.intensity, batch.group_start, batch.quorum,
@@ -877,7 +877,7 @@ class TorchBackend:
                 precision=self.precision,
             )
         ]
-        _add_time(prepared.phases, "pack", t0)
+        prepared.stats.add("pack", lap.stop())
 
     def _finish_gap_average(self, prepared: PreparedChunk) -> list[Spectrum]:
         """Each chunk's group intensities and keep marks from the card
@@ -946,7 +946,7 @@ class TorchBackend:
         """The bucketized batches, each row's channels sorted by (bin,
         member) (``_medoid_sorted``)."""
         check_no_empty(prepared.clusters)
-        t0 = time.perf_counter()
+        lap = Lap()
         batches = pack_bucketize(prepared.clusters, self.batch_config,
                                  bucket_members=True)
         for batch in batches:
@@ -960,7 +960,7 @@ class TorchBackend:
             (batch, *self._medoid_sorted(batch, prepared.config))
             for batch in batches
         ]
-        _add_time(prepared.phases, "pack", t0)
+        prepared.stats.add("pack", lap.stop())
 
     def _finish_medoid(self, prepared: PreparedChunk) -> list[int]:
         ph = self.phase_seconds

@@ -110,7 +110,8 @@ turns into a Chrome trace; ``--chrome-trace FILE`` writes the run's spans
 (parse, pack lanes, chunks, method and ``kernel:*`` dispatches, writes)
 as a Chrome trace directly; ``--metrics-out FILE`` writes the run's
 metrics as a Prometheus textfile; ``--trace-dir DIR`` captures the run's
-compute with ``torch.profiler`` as a Chrome trace; the global ``-v`` and
+compute with ``torch.profiler`` as a Chrome trace, every lane's spans as
+ranges beside the card's kernels and copies; the global ``-v`` and
 ``--log-json`` set the logging.  ``--result-cache DIR[:MB]`` keeps each
 computed representative (and its QC cosine) under a digest of its
 cluster and the run's method, config and precision; a rerun replays the
@@ -193,8 +194,12 @@ from specpride_tpu_torch.observability.registry import (
     export_run_metrics,
 )
 from specpride_tpu_torch.observability.stats import (
+    Lap,
     RunStats,
+    add_cpu,
     configure_logging,
+    cpu_pair,
+    cpu_span,
     device_trace,
 )
 from specpride_tpu_torch.observability.tracing import TraceContext, Tracer
@@ -620,8 +625,9 @@ def _add_trace_dir(p: argparse.ArgumentParser, what: str) -> None:
     p.add_argument(
         "--trace-dir", metavar="DIR",
         help=f"capture a torch.profiler trace of {what} (CPU and, on the "
-        "card, CUDA activity) into this directory as a Chrome trace "
-        "(view with Perfetto or chrome://tracing)",
+        "card, CUDA activity; the run's spans as ranges on every lane) "
+        "into this directory as a Chrome trace (view with Perfetto or "
+        "chrome://tracing)",
     )
 
 
@@ -1094,10 +1100,14 @@ class _ChunkItem:
 
 
 def _serial_chunks(clusters, worklist):
-    """``--prefetch 0``: each chunk made inline."""
+    """``--prefetch 0``: each chunk made inline, its clusters (on a
+    streamed input, the MGF window parse) timed as ``window_parse``."""
     for chunk_index, idxs in worklist:
         item = _ChunkItem(chunk_index, idxs)
+        item.pack_stats = RunStats()
+        lap = Lap()
         item.part = [clusters[i] for i in idxs]
+        item.pack_stats.add("window_parse", lap.stop())
         yield item
 
 
@@ -1105,27 +1115,34 @@ def _pack_chunk(clusters, chunk_index: int, idxs: list, prepare,
                 method: str, config, cos_config, harness: Harness,
                 span_name: str, rc=None, **span_labels):
     """THE pack stage, the one copy every pack worker runs, under a
-    ``span_name`` span: the chunk's clusters (on a streamed input, the MGF
-    window parse), the result cache's consult (``rc``), and the backend's
-    host pack (``prepare_chunk``) of the clusters it missed into a private
-    RunStats, retried whole at ``pack`` on a transient error (each step is
-    a pure function of the chunk).  The ``parse`` site fires before the
-    clusters are made, ``pack`` before the backend's pack, ``prepare``
-    inside it.  An error that outlives the retries is kept on the item for
-    the dispatch lane's ``--on-error`` policy.  Returns ``(item, busy
-    seconds)``."""
+    ``span_name`` span (labelled with the attempt's thread CPU): the
+    chunk's clusters (on a streamed input, the MGF window parse, timed
+    into a private RunStats as the ``window_parse`` phase, whose interval
+    the trace holds as ``parse:mgf_window``), the result cache's consult
+    (``rc``), and the backend's host pack (``prepare_chunk``, timed in the
+    prepared chunk's own stats) of the clusters it missed, retried whole
+    at ``pack`` on a transient error (each step is a pure function of the
+    chunk).  The ``parse`` site fires before the clusters are made,
+    ``pack`` before the backend's pack, ``prepare`` inside it.  An error
+    that outlives the retries is kept on the item for the dispatch lane's
+    ``--on-error`` policy.  Returns ``(item, laps)``: each attempt's
+    span's ``Lap``, the lane's busy time and its thread CPU (the backoff
+    between attempts is in none)."""
     item = _ChunkItem(chunk_index, idxs)
     item.pack_stats = RunStats()
-    t0 = time.perf_counter()
+    laps = []
 
     def _stage() -> None:
         # the watchdog section covers one attempt: the backoff between
         # attempts is no stall
-        with harness.section("pack"), tracing.span(
+        with harness.section("pack"), cpu_span(
                 span_name, chunk_index=chunk_index, n_clusters=len(idxs),
-                **span_labels):
+                **span_labels) as lap:
+            laps.append(lap)
             faults.check("parse")
+            parse = Lap()
             item.part = [clusters[i] for i in idxs]
+            item.pack_stats.add("window_parse", parse.stop())
             faults.check("pack")
             if rc is not None and item.cached is None:
                 # the consult rides the pack lane, so digesting overlaps
@@ -1137,14 +1154,13 @@ def _pack_chunk(clusters, chunk_index: int, idxs: list, prepare,
                 to_pack = [c for c in item.part if c.cluster_id not in hit]
             if prepare is not None and to_pack:
                 item.prepared = prepare(method, to_pack, config,
-                                        cos_config=cos_config,
-                                        phases=item.pack_stats.phases)
+                                        cos_config=cos_config)
 
     try:
         harness.retry_call("pack", _stage)
     except Exception as e:  # noqa: BLE001 - raised on the dispatch lane
         item.error = e
-    return item, time.perf_counter() - t0
+    return item, laps
 
 
 def _lane_inputs(backend: TorchBackend, method: str, args, want_qc: bool):
@@ -1183,8 +1199,10 @@ def _pooled_chunks(clusters, worklist, backend, method, args, prefetch: int,
     ``--on-error skip`` are those of the serial path.  At most
     ``max(prefetch, N)`` chunks are out
     (packing or buffered) at once.  Worker i's busy seconds go to
-    ``lanes["pack_busy_s"][i]``; the dispatch lane's waits for chunk s
-    while later chunks sat finished go to ``lanes["reorder_stall_s"]``.
+    ``lanes["pack_busy_s"][i]`` and its thread CPU over them, ``[user,
+    sys]``, to ``lanes["pack_cpu_s"][i]``; the dispatch lane's waits for
+    chunk s while later chunks sat finished go to
+    ``lanes["reorder_stall_s"]``.
     Worker i packs under ``pipeline:pack[i]`` spans (``pipeline:pack``
     for the one packer of ``N = 0``), and a wait of the dispatch lane of
     a millisecond or more is a ``pipeline:idle`` span."""
@@ -1205,7 +1223,9 @@ def _pooled_chunks(clusters, worklist, backend, method, args, prefetch: int,
     buf: dict[int, _ChunkItem] = {}
     state = {"next_task": 0, "exited": 0}
     busy = [0.0] * n_workers
+    cpu = [[0.0, 0.0] for _ in range(n_workers)]
     lanes["pack_busy_s"] = busy
+    lanes["pack_cpu_s"] = cpu
     # the lanes adopt the run's tracer, so their spans reach its journal
     # whatever scope installed it
     tracer = tracing.current()
@@ -1227,11 +1247,13 @@ def _pooled_chunks(clusters, worklist, backend, method, args, prefetch: int,
                     state["next_task"] = seq + 1
                 claimed = seq
                 chunk_index, idxs = worklist[seq]
-                item, elapsed = _pack_chunk(clusters, chunk_index, idxs,
-                                            prepare, method, config,
-                                            cos_config, harness, span_name,
-                                            rc=rc, **labels)
-                busy[wid] += elapsed
+                item, laps = _pack_chunk(clusters, chunk_index, idxs,
+                                         prepare, method, config,
+                                         cos_config, harness, span_name,
+                                         rc=rc, **labels)
+                for lap in laps:
+                    busy[wid] += lap.wall
+                    add_cpu(cpu[wid], lap)
                 with cond:
                     buf[seq] = item
                     claimed = None
@@ -1479,7 +1501,9 @@ class _Committer:
     ``_commit_chunk``, so a kill at any point leaves a state a serial run
     can leave.  It owns ``done``, ``first_write`` and the QC list from
     construction on.  Its phase time and counters go to a private RunStats
-    merged at ``finish``/``shutdown``; a commit error is raised on the
+    merged at ``finish``/``shutdown``, its busy seconds to ``busy_s`` and
+    its thread CPU over them to ``cpu`` (``[user, sys]``); each commit is a
+    ``pipeline:write`` span with its CPU; a commit error is raised on the
     dispatch lane at the next ``submit`` or at ``finish``, and the lane
     keeps draining its queue after one."""
 
@@ -1495,6 +1519,7 @@ class _Committer:
         self._integrity = integrity
         self.stats = RunStats()
         self.busy_s = 0.0
+        self.cpu = [0.0, 0.0]
         self.error: BaseException | None = None
         self._merged = False
         self._q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
@@ -1517,10 +1542,10 @@ class _Committer:
                 return
             if self.error is not None:
                 continue  # drain; submit() re-raises
-            t0 = time.perf_counter()
+            lap = None
             try:
-                with tracing.span("pipeline:write", chunk_index=item.index,
-                                  n_clusters=len(item.part_ids)):
+                with cpu_span("pipeline:write", chunk_index=item.index,
+                              n_clusters=len(item.part_ids)) as lap:
                     _commit_chunk(item, self._args, self.stats, self._qc,
                                   self._done, self._first_write,
                                   self._integrity, self._harness,
@@ -1528,7 +1553,9 @@ class _Committer:
                 self._first_write = False
             except BaseException as e:  # noqa: BLE001 - re-raised on submit
                 self.error = e
-            self.busy_s += time.perf_counter() - t0
+            if lap is not None:
+                self.busy_s += lap.wall
+                add_cpu(self.cpu, lap)
 
     def finish(self, stats: RunStats | None) -> None:
         """Flush every queued commit, stop the lane, fold its counters
@@ -1943,7 +1970,8 @@ def _checkpointed_run_impl(backend: TorchBackend, method: str, clusters,
     pipelined = prefetch > 0 and len(worklist) > 1
     n_workers = (_default_pack_workers() if args.pack_workers is None
                  else max(int(args.pack_workers), 0))
-    lanes: dict = {"pack_busy_s": [], "reorder_stall_s": 0.0}
+    lanes: dict = {"pack_busy_s": [], "pack_cpu_s": [],
+                   "reorder_stall_s": 0.0}
     if pipelined:
         # --pack-workers 0 (the JAX package's single packer) is one worker
         items = _pooled_chunks(clusters, worklist, backend, method, args,
@@ -1964,6 +1992,8 @@ def _checkpointed_run_impl(backend: TorchBackend, method: str, clusters,
         else None
     )
     idle_s = 0.0
+    # the dispatch lane's thread CPU over its chunks' spans
+    dispatch_cpu = [0.0, 0.0]
     loop_t0 = time.perf_counter()
     clip_fn = getattr(args, "_elastic_clip", None)
     try:
@@ -1984,15 +2014,20 @@ def _checkpointed_run_impl(backend: TorchBackend, method: str, clusters,
                 # pack-lane time lands in `pack`, not in the dispatch
                 # lane's `compute`
                 stats.merge(item.pack_stats)
+            if item.prepared is not None:
+                # the backend's pack stages and the staged copy, done
+                # before the handoff
+                stats.merge(item.prepared.stats)
             journal.emit("chunk_start", chunk_index=item.index,
                          n_clusters=len(item.idxs))
             # the chunk's span is the trace's unit of progress: its
             # compute, QC and (inline) write nest under it
-            with tracing.span("chunk", chunk_index=item.index,
-                              n_clusters=len(item.idxs)):
+            with cpu_span("chunk", chunk_index=item.index,
+                          n_clusters=len(item.idxs)) as lap:
                 commit_item = _run_chunk(
                     backend, method, item, clusters, args, stats, scores,
                     qc, failed, qc_failed, harness, journal)
+            add_cpu(dispatch_cpu, lap)
             if committer is not None:
                 committer.submit(commit_item)
             else:
@@ -2011,8 +2046,9 @@ def _checkpointed_run_impl(backend: TorchBackend, method: str, clusters,
         if committer is not None:
             committer.shutdown(stats)
     if pipelined or committer is not None:
-        # device_idle_s: the dispatch lane's waits on the pack lanes, the
-        # overlap shortfall: overlap_efficiency = 1 - idle / wall
+        # device_idle_s: the dispatch lane's waits on the pack lanes (not
+        # the card's idle time), the overlap shortfall:
+        # overlap_efficiency = 1 - idle / wall
         wall = time.perf_counter() - loop_t0
         stats.pipeline = {
             "prefetch": prefetch,
@@ -2026,6 +2062,11 @@ def _checkpointed_run_impl(backend: TorchBackend, method: str, clusters,
             "pack_busy_s": [round(b, 4) for b in lanes["pack_busy_s"]],
             "write_busy_s": (round(committer.busy_s, 4)
                              if committer is not None else 0.0),
+            # each lane's thread CPU, [user, sys], over its busy time
+            "pack_cpu_s": [cpu_pair(c) for c in lanes["pack_cpu_s"]],
+            "dispatch_cpu_s": cpu_pair(dispatch_cpu),
+            "write_cpu_s": cpu_pair(committer.cpu if committer is not None
+                                    else (0.0, 0.0)),
             "reorder_stall_s": round(lanes["reorder_stall_s"], 4),
         }
         if h2d_active:
@@ -2218,15 +2259,18 @@ def _install_tracer_early(args) -> None:
     """With ``--journal`` or ``--chrome-trace``, install the run's span
     tracer before the input is parsed, so the parse phase is on the
     timeline too; its spans wait in memory until ``_open_run_journal``
-    replays them into the journal.  Paired with ``_restore_tracer`` in a
-    ``finally``: an early exit never leaves a tracer behind.  A served
-    job installs it for its lane's thread only (the lane threads its run
-    starts adopt it), so two lanes' spans never cross; a one-shot run
-    process-wide.  Without either flag the tracer stays the no-op one."""
-    if args.journal or args.chrome_trace:
+    replays them into the journal.  With ``--trace-dir`` alone it is
+    installed too, keeping no span: its spans are the device trace's
+    ranges only.  Paired with ``_restore_tracer`` in a ``finally``: an
+    early exit never leaves a tracer behind.  A served job installs it
+    for its lane's thread only (the lane threads its run starts adopt
+    it), so two lanes' spans never cross; a one-shot run process-wide.
+    Without any of the three the tracer stays the no-op one."""
+    keep = bool(args.journal or args.chrome_trace)
+    if keep or getattr(args, "trace_dir", None):
         install = (tracing.set_thread_current if _served(args)
                    else tracing.set_current)
-        args._prev_tracer = install(Tracer(keep=True))
+        args._prev_tracer = install(Tracer(keep=keep))
 
 
 def _restore_tracer(args) -> None:
@@ -2304,6 +2348,7 @@ def _finish_run(args, backend: TorchBackend, stats: RunStats,
     journal.emit(
         "run_end", counters=dict(stats.counters),
         phases_s={k: round(v, 4) for k, v in stats.phases.items()},
+        phases_cpu_s=stats.phases_cpu_s(), cpu_s=stats.cpu_s(),
         elapsed_s=round(stats.elapsed, 4),
         representatives_written=stats.counters.get("representatives", 0),
         clusters_per_sec=round(stats.throughput("clusters"), 2),

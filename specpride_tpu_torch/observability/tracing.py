@@ -23,6 +23,13 @@ A ``kernel:<name>`` span is the host's dispatch of a card call (the
 backend's ``_note_dispatch``): its duration is host time, asynchronous
 to the card, as the JAX package's ``specpride_dispatch_seconds`` is.
 
+A fourth consumer, the device trace (``--trace-dir``): while its capture
+runs it installs a range hook (``set_range_hook``), and every span opened
+with a ``with`` block is also a profiler range on its thread, so the
+capture holds the port's spans beside the card's kernels on one clock.
+Spans recorded after the fact (``complete()``) stay journal-only.  This
+module imports no torch: the hook is the torch side's.
+
 Clocks: span durations come from ``time.perf_counter`` (monotonic — a
 wall-clock jump mid-run cannot corrupt them).  For cross-host merging the
 monotonic axis is anchored to the wall clock once per run segment (at
@@ -179,7 +186,7 @@ class Span:
     event is only written when the span finishes."""
 
     __slots__ = ("tracer", "name", "labels", "t0", "depth", "span_id",
-                 "parent_span_id")
+                 "parent_span_id", "range")
     enabled = True
 
     def __init__(self, tracer: "Tracer", name: str, labels: dict):
@@ -188,6 +195,7 @@ class Span:
         self.labels = labels
         self.span_id = None
         self.parent_span_id = None
+        self.range = None  # the profiler range the hook opened, if any
 
     def note(self, **labels) -> None:
         self.labels.update(labels)
@@ -204,11 +212,17 @@ class Span:
                 else self.tracer.ctx.span_id
             )
         stack.append(self)
+        hook = _range_hook
+        if hook is not None:
+            self.range = hook(self.name)
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> bool:
         end = time.perf_counter()
+        if self.range is not None:
+            self.range.__exit__(None, None, None)
+            self.range = None
         stack = self.tracer._stack()
         if stack and stack[-1] is self:
             stack.pop()
@@ -345,6 +359,24 @@ def _lane_of_thread() -> int:
         with _TID_LANES_LOCK:
             lane = _TID_LANES.setdefault(ident, len(_TID_LANES))
     return lane
+
+
+# -- profiler ranges -----------------------------------------------------
+#
+# Called with a span's name as it opens, on the opening thread, the hook
+# returns an entered context manager (the span's exit, on the same
+# thread, exits it) or None.  Only a device-trace capture installs one.
+
+_range_hook = None
+
+
+def set_range_hook(hook):
+    """Install the span-open hook (None removes it); returns the previous
+    one so the installer can restore it."""
+    global _range_hook
+    prev = _range_hook
+    _range_hook = hook  # lint: ok[lane-safety] one store, set and restored around a capture by the thread that runs it
+    return prev
 
 
 # -- current-tracer plumbing ---------------------------------------------

@@ -15,8 +15,17 @@ violation; each package's ``stats --top-spans`` and ``trace`` read the
 other's journal; its top-level spans cover at least 95 % of its phase
 seconds; without ``--journal`` or ``--chrome-trace`` no span is recorded
 and the bytes are those of a traced run; two ``--coordinator`` ranks
-share one trace id and ``trace`` merges their shards with pid = rank."""
+share one trace id and ``trace`` merges their shards with pid = rank.
 
+Host time by thread: a pipelined run on a streamed input reports each
+phase's thread CPU beside its wall (the window parse a phase of its own),
+the process's CPU and each lane's; its lane spans carry their CPU; its
+``--trace-dir`` capture holds the dispatch lane's and a pack lane's spans
+as profiler ranges on their own threads, and no range is opened without
+one; a prepared chunk's stages reach the backend's phases, the lane's
+own do not; ``clusters_per_sec`` is over the run's wall."""
+
+import contextlib
 import io
 import json
 import os
@@ -35,7 +44,7 @@ from specpride_tpu.observability import traceplane as jtraceplane
 from specpride_tpu.observability import tracing as jtracing
 from specpride_tpu.observability.journal import read_events as jread_events
 from specpride_tpu_torch import cli
-from specpride_tpu_torch.observability import traceplane, tracing
+from specpride_tpu_torch.observability import stats, traceplane, tracing
 from specpride_tpu_torch.observability.journal import Journal, read_events
 from specpride_tpu_torch.observability.stats_cli import run_stats
 
@@ -473,3 +482,137 @@ def test_coordinator_ranks_share_one_trace(clustered, tmp_path, handoff):
     assert {e["pid"] for e in events if e["ph"] == "X"} == {0, 1}
     view = traceplane.extract_trace([str(journal)], ids.pop())
     assert len(view.shards) == 2
+
+
+# -- host time by thread: CPU per phase and lane, spans as profiler ranges
+
+
+def _streamed(clustered, d, *flags):
+    """A pipelined CPU run on a streamed input (windows of 8 clusters,
+    chunks of 8, two pack workers); its run summary."""
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        assert cli.main(["consensus", clustered, str(d / "s.mgf"),
+                         "--device", "cpu", "--qc-report",
+                         str(d / "s.qc.json"), "--pack-workers", "2",
+                         "--stream-clusters", "8", "--checkpoint-every", "8",
+                         *flags]) == 0
+    return json.loads([ln for ln in err.getvalue().splitlines()
+                       if ln.startswith("{")][-1])
+
+
+def _pair_within(pair, wall):
+    user, sys_ = pair
+    assert user >= 0.0 and sys_ >= 0.0
+    assert user + sys_ <= wall + 0.01
+
+
+def test_streamed_run_reports_thread_cpu_per_phase_and_lane(clustered,
+                                                           tmp_path):
+    summary = _streamed(clustered, tmp_path)
+    phases, cpu = summary["phases_s"], summary["phases_cpu_s"]
+    assert set(cpu) == set(phases)
+    assert {"parse", "window_parse", "pack", "qc_pack", "compute",
+            "write"} <= set(phases)
+    for name, wall in phases.items():
+        _pair_within(cpu[name], wall)
+    assert summary["cpu_s"]["user"] >= 0.0 and summary["cpu_s"]["sys"] >= 0.0
+    pipe = summary["pipeline"]
+    assert pipe["pack_workers"] == 2 and pipe["n_chunks"] == 5
+    assert len(pipe["pack_cpu_s"]) == len(pipe["pack_busy_s"]) == 2
+    for pair, busy in zip(pipe["pack_cpu_s"], pipe["pack_busy_s"]):
+        _pair_within(pair, busy)
+    _pair_within(pipe["write_cpu_s"], pipe["write_busy_s"])
+    _pair_within(pipe["dispatch_cpu_s"], pipe["wall_s"])
+
+
+def test_lane_spans_carry_their_thread_cpu(clustered, tmp_path):
+    journal = tmp_path / "s.jsonl"
+    _streamed(clustered, tmp_path, "--journal", str(journal))
+    events, bad = read_events(str(journal))
+    assert bad == []
+    seen = set()
+    for e in events:
+        if e["event"] == "span" and e["name"] in (
+                "pipeline:pack[0]", "pipeline:pack[1]", "chunk",
+                "pipeline:write", "parse"):
+            labels = e["labels"]
+            _pair_within((labels["cpu_user_s"], labels["cpu_sys_s"]),
+                         e["dur_s"])
+            seen.add(e["name"])
+    assert seen == {"pipeline:pack[0]", "pipeline:pack[1]", "chunk",
+                    "pipeline:write", "parse"}
+
+
+def test_a_prepared_chunk_keeps_its_own_stats(clustered, tmp_path):
+    """The backend's pack stages reach the run's phases and the backend's
+    (which also holds the dispatch lane's own packs); the lane's own stage
+    (``window_parse``) only the run's, and a phase the backend does not
+    know is an error, not dropped."""
+    from specpride_tpu_torch.backends.torch_backend import (
+        PreparedChunk,
+        TorchBackend,
+    )
+
+    summary = _streamed(clustered, tmp_path)
+    backend_phases = summary["backend"]["phase_s"]
+    assert "window_parse" not in backend_phases
+    for name in ("pack", "qc_pack"):
+        assert backend_phases[name] >= summary["phases_s"][name] - 1e-3
+    prepared = PreparedChunk("bin-mean", [], None)
+    prepared.stats.add("window_parse", stats.Lap().stop())
+    with pytest.raises(KeyError):
+        TorchBackend(device="cpu")._merge_prepared(prepared)
+
+
+def _counting_range_hooks(monkeypatch):
+    """Wrap every range hook a capture installs; the ranges it opened."""
+    opened = []
+    make = stats._range_hook
+
+    def counting(all_threads):
+        hook = make(all_threads)
+
+        def open_range(name):
+            opened.append(name)
+            return hook(name)
+
+        return open_range
+
+    monkeypatch.setattr(stats, "_range_hook", counting)
+    return opened
+
+
+@pytest.mark.skipif(stats._all_threads_config() is None,
+                    reason="this torch's profiler has no profile_all_threads")
+def test_trace_dir_holds_the_lanes_spans_as_ranges(clustered, tmp_path,
+                                                   monkeypatch):
+    opened = _counting_range_hooks(monkeypatch)
+    trace_dir = tmp_path / "td"
+    _streamed(clustered, tmp_path, "--trace-dir", str(trace_dir))
+    assert "chunk" in opened and tracing._range_hook is None
+    assert isinstance(tracing.current(), tracing.NullTracer)
+    events = json.loads(open(stats.trace_path(str(trace_dir))).read())
+    tids: dict[str, set] = {}
+    for e in events["traceEvents"]:
+        if e.get("cat") == "user_annotation":
+            tids.setdefault(e["name"], set()).add(e["tid"])
+    assert tids.get("chunk") and tids.get("pipeline:pack[0]")
+    assert tids["chunk"].isdisjoint(tids["pipeline:pack[0]"])
+    assert "pipeline:write" in tids
+
+
+def test_no_range_is_opened_without_trace_dir(clustered, tmp_path,
+                                              monkeypatch):
+    opened = _counting_range_hooks(monkeypatch)
+    _streamed(clustered, tmp_path, "--journal", str(tmp_path / "j.jsonl"),
+              "--chrome-trace", str(tmp_path / "c.json"))
+    assert opened == [] and tracing._range_hook is None
+
+
+def test_clusters_per_sec_is_over_the_wall(runs):
+    events, _ = read_events(str(runs / "port.jsonl"))
+    end = next(e for e in events if e["event"] == "run_end")
+    assert end["counters"]["clusters"] == N_CLUSTERS
+    assert end["clusters_per_sec"] == pytest.approx(
+        N_CLUSTERS / end["elapsed_s"], rel=1e-3)
