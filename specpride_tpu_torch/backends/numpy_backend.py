@@ -22,6 +22,7 @@ from specpride_tpu_torch.config import (
     MedoidConfig,
 )
 from specpride_tpu_torch.data.peaks import Cluster, Spectrum
+from specpride_tpu_torch.data.table import MemberColumns
 from specpride_tpu_torch.observability import tracing
 from specpride_tpu_torch.ops import quantize
 
@@ -77,11 +78,22 @@ def average_cosine(
 
 # --- precursor-mass / RT estimators
 # (ref src/average_spectrum_clustering.py:106-148) -------------------------
+# Each takes a cluster's members: a list of ``Spectrum``s, or their
+# precursor columns (``MemberColumns``, rows of the consensus's
+# ``SpectraTable``), which give the same float64 values in the same order.
 
-def _neutral_masses(members: list[Spectrum]) -> tuple[np.ndarray, np.ndarray]:
+def _member_columns(members) -> MemberColumns:
+    if isinstance(members, MemberColumns):
+        return members
+    return MemberColumns(np.array([s.precursor_mz for s in members]),
+                         np.array([s.precursor_charge for s in members]),
+                         np.array([s.rt for s in members]))
+
+
+def _neutral_masses(members) -> tuple[np.ndarray, np.ndarray]:
     """m*z - z*H per member (ref src/average_spectrum_clustering.py:134-138)."""
-    mzs = np.array([s.precursor_mz for s in members])
-    charges = np.array([s.precursor_charge for s in members])
+    cols = _member_columns(members)
+    mzs, charges = cols.precursor_mz, cols.precursor_charge
     return mzs * charges - charges * PROTON_MASS, charges
 
 
@@ -92,23 +104,20 @@ def _lower_median_index(values: np.ndarray) -> int:
     return int(order[(len(values) - 1) // 2])
 
 
-def naive_average_mass_and_charge(
-    members: list[Spectrum],
-) -> tuple[float, int]:
+def naive_average_mass_and_charge(members) -> tuple[float, int]:
     """Mean precursor m/z; all charges must agree
     (ref src/average_spectrum_clustering.py:127-132)."""
-    charges = {s.precursor_charge for s in members}
+    cols = _member_columns(members)
+    charges = np.unique(cols.precursor_charge)
     if len(charges) > 1:
         raise ValueError(
             "There are different charge states in the cluster. "
             "Cannot average precursor m/z."
         )
-    return float(np.mean([s.precursor_mz for s in members])), charges.pop()
+    return float(np.mean(cols.precursor_mz)), int(charges[0])
 
 
-def neutral_average_mass_and_charge(
-    members: list[Spectrum],
-) -> tuple[float, int]:
+def neutral_average_mass_and_charge(members) -> tuple[float, int]:
     """Mean neutral mass re-charged at the rounded mean charge
     (ref src/average_spectrum_clustering.py:140-144)."""
     masses, charges = _neutral_masses(members)
@@ -116,9 +125,7 @@ def neutral_average_mass_and_charge(
     return (float(np.mean(masses)) + z * PROTON_MASS) / z, z
 
 
-def lower_median_mass_and_charge(
-    members: list[Spectrum],
-) -> tuple[float, int]:
+def lower_median_mass_and_charge(members) -> tuple[float, int]:
     """Lower-median neutral mass, converted back at that member's charge
     (ref src/average_spectrum_clustering.py:112-116)."""
     masses, charges = _neutral_masses(members)
@@ -127,16 +134,16 @@ def lower_median_mass_and_charge(
     return (float(masses[i]) + z * PROTON_MASS) / z, z
 
 
-def median_rt(members: list[Spectrum]) -> float:
+def median_rt(members) -> float:
     """(ref src/average_spectrum_clustering.py:146-148)"""
-    return float(np.median([s.rt for s in members]))
+    return float(np.median(_member_columns(members).rt))
 
 
-def lower_median_mass_rt(members: list[Spectrum]) -> float:
+def lower_median_mass_rt(members) -> float:
     """RT of the lower-median-mass member
     (ref src/average_spectrum_clustering.py:118-122)."""
     masses, _ = _neutral_masses(members)
-    return float(members[_lower_median_index(masses)].rt)
+    return float(_member_columns(members).rt[_lower_median_index(masses)])
 
 
 PEPMASS_ESTIMATORS = {

@@ -77,6 +77,7 @@ from specpride_tpu_torch.data.packed import (
     pack_flat_gap,
 )
 from specpride_tpu_torch.data.peaks import Cluster, Spectrum
+from specpride_tpu_torch.data.table import SpectraTable
 from specpride_tpu_torch.observability import tracing
 from specpride_tpu_torch.observability.journal import NullJournal
 from specpride_tpu_torch.observability.registry import MetricsRegistry
@@ -137,11 +138,15 @@ def check_no_empty(clusters: list[Cluster]) -> None:
             raise ValueError(f"empty cluster {c.cluster_id!r}")
 
 
-def check_uniform_charge(members: list[Spectrum]) -> None:
-    """All precursor charges in a cluster must be equal (ref
-    src/binning.py:206 assert, a ValueError here)."""
-    charges = [s.precursor_charge for s in members]
-    if any(z != charges[0] for z in charges):
+def check_uniform_charge(table: SpectraTable) -> None:
+    """All precursor charges in each cluster of ``table`` must be equal
+    (ref src/binning.py:206 assert, a ValueError here)."""
+    idx = table.cluster_order()
+    charges = table.precursor_charge[idx.order]
+    filled = idx.n_members > 0
+    first = np.repeat(charges[idx.offsets[:-1][filled]],
+                      idx.n_members[filled])
+    if np.any(charges != first):
         raise ValueError("Not all precursor charges in cluster are equal")
 
 
@@ -399,10 +404,10 @@ class TorchBackend:
         with a ``cos_config``, the QC member prep on the same table."""
         clusters, config = prepared.clusters, prepared.config
         check_no_empty(clusters)
-        for c in clusters:
-            check_uniform_charge(c.members)
         lap = Lap()
         table = _as_table(clusters)
+        check_uniform_charge(table)
+        prepared.data["table"] = table
         prepared.data["chunks"] = [
             (batch, *self._flat_chunk_host_args(batch, config))
             for batch in pack_flat_bin_mean(
@@ -428,7 +433,8 @@ class TorchBackend:
                 batch, host, staged=staged[i] if staged else None,
             )
             t0 = time.perf_counter()
-            self._emit_bin_mean_rows(batch, fused, aux, clusters, out)
+            self._emit_bin_mean_rows(batch, fused, aux,
+                                     prepared.data["table"], out)
             self.phase_seconds["finalize"] += time.perf_counter() - t0
         if prepared.cos_config is None:
             return out, None
@@ -645,10 +651,12 @@ class TorchBackend:
             rows=rows, padded_rows=rows)
         return fused, aux
 
-    def _emit_bin_mean_rows(self, batch, fused, aux, clusters, out) -> None:
+    def _emit_bin_mean_rows(self, batch, fused, aux, table, out) -> None:
         """Assemble one chunk's spectra from the host m/z means and the
         card's intensity means (of int8 codes: rescaled here by each
-        cluster's scale, which never crosses to the card)."""
+        cluster's scale, which never crosses to the card); precursor m/z
+        and charge from the pack's table."""
+        idx = table.cluster_order()
         off = aux["row_out_offsets"]
         if batch.scale is not None:
             fused = fused.astype(np.float64)
@@ -657,16 +665,14 @@ class TorchBackend:
         for ci in range(aux["rows"]):
             o0, o1 = int(off[ci]), int(off[ci + 1])
             gi = batch.source_indices[ci]
-            members = clusters[gi].members
+            members = idx.members(table, gi)
             out[gi] = Spectrum(
                 # copies: slices would pin the chunk-wide buffers alive
                 mz=kept_mz[o0:o1].copy(),
                 intensity=fused[o0:o1].astype(np.float64),
                 # exact f64 mean, as the oracle (ref src/binning.py:224)
-                precursor_mz=float(
-                    np.mean([s.precursor_mz for s in members])
-                ),
-                precursor_charge=members[0].precursor_charge,
+                precursor_mz=float(np.mean(members.precursor_mz)),
+                precursor_charge=int(members.precursor_charge[0]),
                 title=batch.cluster_ids[ci],
             )
 
@@ -716,11 +722,11 @@ class TorchBackend:
         ``bin_mean_deduped_compact`` per device block, its output sized by
         the rows' distinct bins."""
         check_no_empty(clusters)
-        for c in clusters:
-            check_uniform_charge(c.members)
         t0 = time.perf_counter()
-        batches = pack_bucketize_bin_mean(clusters, config,
-                                          self.batch_config)
+        table = _as_table(clusters)
+        check_uniform_charge(table)
+        idx = table.cluster_order()
+        batches = pack_bucketize_bin_mean(table, config, self.batch_config)
         _add_time(self.phase_seconds, "pack", t0)
         out: list[Spectrum | None] = [None] * len(clusters)
         for batch in batches:
@@ -760,14 +766,15 @@ class TorchBackend:
                             # int8 codes were averaged on the card: rescale
                             # the means by the row's scale (linear)
                             r_int = r_int * float(scale[b0 + ci])
-                        members = clusters[gi].members
+                        members = idx.members(table, gi)
                         out[gi] = Spectrum(
                             mz=r_mz, intensity=r_int,
                             # exact f64 mean, as the oracle (ref
                             # src/binning.py:224)
                             precursor_mz=float(
-                                np.mean([s.precursor_mz for s in members])),
-                            precursor_charge=members[0].precursor_charge,
+                                np.mean(members.precursor_mz)),
+                            precursor_charge=int(
+                                members.precursor_charge[0]),
                             title=batch.cluster_ids[b0 + ci],
                         )
                     _add_time(self.phase_seconds, "finalize", t0)
@@ -796,7 +803,9 @@ class TorchBackend:
         check_no_empty(clusters)
         get_pepmass, get_rt = numpy_backend.resolve_gap_estimators(config)
         t0 = time.perf_counter()
-        batches = pack_bucketize_gap(clusters, config, self.batch_config)
+        table = _as_table(clusters)
+        idx = table.cluster_order()
+        batches = pack_bucketize_gap(table, config, self.batch_config)
         _add_time(self.phase_seconds, "pack", t0)
         out: list[Spectrum | None] = [None] * len(clusters)
         for batch in batches:
@@ -837,7 +846,7 @@ class TorchBackend:
                         gi = batch.source_indices[b0 + ci]
                         if scale is not None:
                             r_int = r_int * float(scale[b0 + ci])
-                        members = clusters[gi].members
+                        members = idx.members(table, gi)
                         pep_mz, pep_z = get_pepmass(members)
                         out[gi] = Spectrum(
                             mz=r_mz, intensity=r_int,
@@ -866,13 +875,14 @@ class TorchBackend:
     def _prepare_gap_average(self, prepared: PreparedChunk) -> None:
         check_no_empty(prepared.clusters)
         lap = Lap()
+        table = prepared.data["table"] = _as_table(prepared.clusters)
         prepared.data["batches"] = [
             (batch, [quantize.codes_tensor(a) for a in (
                 batch.intensity, batch.group_start, batch.quorum,
                 batch.n_members, batch.n_groups,
             )])
             for batch in pack_flat_gap(
-                _as_table(prepared.clusters), prepared.config,
+                table, prepared.config,
                 max_elements=self.max_grid_elements // 4,
                 precision=self.precision,
             )
@@ -882,8 +892,11 @@ class TorchBackend:
     def _finish_gap_average(self, prepared: PreparedChunk) -> list[Spectrum]:
         """Each chunk's group intensities and keep marks from the card
         (``gap_average_groups``), joined on the host to the pack's float64
-        group m/z; at f32 the singletons' intensities pass through."""
+        group m/z; at f32 the singletons' intensities pass through;
+        precursor m/z, charge and RT from the pack's table."""
         clusters, config = prepared.clusters, prepared.config
+        table = prepared.data["table"]
+        idx = table.cluster_order()
         get_pepmass, get_rt = numpy_backend.resolve_gap_estimators(config)
         out: list[Spectrum | None] = [None] * len(clusters)
         for batch, host in prepared.data["batches"]:
@@ -913,7 +926,7 @@ class TorchBackend:
             for ci, gi in enumerate(batch.source_indices):
                 g0, g1 = int(goff[ci]), int(goff[ci + 1])
                 sel = keep[g0:g1]
-                members = clusters[gi].members
+                members = idx.members(table, gi)
                 pep_mz, pep_z = get_pepmass(members)
                 out[gi] = Spectrum(
                     mz=batch.group_mz[g0:g1][sel],

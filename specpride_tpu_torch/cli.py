@@ -2341,7 +2341,7 @@ def _finish_run(args, backend: TorchBackend, stats: RunStats,
         stats.count("result_cache_hits", snap["hits"])
         stats.count("result_cache_misses", snap["misses"])
     extra = {}
-    for key in ("pipeline", "robustness", "precision", "elastic"):
+    for key in ("pipeline", "robustness", "stream", "precision", "elastic"):
         value = getattr(stats, key)
         if value:
             extra[key] = value
@@ -2829,6 +2829,8 @@ def _run_pipeline_command(args, backend: TorchBackend, rank: int = 0,
             stats.precision = precision_gate(
                 backend, args.method, clusters, method_config(args),
                 _cosine_config(args), journal)
+        if isinstance(clusters, StreamedClusters):
+            stats.stream = clusters.counts.summary()
         _save_shape_manifest(args, backend)
         _finish_run(args, backend, stats, journal)
     finally:

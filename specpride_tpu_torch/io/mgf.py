@@ -12,6 +12,7 @@ package's, so outputs of the two compare with ``cmp``.
 
 from __future__ import annotations
 
+import dataclasses
 import gzip
 import io
 import os
@@ -20,7 +21,8 @@ from typing import IO, Iterator, Sequence
 
 import numpy as np
 
-from specpride_tpu_torch.data.peaks import Cluster, Spectrum, parse_title
+from specpride_tpu_torch.data.peaks import Cluster, Spectrum
+from specpride_tpu_torch.data.table import SpectraTable, TableClusters
 from specpride_tpu_torch.io import native
 from specpride_tpu_torch.observability import tracing
 
@@ -215,23 +217,69 @@ class IndexedMGF:
         return native.parse_mgf_bytes(chunk, threads=1)[0]
 
 
+class StreamCounts:
+    """What the window parses of a streamed input and of every view sliced
+    from it did: ``windows`` parsed, ``columnar_windows`` of them handed
+    over as a table (the host parser's), and ``spectrum_objects``, the
+    ``Spectrum``s the reader made (the tolerant parser's records, and the
+    members a consumer asked a table's cluster for).  Lanes parse windows
+    at once, so every update takes the lock."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.windows = 0
+        self.columnar_windows = 0
+        self.spectrum_objects = 0
+
+    def add(self, windows: int = 0, columnar_windows: int = 0,
+            spectrum_objects: int = 0) -> None:
+        with self._lock:
+            self.windows += windows
+            self.columnar_windows += columnar_windows
+            self.spectrum_objects += spectrum_objects
+
+    def summary(self) -> dict:
+        with self._lock:
+            return {"windows": self.windows,
+                    "columnar_windows": self.columnar_windows,
+                    "spectrum_objects": self.spectrum_objects}
+
+
+@dataclasses.dataclass
+class _Records:
+    """The index's records, shared by a streamed input and its views:
+    cluster-major byte ranges (``native.MgfClusterIndex``'s) and every
+    record's first byte in file order."""
+
+    member_begin: np.ndarray
+    member_end: np.ndarray
+    begins: np.ndarray
+    counts: StreamCounts
+
+
 class StreamedClusters:
     """Bounded-memory, list-like access to the clusters of a clustered MGF
     (the reference streams clusters off an indexed MGF, ref
-    src/average_spectrum_clustering.py:151-160).  One pass of the host
-    library's byte index records every record's (title, byte range)
-    without parsing a peak; member spectra are parsed later, in windows of
-    ``window`` clusters, and only ``cache_slots`` windows stay cached, so
-    host memory is the index plus a few windows whatever the file's size.
+    src/average_spectrum_clustering.py:151-160).  One threaded pass of the
+    host library's byte index records every record's byte range and
+    groups the records into clusters, in arrays, without parsing a peak;
+    member spectra are parsed later, in windows of ``window`` clusters,
+    and only ``cache_slots`` windows stay cached, so host memory is the
+    index plus a few windows whatever the file's size.
 
     The order of ``read_mgf`` + ``group_into_clusters``: first-seen
     cluster order and in-file member order (a cluster's members may be
     scattered through the file).  An integer index parses the window that
-    holds the cluster; a slice is a sub-view sharing the index.  Plain
-    files only (the CLI reads a ``.gz`` eagerly)."""
+    holds the cluster; a slice is a sub-view sharing the index.  With the
+    host parser a window is one ``SpectraTable`` and its clusters views of
+    it (``data/table.py::ClusterView``), which make their members'
+    ``Spectrum``s only when a consumer asks; with the tolerant parser
+    (``on_malformed``) its clusters hold ``Spectrum``s.  ``counts`` (a
+    ``StreamCounts``, shared with the sub-views) says which.  Plain files
+    only (the CLI reads a ``.gz`` eagerly)."""
 
     def __init__(self, path: str | os.PathLike, window: int = 512,
-                 _groups=None, _begins=None):
+                 _view=None):
         self.path = os.fspath(path)
         self.window = max(int(window), 1)
         # the byte ranges of truncated records the index found (never
@@ -246,22 +294,21 @@ class StreamedClusters:
         # windows at once never run more parse threads than the host has
         # cores.
         self.parse_threads = 0
-        # windows parsed so far (a cache miss each)
+        # windows parsed so far by this view (a cache miss each)
         self.windows_parsed = 0
-        if _groups is not None:
-            self._groups, self._begins = _groups, _begins
+        if _view is not None:
+            self._records, self._names, self._first, self._last = _view
         else:
             with tracing.span("parse:mgf_index"):
-                records, self.malformed_spans = native.index_mgf(self.path)
-            # every record's first byte, in file order: two records of a
-            # window with no record between them parse as one span
-            self._begins = np.fromiter((b for _, b, _ in records),
-                                       dtype=np.int64, count=len(records))
-            by_id: dict[str, list[tuple[int, int]]] = {}
-            for title, begin, end in records:
-                cid, _ = parse_title(title)
-                by_id.setdefault(cid, []).append((begin, end))
-            self._groups = list(by_id.items())
+                index = native.index_clusters(self.path)
+            self.malformed_spans = index.spans
+            self._records = _Records(index.member_begin, index.member_end,
+                                     index.begins, StreamCounts())
+            # cluster k's records are member_begin/member_end[first[k]:
+            # last[k]]
+            self._names = index.names
+            self._first = index.group_offsets[:-1]
+            self._last = index.group_offsets[1:]
         # an LRU of windows keyed by window start, not one slot: a pack
         # worker parses window W+1 ahead while the dispatch lane may walk
         # window W again cluster by cluster (--on-error skip), and one
@@ -270,13 +317,20 @@ class StreamedClusters:
         # never evict each other's.  The lock covers the cache only.
         self.cache_slots = 2
         self._windows: dict[int, list[Cluster]] = {}
+        # the windows a lane is parsing now: another lane that needs one
+        # waits for that parse instead of parsing (and quarantining) the
+        # window again
+        self._parsing: dict[int, threading.Event] = {}
         self._cache_lock = threading.RLock()
+
+    @property
+    def counts(self) -> StreamCounts:
+        return self._records.counts
 
     def _scan_plain(self) -> list[tuple[str, int, int]]:
         """The JAX package's Python scan (``StreamedClusters._scan``): the
         records and the truncated spans (into ``malformed_spans``) that
-        the host library's ``index_mgf`` must give; the tests' plain
-        version."""
+        the host library's index must give; the tests' plain version."""
         records = []
         spans = []
         with open(self.path, "rb") as fh:
@@ -320,20 +374,20 @@ class StreamedClusters:
 
     @property
     def cluster_ids(self) -> list[str]:
-        return [cid for cid, _ in self._groups]
+        return list(self._names)
 
     @property
     def n_spectra(self) -> int:
-        return sum(len(r) for _, r in self._groups)
+        return int((self._last - self._first).sum())
 
     def __len__(self) -> int:
-        return len(self._groups)
+        return len(self._names)
 
     def __getitem__(self, key):
         if isinstance(key, slice):
-            sub = StreamedClusters(self.path, self.window,
-                                   _groups=self._groups[key],
-                                   _begins=self._begins)
+            sub = StreamedClusters(self.path, self.window, _view=(
+                self._records, self._names[key], self._first[key],
+                self._last[key]))
             # a sub-view quarantines per-record damage too; the index's
             # truncated spans stay with the parent (drained once)
             sub.on_malformed = self.on_malformed
@@ -341,81 +395,130 @@ class StreamedClusters:
             return sub
         i = int(key)
         if i < 0:
-            i += len(self._groups)
-        if not 0 <= i < len(self._groups):
+            i += len(self._names)
+        if not 0 <= i < len(self._names):
             raise IndexError(key)
         lo = (i // self.window) * self.window
-        with self._cache_lock:
-            cached = self._windows.get(lo)
-            if cached is not None:
-                # LRU touch: a window walked again must not be the one the
-                # workers' lookahead evicts
-                self._windows.pop(lo)
-                self._windows[lo] = cached
-                return cached[i - lo]
+        while True:
+            with self._cache_lock:
+                cached = self._windows.get(lo)
+                if cached is not None:
+                    # LRU touch: a window walked again must not be the one
+                    # the workers' lookahead evicts
+                    self._windows.pop(lo)
+                    self._windows[lo] = cached
+                    return cached[i - lo]
+                parsing = self._parsing.get(lo)
+                if parsing is None:
+                    parsing = self._parsing[lo] = threading.Event()
+                    break
+            parsing.wait()  # another lane's parse of this window
         # parse outside the lock, so the other lanes' cache hits never wait
-        # on a whole window's parse; two threads racing on one cold window
-        # parse it twice and keep one copy
-        parsed = self._materialize(self._groups[lo : lo + self.window])
-        with self._cache_lock:
-            self.windows_parsed += 1
-            cached = self._windows.pop(lo, parsed)
-            slots = max(int(self.cache_slots), 1)
-            while len(self._windows) >= slots:  # evict least recently used
-                self._windows.pop(next(iter(self._windows)))
-            self._windows[lo] = cached
-            return cached[i - lo]
+        # on a whole window's parse
+        try:
+            parsed = self._materialize(lo, min(lo + self.window,
+                                               len(self._names)))
+            self.counts.add(windows=1)
+            with self._cache_lock:
+                self.windows_parsed += 1
+                slots = max(int(self.cache_slots), 1)
+                while len(self._windows) >= slots:  # evict least recently
+                    self._windows.pop(next(iter(self._windows)))  # used
+                self._windows[lo] = parsed
+                return parsed[i - lo]
+        finally:
+            with self._cache_lock:
+                self._parsing.pop(lo)
+            parsing.set()
 
     def __iter__(self):
-        for i in range(len(self._groups)):
+        for i in range(len(self._names)):
             yield self[i]
 
     @tracing.traced("parse:mgf_window")
-    def _materialize(self, groups) -> list[Cluster]:
-        """The window's clusters, each span of its records parsed once: by
-        the host library's parser, or by the tolerant Python parser when
-        ``on_malformed`` is set.  For the host parser a span runs on over
-        the bytes between two of the window's records when no record lies
-        there (blank lines; a truncated block, which the host parser drops
-        as it does in a whole read), so a cluster-contiguous file parses
-        as a few large spans.  The tolerant parser takes only records that
-        touch (the JAX package's spans): the bytes between them may hold a
-        truncated block the index already quarantined."""
-        ranges = sorted((begin, end) for _, recs in groups
-                        for begin, end in recs)
-        spans: list[list[int]] = []
-        if self.on_malformed is None and ranges:
-            ranks = np.searchsorted(self._begins, [b for b, _ in ranges])
-            prev = -2
-            for (begin, end), rank in zip(ranges, ranks.tolist()):
-                if rank == prev + 1:
-                    spans[-1][1] = end
-                else:
-                    spans.append([begin, end])
-                prev = rank
+    def _materialize(self, lo: int, hi: int) -> list[Cluster]:
+        """Clusters ``lo:hi``, their records' spans parsed once: by the
+        host library's parser, as one text, into one table, or by the
+        tolerant Python parser, span by span, when ``on_malformed`` is
+        set.  For the host parser a span runs on over the bytes between
+        two of the window's records when no record lies there (blank
+        lines; a truncated block, which the host parser drops as it does
+        in a whole read), so a cluster-contiguous file is one span a
+        window.  The tolerant parser takes only records that touch (the
+        JAX package's spans): the bytes between them may hold a truncated
+        block the index already quarantined."""
+        first, last = self._first[lo:hi], self._last[lo:hi]
+        counts = last - first
+        pos = (np.arange(int(counts.sum()), dtype=np.int64)
+               + np.repeat(first - (np.cumsum(counts) - counts), counts))
+        begin = self._records.member_begin[pos]
+        order = np.argsort(begin, kind="stable")
+        begin, end = begin[order], self._records.member_end[pos][order]
+        if self.on_malformed is None:
+            ranks = np.searchsorted(self._records.begins, begin)
+            cuts = np.flatnonzero(np.diff(ranks) != 1) + 1
         else:
-            for begin, end in ranges:
-                if spans and begin == spans[-1][1]:
-                    spans[-1][1] = end
-                else:
-                    spans.append([begin, end])
-        members: dict[str, list[Spectrum]] = {cid: [] for cid, _ in groups}
+            cuts = np.flatnonzero(begin[1:] != end[:-1]) + 1
+        spans = zip(begin[np.r_[0, cuts]].tolist(),
+                    end[np.r_[cuts - 1, begin.size - 1]].tolist())
+        names = self._names[lo:hi]
+        chunks = []
         with open(self.path, "rb") as fh:
-            for begin, end in spans:
-                fh.seek(begin)
-                chunk = fh.read(end - begin)
-                if self.on_malformed is None:
-                    spectra = native.parse_mgf_bytes(
-                        chunk, threads=self.parse_threads)
-                else:
-                    spectra = parse_mgf_stream(
-                        io.StringIO(chunk.decode("utf-8")),
-                        malformed=self.on_malformed)
-                for s in spectra:
-                    got = members.get(s.cluster_id)
-                    if got is not None:
-                        got.append(s)
-        return [Cluster(cid, members[cid]) for cid, _ in groups]
+            for span_begin, span_end in spans:
+                fh.seek(span_begin)
+                chunks.append(fh.read(span_end - span_begin))
+        if self.on_malformed is None:
+            # every span but one at EOF ends with its END IONS line's
+            # newline, so the spans in file order parse as one text
+            return self._window_table(names, native.parse_mgf_columns(
+                b"".join(chunks), threads=self.parse_threads))
+        spectra = [s for chunk in chunks for s in parse_mgf_stream(
+            io.StringIO(chunk.decode("utf-8")), malformed=self.on_malformed)]
+        self.counts.add(spectrum_objects=len(spectra))
+        members: dict[str, list[Spectrum]] = {cid: [] for cid in names}
+        for s in spectra:
+            got = members.get(s.cluster_id)
+            if got is not None:
+                got.append(s)
+        return [Cluster(cid, members[cid]) for cid in names]
+
+    def _window_table(self, names: list[str],
+                      cols: native.MgfColumns) -> list[Cluster]:
+        """The window's clusters as views of one ``SpectraTable`` of its
+        parsed records: each record joins the cluster its title names (a
+        record naming none of the window's is left out, as the grouping
+        of ``Spectrum``s leaves it), clusters in the window's order and
+        each one's members in file order, so the table is the one
+        ``SpectraTable.from_clusters`` builds of the same clusters."""
+        code_of = {cid: k for k, cid in enumerate(names)}
+        codes = np.fromiter(
+            (code_of.get(title.partition(";")[0], -1)
+             for title in cols.titles), dtype=np.int64,
+            count=len(cols.titles))
+        table = SpectraTable(
+            mz=cols.mz, intensity=cols.intensity,
+            peak_offsets=cols.peak_offsets, precursor_mz=cols.precursor_mz,
+            precursor_charge=cols.precursor_charge, rt=cols.rt,
+            titles=cols.titles, cluster_code=codes,
+            cluster_names=list(names),
+        )
+        if codes.size and (codes[0] < 0 or np.any(codes[1:] < codes[:-1])):
+            order = np.argsort(codes, kind="stable")
+            order = order[codes[order] >= 0]
+            table = table.take(order, codes[order], table.cluster_names)
+            cols = native.MgfColumns(
+                table.mz, table.intensity, table.peak_offsets,
+                table.precursor_mz, table.precursor_charge, table.rt,
+                table.titles, [cols.extras[i] for i in order.tolist()])
+
+        counts = self.counts  # not self: a window holds no cycle
+
+        def members_of(r0: int, r1: int) -> list[Spectrum]:
+            counts.add(spectrum_objects=r1 - r0)
+            return cols.spectra(r0, r1)
+
+        counts.add(columnar_windows=1)
+        return TableClusters(table, members_of).clusters()
 
 
 def _header(spectrum: Spectrum) -> str:

@@ -139,6 +139,9 @@ class RunStats:
         self.precision: dict | None = None
         # an elastic rank's summary (``cli._run_elastic``), or None
         self.elastic: dict | None = None
+        # a streamed input's window parses (``io.mgf.StreamCounts``), or
+        # None
+        self.stream: dict | None = None
         self._start = time.perf_counter()
         self._cpu0 = process_cpu()
 
@@ -200,6 +203,7 @@ class RunStats:
             "cpu_s": self.cpu_s(),
             **({"pipeline": self.pipeline} if self.pipeline else {}),
             **({"robustness": self.robustness} if self.robustness else {}),
+            **({"stream": self.stream} if self.stream else {}),
             **({"elastic": self.elastic} if self.elastic else {}),
         }
 

@@ -210,8 +210,10 @@ def _declare_host(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = restype
     lib.mgf_free.argtypes = [vp]
     lib.mgf_free.restype = None
-    # the byte index of a streamed MGF: a handle and its columns
-    lib.mgf_index.argtypes = [ctypes.c_char_p, vp, ctypes.c_int]
+    # the byte index of a streamed MGF and its clusters: a handle and its
+    # columns
+    lib.mgf_index.argtypes = [ctypes.c_char_p, ctypes.c_int, vp,
+                              ctypes.c_int]
     lib.mgf_index.restype = vp
     for name, restype in (
         ("mgf_index_n_records", ctypes.c_int64),
@@ -220,6 +222,11 @@ def _declare_host(lib: ctypes.CDLL) -> ctypes.CDLL:
         ("mgf_index_titles", vp), ("mgf_index_title_offsets", p64),
         ("mgf_index_n_spans", ctypes.c_int64),
         ("mgf_index_span_begin", p64), ("mgf_index_span_end", p64),
+        ("mgf_index_bad_title", ctypes.c_int64),
+        ("mgf_index_n_clusters", ctypes.c_int64),
+        ("mgf_index_names", vp), ("mgf_index_name_offsets", p64),
+        ("mgf_index_group_offsets", p64),
+        ("mgf_index_member_begin", p64), ("mgf_index_member_end", p64),
     ):
         fn = getattr(lib, name)
         fn.argtypes = [vp]
