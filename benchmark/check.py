@@ -7,7 +7,9 @@ Numbers compared (each beside its limit in the configuration's
 
 - ``mismatched_reps``: clusters whose representative is missing, out of
   order, or differs in title, charge or peak count, and QC rows missing
-  or differing in member count (exact: limit 0);
+  or differing in member count (exact: limit 0).  The expected title is
+  the reference's (``Reps.titles``: a selection's chosen member's own),
+  else the cluster id; QC rows are keyed by cluster id;
 - ``peak_gap``: the widest relative gap of a matched representative's
   m/z, intensity, precursor m/z or RT from the reference's;
 - ``cosine_gap``: the widest absolute gap of a QC row's mean cosine from
@@ -90,7 +92,8 @@ def compare(out: Output, qc: dict | None, ref, cluster_ids: list,
     mismatched = abs(len(out.titles) - n)
     m = min(len(out.titles), n)
     on = np.diff(out.offsets)[:m]
-    same = np.array([out.titles[i] == cluster_ids[i] for i in range(m)],
+    want = cluster_ids if ref.titles is None else ref.titles
+    same = np.array([out.titles[i] == want[i] for i in range(m)],
                     dtype=bool)
     same &= out.charge[:m] == ref.charge[:m]
     same &= on == rn[:m]

@@ -1,13 +1,17 @@
 """Readings that the limits of ``correct`` are set from: one job of a
-cell's argv at its own size per seed and precision, through the same
+cell's argv at its own size per seed and variant, through the same
 entry the window drives, compared with the plain reference::
 
-    python3 -m benchmark.control <cell> <precision,...> <seed> [<seed> ...]
+    python3 -m benchmark.control <cell> <variant,...> <seed> [<seed> ...]
 
-The configuration's own precision gives the lower readings; the port's
-reduced precisions (``--precision bf16``, ``int8``) are the control,
-whose readings are the upper ones.  Prints one JSON line per seed and
-precision.  The benchmark's runs do not run this.
+A variant is a precision of the port (``PRECISIONS``: the cell's argv,
+with ``--precision`` where it is not the configuration's own) or a name
+under the configuration's ``check.control``, whose argv it appends (for
+a method whose answer no precision changes, as a selection's).  The
+configuration's own precision gives the lower readings; the control (the
+port's reduced precisions, ``--precision bf16`` and ``int8``, or a named
+variant) the upper ones.  Prints one JSON line per seed and variant.
+The benchmark's runs do not run this.
 """
 
 from __future__ import annotations
@@ -26,8 +30,28 @@ from benchmark import check, generate, spec
 from benchmark.run import job_argv, run_job
 
 
-def readings(cell: spec.Cell, precisions: list[str], seeds: list[int],
+# the port's ``--precision`` values
+PRECISIONS = ("f32", "bf16", "int8")
+
+
+def variants(cell: spec.Cell) -> dict[str, tuple[str, list[str]]]:
+    """The cell's variants by name: (precision, argv appended to the
+    cell's).  A precision keeps its meaning over a named variant."""
+    own = cell.config["precision"]
+    out = {name: (own, list(extra)) for name, extra
+           in cell.config["check"].get("control", {}).items()}
+    out.update({p: (p, [] if p == own else ["--precision", p])
+                for p in PRECISIONS})
+    return out
+
+
+def readings(cell: spec.Cell, names: list[str], seeds: list[int],
              device: str = "cuda") -> list[dict]:
+    have = variants(cell)
+    unknown = [name for name in names if name not in have]
+    if unknown:
+        raise SystemExit(f"{cell.name}: no control variant "
+                         f"{', '.join(unknown)}; it has: {', '.join(have)}")
     from specpride_tpu_torch import cli
 
     rows = []
@@ -41,18 +65,17 @@ def readings(cell: spec.Cell, precisions: list[str], seeds: list[int],
             t0 = time.perf_counter()
             ref = cell.reference().run(w, cell.config)
             ref_s = time.perf_counter() - t0
-            for prec in precisions:
+            for name in names:
+                prec, extra = have[name]
                 out = os.path.join(work, "out.mgf")
                 qc = os.path.join(work, "qc.json")
-                argv = job_argv(cell, src, out, qc, device)
-                if prec != cell.config["precision"]:
-                    argv += ["--precision", prec]
+                argv = job_argv(cell, src, out, qc, device) + extra
                 t0 = time.perf_counter()
                 summary = run_job(cli, argv)
                 job_s = time.perf_counter() - t0
                 row = {"cell": cell.name, "seed": seed, "precision": prec,
-                       "job_s": job_s, "reference_s": ref_s,
-                       "ok": summary is not None}
+                       "variant": name, "job_s": job_s,
+                       "reference_s": ref_s, "ok": summary is not None}
                 if summary is not None:
                     row.update(check.compare(
                         check.read_mgf(out),

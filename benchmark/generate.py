@@ -221,9 +221,16 @@ def peak_lines(mz_code: np.ndarray, int_code: np.ndarray,
             keep.sum(axis=1))
 
 
+def member_title(cluster_id: str, scan: int) -> str:
+    """A member's TITLE as the input carries it: its cluster's id and its
+    USI.  A selection writes the chosen member's record unchanged, so its
+    reference expects this title (``Reps.titles``)."""
+    return f"{cluster_id};mzspec:{ACCESSION}:{RAW}:scan:{int(scan)}"
+
+
 def _header(w: Workload, m: int, cluster_id: str, dec: int) -> bytes:
-    return (f"BEGIN IONS\nTITLE={cluster_id};mzspec:{ACCESSION}:{RAW}:scan:"
-            f"{int(w.scans[m])}\nPEPMASS={w.precursor_mz[m]:.{dec}f}\n"
+    return (f"BEGIN IONS\nTITLE={member_title(cluster_id, w.scans[m])}\n"
+            f"PEPMASS={w.precursor_mz[m]:.{dec}f}\n"
             f"CHARGE={int(w.charge[m])}+\nRTINSECONDS={w.rt[m]:.1f}\n"
             ).encode()
 

@@ -19,3 +19,7 @@ class Reps:
     rt: np.ndarray  # (C,) float64; 0 where the record carries no RT
     cosines: np.ndarray | None  # (C,) mean member cosine, with a QC report
     sizes: dict  # problem sizes of the job (work/<config>.py reads them)
+    # (C,) each representative's expected TITLE; None: the cluster ids, as
+    # every consensus writes.  A selection gives the chosen member's own
+    # (``benchmark.generate.member_title``).
+    titles: list | None = None

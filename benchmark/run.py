@@ -273,6 +273,12 @@ class Run:
         print("window_cpu: " + json.dumps(
             {k: cpu1[k] - cpu0[k] for k in cpu1}), file=sys.stderr,
             flush=True)
+        # the window's rate, for the record: no cell bounds it (the host
+        # paces it), a traced run reports it as ``traced_spectra_per_s``
+        print("window: " + json.dumps(
+            {"jobs": len(jobs), "seconds": t1 - t0, "spectra_per_s":
+             len(jobs) * self.info["spectra"] / (t1 - t0)}),
+            file=sys.stderr, flush=True)
         win = {"t0": t0, "t1": t1, "starts": starts, "jobs": jobs,
                "failed": failed, "outputs": outputs, "journals": journals,
                "rss_bytes": resource.getrusage(

@@ -47,7 +47,7 @@ def add_files(root: str) -> None:
     bench_json["per_layer"].append({
         "name": "jobs_in_window", "unit": "jobs", "better": "higher",
         "source": "host_clock", "layer": "executor",
-        "moves": "spectra_per_s", "workloads": ["noqc.tiny16"]})
+        "moves": "peak_rss_gib", "workloads": ["noqc.tiny16"]})
     with open(path, "w") as fh:
         json.dump(bench_json, fh)
 

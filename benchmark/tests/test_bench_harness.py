@@ -26,8 +26,7 @@ def test_untraced_run_reports_the_end_to_end_metrics(tiny_root):
     res = tiny_run(tiny_root, "binmean_qc.run8k", trace=False)
     assert res["correct"] is True
     assert res["failed"] == 0 and res["attempted"] >= 1
-    assert set(res["metrics"]) == {"spectra_per_s", "peak_rss_gib",
-                                   "setup_s"}
+    assert set(res["metrics"]) == {"peak_rss_gib", "setup_s"}
     assert all(m["value"] > 0 for m in res["metrics"].values())
     assert list(res)[-1] == "check"
     assert res["check"]["mismatched_reps"]["value"] == 0
@@ -42,7 +41,8 @@ def test_traced_run_reads_the_per_layer_metrics(tiny_root):
     # two chunks (the pipelined executor); the CPU has no device trace,
     # so its two readers find nothing to read
     assert {"import_s", "dispatch_wait_share", "pack_ms_per_kspectra",
-            "mgf_io_ms_per_kspectra", "h2d_bytes_per_spectrum"} <= got
+            "mgf_io_ms_per_kspectra", "h2d_bytes_per_spectrum",
+            "traced_spectra_per_s"} <= got
     assert not got & {"device_roofline", "device_idle_share"}
     assert 0.0 <= res["metrics"]["dispatch_wait_share"]["value"] <= 1.0
 
@@ -79,7 +79,7 @@ def test_without_a_card_the_command_prints_no_result(tiny_root, tmp_path):
     assert proc.returncode != 0
     assert not [ln for ln in proc.stdout.splitlines()
                 if ln.startswith("{")]
-    assert "spectra_per_s" not in proc.stdout
+    assert "peak_rss_gib" not in proc.stdout
     assert "torch.cuda.is_available() is false" in proc.stderr
     assert not [p for p in os.listdir(tmp_path)
                 if p.startswith("specpride-bench-")]
